@@ -67,14 +67,17 @@ def _host_cpu() -> str:
         return ""
 
 
-def build(name: str, sources: Sequence[Path], command) -> Tuple[Path, float, str]:
+def build(
+    name: str, sources: Sequence[Path], command, headers: Sequence[Path] = ()
+) -> Tuple[Path, float, str]:
     """Build ``sources`` into ``BUILD_DIR/<name>-<hash>.so`` unless that file
     exists. ``command(sources, out)`` returns the compiler's argv. The hash
-    covers the sources, the command and the host CPU. Returns (library path,
-    seconds spent compiling in this call, compiler output)."""
+    covers the sources, the ``headers`` they include, the command and the
+    host CPU. Returns (library path, seconds spent compiling in this call,
+    compiler output)."""
     sources = [Path(s) for s in sources]
     h = hashlib.sha256(_host_cpu().encode())
-    for s in sources:
+    for s in [*sources, *map(Path, headers)]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(command(sources, Path("OUT"))[1:]).encode())

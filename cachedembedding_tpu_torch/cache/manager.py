@@ -40,7 +40,10 @@ from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
 from cachedembedding_tpu_torch.ops.synth_rows import scatter_synth_admits
 
-_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CACHE_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+}
+_TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
@@ -93,6 +96,9 @@ def default_table_init(table_sizes: Sequence[int], seed: int):
 class CachedEmbeddingBag:
     """Frequency-aware software-cached EmbeddingBag (single device, host planner).
 
+    Cache rows are stored in ``dtype`` (f32, bf16 or float8_e4m3fn) over the
+    f32 host master; admits round into it as ``jnp.astype`` does, and
+    writebacks and flushes widen exactly to the transfer dtype (>= bf16).
     Runs on ``device`` (default: the current CUDA device; with no GPU and no
     explicit ``device="cpu"`` this raises)."""
 
@@ -116,19 +122,17 @@ class CachedEmbeddingBag:
         resident_tables: Optional[Sequence[int]] = None,
     ):
         self.device = resolve_device(device)
-        if transfer_dtype not in ("float32", "bfloat16"):
+        if transfer_dtype not in _TRANSFER_DTYPES:
             raise NotImplementedError(
                 f"transfer_dtype={transfer_dtype!r}: int8/int4 admit payloads are "
                 "ROADMAP Queue 1 item 4"
             )
-        if isinstance(dtype, str):
-            if dtype not in _CACHE_DTYPES:
-                raise NotImplementedError(
-                    f"cache dtype {dtype!r}: fp8 cache rows are ROADMAP Queue 1 item 7"
-                )
-            dtype = _CACHE_DTYPES[dtype]
-        if dtype not in _CACHE_DTYPES.values():
-            raise NotImplementedError(f"cache dtype {dtype}: fp8 cache rows are ROADMAP Queue 1 item 7")
+        dtype = CACHE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+        if dtype not in CACHE_DTYPES.values():
+            raise NotImplementedError(
+                f"cache dtype {dtype}: the port stores float32, bfloat16 and float8_e4m3fn "
+                "rows; other storage dtypes are ROADMAP Queue 1 item 7"
+            )
         if mode not in ("sum", "mean"):
             raise ValueError(f"unsupported mode {mode!r}")
         self.num_embeddings = int(num_embeddings)
@@ -212,7 +216,7 @@ class CachedEmbeddingBag:
             self._warm_freq = self._host_freq
 
         self.stats = CacheStats()
-        self.transfer_dtype = _CACHE_DTYPES[transfer_dtype]
+        self.transfer_dtype = _TRANSFER_DTYPES[transfer_dtype]
         # Writeback drain: evicted rows land in the host table on a worker
         # thread. The host table is guarded by a lock; a re-admission of a row
         # whose writeback is still in flight is prevented by _ensure_clean.

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from cachedembedding_tpu_torch.ops.rounding import index_copy_storage_
+
 
 class EvictionStrategy(enum.Enum):
     """Mirror of the reference's ``EvictionStrategy`` enum."""
@@ -25,7 +27,8 @@ def gather_slots(
     cache_weight: torch.Tensor, slots: torch.Tensor, out_dtype: Optional[torch.dtype] = None
 ) -> torch.Tensor:
     """Read rows out of the device cache (eviction writeback / flush).
-    ``slots`` are valid slot ids (the port ships exact counts, no padding)."""
+    ``slots`` are valid slot ids (the port ships exact counts, no padding).
+    fp8 rows widen exactly to ``out_dtype`` (bf16 or f32)."""
     rows = cache_weight.index_select(0, slots)
     return rows.to(out_dtype) if out_dtype is not None else rows
 
@@ -33,6 +36,7 @@ def gather_slots(
 def scatter_admits(
     cache_weight: torch.Tensor, slots: torch.Tensor, values: torch.Tensor
 ) -> None:
-    """Land admitted rows in their cache slots, in place. ``values`` may arrive
-    in a narrower transfer dtype (bf16) and is converted to the cache dtype."""
-    cache_weight.index_copy_(0, slots, values.to(cache_weight.dtype))
+    """Land admitted rows in their cache slots, in place. ``values`` arrive in
+    the transfer dtype (f32 or bf16) and are cast to the cache dtype as
+    ``jnp.astype`` casts them (``ops/rounding.astype_storage``)."""
+    index_copy_storage_(cache_weight, slots, values)

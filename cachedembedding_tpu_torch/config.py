@@ -27,16 +27,27 @@ class CacheConfig:
     approx_evict: bool = False         # approximate victim selection (device planner)
     weight_init: str = "uniform"       # host table init: "uniform" | "zeros" | "virtual"
     transfer_dtype: str = "float32"    # host<->device admit payload dtype
-    cache_dtype: str = "bfloat16"      # device cache-row storage dtype
+    cache_dtype: str = "bfloat16"      # device cache-row storage dtype:
+    # "float32" | "bfloat16" | "float8_e4m3fn"
     ship_sort_perm: bool = False       # host-planned bin grouping for the
     # embedding update (ops/binned_scatter.py); the port requires it
-    stochastic_rounding: str = "auto"  # "auto" | "on" | "off" (fp8 cache rows)
+    stochastic_rounding: str = "auto"  # "auto" | "on" | "off": stochastic
+    # rounding of the per-step f32 update back into the cache rows
+    # (ops/rounding.py); "auto" is on for fp8 rows, where round-to-nearest
+    # drops every sub-ulp update
     id_wire: str = "escape"            # id wire format: "plain" | "escape" | "ranktier"
     escape_pack: bool = True           # escape-coded id wire format
     use_pallas_lookup: bool = False    # row-gather kernel for the lookup
     onehot_max_rows: int = 2048        # small resident tables: one-hot backward
     resident_threshold: int = 0        # tables with <= this many rows stay fully
     # device-resident in a region after the cache slots; 0 disables
+
+    @property
+    def rounds_stochastically(self) -> bool:
+        """``stochastic_rounding`` as the JAX trainer reads it: "on" for any
+        storage dtype, "auto" for fp8 rows only, anything else off."""
+        mode = self.stochastic_rounding
+        return mode == "on" or (mode == "auto" and self.cache_dtype.startswith("float8"))
 
 
 @dataclasses.dataclass

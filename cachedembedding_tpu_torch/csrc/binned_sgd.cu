@@ -4,21 +4,13 @@
 //
 //   cw[v] <- round(cw[v] - slr * sum_{i : ids[i] == v} g[i])   (in place)
 //
-// The host ships a bin grouping of the step's id stream (sort_plan): perm,
-// ids_grouped = ids[perm] and bin_starts, stable by id / R. Bin b owns rows
-// [R*b, R*(b+1)) and its contributors are the contiguous range
-// [bin_starts[b], bin_starts[b+1]) of the grouped stream.
-//
-// Design: one thread block per bin. The bin's (R, D) f32 accumulator lives in
-// shared memory (R = 64, D = 128: 32 KB; the TPU kernel's 512-row f32 tile
-// would be 256 KB, more than the 227 KB a block can have). Threads own
-// columns and walk the bin's range in stream order, reading g[perm[e]]
-// directly, so no permuted copy of g is made; 8 elements are loaded ahead of
-// their adds for memory-level parallelism, and the adds keep stream order.
+// Design: one thread block per bin of the host's grouping plan; the bin walk
+// (binned_walk.cuh) sums the bin's contributions into an (R, D) f32
+// accumulator in shared memory (R = 64, D = 128: 32 KB; the TPU kernel's
+// 512-row f32 tile would be 256 KB, more than the 227 KB a block can have).
 // Rows that received a contribution are flagged and written once as
 // round(cw - slr*acc) with one rounding to the storage dtype; untouched rows
-// are never written, so they stay bit-exact. No atomics: the sum order is
-// fixed, so results are the same bits from run to run.
+// are never written, so they stay bit-exact.
 //
 // What bounds it: bytes — g (L*D*elt) plus perm and ids (8 B each per
 // element) plus a read and a write of each touched row. At the main-path shape
@@ -33,12 +25,9 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "binned_walk.cuh"
+
 namespace {
-
-constexpr int kAhead = 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -62,40 +51,13 @@ __global__ void binned_sgd_kernel(T* __restrict__ cw, const T* __restrict__ g,
   const int s = bin_starts[b];
   const int e = bin_starts[b + 1];
   if (s == e) return;  // nobody touched this bin: nothing to write
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < R; i += blockDim.x) touched[i] = 0;
-  __syncthreads();
   const int64_t row0 = b * R;
-  for (int base = s; base < e; base += kAhead) {
-    int src[kAhead];
-    int loc[kAhead];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      const int i = base + u;
-      src[u] = i < e ? __ldg(perm + i) : -1;
-      loc[u] = i < e ? static_cast<int>(__ldg(grouped + i) - row0) : 0;
-    }
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u)
-        if (src[u] >= 0) touched[loc[u]] = 1;
-    }
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      float v[kAhead];
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u)
-        v[u] = src[u] >= 0 ? to_f32(g[static_cast<int64_t>(src[u]) * D + c]) : 0.f;
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u)
-        if (src[u] >= 0) acc[loc[u] * D + c] += v[u];
-    }
-  }
-  __syncthreads();
+  binned::accumulate_bin<true>(acc, touched, g, perm, grouped, s, e, row0, D, R);
   for (int r = 0; r < R; ++r) {
     if (!touched[r]) continue;  // same branch for every thread of the block
     T* row = cw + (row0 + r) * D;
     for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      const float w = to_f32(row[c]);
+      const float w = binned::to_f32(row[c]);
       row[c] = from_f32<T>(__fsub_rn(w, __fmul_rn(slr, acc[r * D + c])));
     }
   }
@@ -105,15 +67,15 @@ template <typename T>
 int launch(void* cw, const void* g, const int32_t* perm, const int32_t* grouped,
            const int32_t* bin_starts, int64_t num_bins, int D, int R, float slr,
            cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(R) * D * sizeof(float) + R * sizeof(int);
+  const size_t smem = binned::smem_bytes(R, D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         binned_sgd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int threads = D < 256 ? ((D + 31) / 32) * 32 : 256;
-  binned_sgd_kernel<T><<<static_cast<unsigned>(num_bins), threads, smem, stream>>>(
+  binned_sgd_kernel<T><<<static_cast<unsigned>(num_bins), binned::threads_for(D), smem,
+                         stream>>>(
       static_cast<T*>(cw), static_cast<const T*>(g), perm, grouped, bin_starts, D, R,
       slr);
   return static_cast<int>(cudaGetLastError());

@@ -15,10 +15,14 @@ import torch
 
 from cachedembedding_tpu_torch import _build
 
+_CSRC = _build.PKG_DIR / "csrc"
 SOURCES = {
-    "gather_rows": _build.PKG_DIR / "csrc" / "gather_rows.cu",
-    "binned_sgd": _build.PKG_DIR / "csrc" / "binned_sgd.cu",
+    "gather_rows": _CSRC / "gather_rows.cu",
+    "binned_sgd": _CSRC / "binned_sgd.cu",
+    "binned_scatter_add": _CSRC / "binned_scatter_add.cu",
+    "stochastic_round": _CSRC / "stochastic_round.cu",
 }
+HEADERS = [_CSRC / "binned_walk.cuh"]  # part of every kernel's build hash
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -28,12 +32,20 @@ _PROTOTYPES = {
         "binned_sgd_launch",
         [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
     ),
+    "binned_scatter_add": (
+        "binned_scatter_add_launch",
+        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+    ),
+    "stochastic_round": (
+        "stochastic_round_launch",
+        [_P, _P, _I64, ctypes.c_uint32, ctypes.c_int, _P],
+    ),
 }
 
 
 def build_kernel(name: str):
     """Compile one kernel library if needed; returns (path, seconds, nvcc output)."""
-    return _build.build(f"lib{name}", [SOURCES[name]], _build.nvcc_command)
+    return _build.build(f"lib{name}", [SOURCES[name]], _build.nvcc_command, HEADERS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,16 +1,23 @@
-"""Fused embedding backward + SGD update — Kernel 2 of the port.
+"""Embedding backward over a host-planned bin grouping: the fused SGD update
+(Kernel 2 of the port) and the binned scatter-add (Kernel 3).
 
-Counterpart of ``cachedembedding_tpu/ops/binned_scatter.py`` (TPU kernel
-``_kernel_sgd``, wrapper ``binned_sgd_update``). The CUDA kernel is
-``csrc/binned_sgd.cu``; its note says what bounds it on the H100 and how the
-design answers that.
+Counterpart of ``cachedembedding_tpu/ops/binned_scatter.py`` (TPU kernels
+``_kernel_sgd``, wrapper ``binned_sgd_update``, and ``_kernel``, wrapper
+``binned_scatter_add``). The CUDA kernels are ``csrc/binned_sgd.cu`` and
+``csrc/binned_scatter_add.cu``, which share the bin walk of
+``csrc/binned_walk.cuh``; their notes say what bounds them on the H100 and
+how the design answers that.
 
     binned_sgd_update(cw, g, perm, v_grouped, bin_starts, slr)
         == cw.at[ids].add(-slr * g)   with ids[perm] == v_grouped
+    binned_scatter_add(g, perm, v_grouped, bin_starts, num_rows)
+        == zeros((num_rows, D), f32).at[ids].add(g)
 
-Contributions to a row are summed in f32 and rounded to the storage dtype
-once; rows nobody touched stay bit-exact. **The update is in place**: ``cw``
-is modified and returned (the JAX wrapper donates ``cw`` to the same effect).
+In the update, contributions to a row are summed in f32 and rounded to the
+storage dtype once; rows nobody touched stay bit-exact. **The update is in
+place**: ``cw`` is modified and returned (the JAX wrapper donates ``cw`` to
+the same effect). The scatter-add returns a new f32 array, every row of it
+written (untouched rows as zeros).
 
 Layout contract (host side, ``sort_plan_np``): ``perm`` (L,) int32 groups the
 id stream stably by ``id // BLOCK_ROWS``; ``v_grouped = ids[perm]``;
@@ -93,6 +100,58 @@ def binned_sgd_update(
 
 
 binned_sgd_update.launches = 0
+
+
+def binned_scatter_add_plain(
+    g: torch.Tensor, perm: torch.Tensor, v_grouped: torch.Tensor, bin_starts: torch.Tensor,
+    num_rows: int,
+) -> torch.Tensor:
+    """Plain PyTorch version: f32 sums over the grouped stream. ``bin_starts``
+    is implied by ``v_grouped``."""
+    del bin_starts
+    out = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, v_grouped.long(), g.index_select(0, perm.long()).float())
+
+
+def binned_scatter_add(
+    g: torch.Tensor,           # (L, D) row grads in stream order, f32 or bf16
+    perm: torch.Tensor,        # (L,) int32 grouping permutation
+    v_grouped: torch.Tensor,   # (L,) int32 bin-grouped ids
+    bin_starts: torch.Tensor,  # (NB+1,) int32 over ceil(num_rows / BLOCK_ROWS) bins
+    num_rows: int,
+) -> torch.Tensor:
+    """(num_rows, D) f32 grad: zeros.at[ids].add(g), duplicates summed in f32."""
+    L, D = g.shape
+    num_rows = int(num_rows)
+    nb = -(-num_rows // BLOCK_ROWS)
+    if perm.shape != (L,) or v_grouped.shape != (L,):
+        raise ValueError("binned_scatter_add: g (L, D), perm (L,) and v_grouped (L,) must agree")
+    if bin_starts.shape != (nb + 1,):
+        raise ValueError(f"bin_starts has shape {tuple(bin_starts.shape)}, expected ({nb + 1},)")
+    tensors = (g, perm, v_grouped, bin_starts)
+    if all(t.device.type == "cpu" for t in tensors):
+        return binned_scatter_add_plain(g, perm, v_grouped, bin_starts, num_rows)
+    if any(t.device != g.device for t in tensors) or g.device.type != "cuda":
+        raise ValueError("binned_scatter_add: all tensors must be on the same CUDA device")
+    if g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"binned_scatter_add takes float32 and bfloat16 grads, not {g.dtype}")
+    if any(t.dtype != torch.int32 for t in (perm, v_grouped, bin_starts)):
+        raise ValueError("perm, v_grouped and bin_starts must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("binned_scatter_add needs contiguous tensors")
+    out = torch.empty((num_rows, D), dtype=torch.float32, device=g.device)
+    launch = _cuda.kernel_entry("binned_scatter_add")
+    rc = launch(
+        out.data_ptr(), g.data_ptr(), perm.data_ptr(), v_grouped.data_ptr(),
+        bin_starts.data_ptr(), nb, num_rows, D, BLOCK_ROWS, _DTYPE_CODES[g.dtype],
+        _cuda.stream_of(g),
+    )
+    _cuda.check_launch("binned_scatter_add", rc)
+    binned_scatter_add.launches += 1
+    return out
+
+
+binned_scatter_add.launches = 0
 
 
 def sort_plan_np(v: np.ndarray, num_rows: int):

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from cachedembedding_tpu_torch.ops.rounding import index_copy_storage_
+
 _M32 = 0xFFFFFFFF
 
 
@@ -64,9 +66,10 @@ def scatter_synth_admits(
     chunk: int = 1 << 17,
 ) -> None:
     """Admit never-trained rows: generate on the device, land them in their
-    cache slots in place. Chunked to bound the (n, D) int64 hash transients."""
+    cache slots in place, cast to the cache dtype as ``jnp.astype`` casts.
+    Chunked to bound the (n, D) int64 hash transients."""
     D = cache_weight.shape[1]
     for s in range(0, rows.shape[0], chunk):
         e = min(s + chunk, rows.shape[0])
         vals = synth_rows(rows[s:e], bounds[s:e], seed, D)
-        cache_weight.index_copy_(0, slots[s:e], vals.to(cache_weight.dtype))
+        index_copy_storage_(cache_weight, slots[s:e], vals)

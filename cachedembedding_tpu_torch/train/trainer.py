@@ -17,6 +17,14 @@ are planned once by the host directory. Per window, in order:
      bin-grouping plan the host computed for the step;
   7. dense SGD follows.
 
+With stochastic rounding on (fp8 rows by default, ``CacheConfig.
+rounds_stochastically``), steps 3-6 take the JAX package's rounding branch
+(``_scan_window``): the rows are upcast to f32 before the gradient is taken,
+the row gradients go to bf16 (or the storage dtype, if wider), Kernel 3
+builds the (C, D) f32 grad from the same plan, ``cw - slr * g`` is formed in
+f32, and Kernel 4 (``ops/rounding.py``) rounds it stochastically back into
+the cache with a per-step seed.
+
 The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
 back once, at the end. ``evaluate`` runs the same window machinery with the
@@ -33,24 +41,32 @@ import numpy as np
 import torch
 
 from cachedembedding_tpu_torch import resolve_device
-from cachedembedding_tpu_torch.cache.manager import CachedEmbeddingBag, WindowStaging
+from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, CachedEmbeddingBag, WindowStaging
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
 from cachedembedding_tpu_torch.jagged import Batch, concat_uniform_values
 from cachedembedding_tpu_torch.models.dlrm import DLRM, bce_with_logits
-from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, sort_plan_np
+from cachedembedding_tpu_torch.ops.binned_scatter import (
+    binned_scatter_add,
+    binned_sgd_update,
+    sort_plan_np,
+)
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+from cachedembedding_tpu_torch.ops.rounding import stochastic_astype
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
 _EVAL_READBACK_STEPS = 32  # eval scores stay on the device this many steps
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_M32 = 0xFFFFFFFF
+_SEED_MUL = 0x9E3779B9  # per-step rounding seeds: uint32(step) * this + p, as in JAX
 
 
 def _refuse_outside_slice(cfg: DLRMConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
     the port does not run yet."""
     c = cfg.cache
+    fp8 = c.cache_dtype.startswith("float8")
     refusals = [
         (cfg.model != "dlrm", f"model={cfg.model!r}: DeepFM is ROADMAP Queue 1 item 3"),
         (cfg.interaction_impl != "bmm", "interaction_impl='gather' is ROADMAP Queue 1 item 3"),
@@ -63,9 +79,12 @@ def _refuse_outside_slice(cfg: DLRMConfig) -> None:
          f"dense_input_dtype={cfg.dense_input_dtype!r}: int8/int4 dense inputs are ROADMAP Queue 1 item 8"),
         (c.transfer_dtype not in _FLOAT_DTYPES,
          f"transfer_dtype={c.transfer_dtype!r}: int8/int4 transfers are ROADMAP Queue 1 item 4"),
-        (c.cache_dtype not in _FLOAT_DTYPES,
-         f"cache_dtype={c.cache_dtype!r}: fp8 cache rows are ROADMAP Queue 1 item 7"),
-        (c.stochastic_rounding == "on", "stochastic rounding is ROADMAP Queue 1 item 7"),
+        (c.cache_dtype not in CACHE_DTYPES,
+         f"cache_dtype={c.cache_dtype!r}: storage dtypes other than float32, bfloat16 and "
+         "float8_e4m3fn are ROADMAP Queue 1 item 7"),
+        (fp8 and not c.rounds_stochastically,
+         "fp8 cache rows with stochastic_rounding='off' (the fused update on fp8 grads) "
+         "are ROADMAP Queue 1 item 7"),
         (not c.ship_sort_perm,
          "ship_sort_perm=False: the port's update is the binned kernel; the scatter "
          "update path is ROADMAP Queue 1 item 5"),
@@ -121,7 +140,7 @@ class CachedDLRMTrainer:
             evict_strategy=EvictionStrategy.DATASET if use_dataset else EvictionStrategy.LFU,
             table_sizes=cfg.num_embeddings_per_feature,
             seed=cfg.seed,
-            dtype=_FLOAT_DTYPES[c.cache_dtype],
+            dtype=CACHE_DTYPES[c.cache_dtype],
             weight_init=c.weight_init,
             transfer_dtype=c.transfer_dtype,
             device=self.device,
@@ -140,6 +159,8 @@ class CachedDLRMTrainer:
         )
         self.data_parallel_size = int(np.prod(cfg.mesh_shape))
         self._dense_dtype = _FLOAT_DTYPES[cfg.dense_input_dtype]
+        self._sr = c.rounds_stochastically
+        self._step_idx = 0  # training steps dispatched before the current window
 
     # ------------------------------------------------------------------
     def _lrs(self, progress: float) -> Tuple[float, float]:
@@ -197,6 +218,19 @@ class CachedDLRMTrainer:
         """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype."""
         return gather_rows(self.embed.cache_weight, win.slot_ids[p], self.cfg.num_sparse_features)
 
+    def _sr_update(self, cw, g_rows, perm, grouped, bins, slr: float, seed: int) -> None:
+        """The rounding branch's update of one step, in place on ``cw``:
+        Kernel 3 builds the (C, D) f32 grad, ``cw - slr * g`` is formed in
+        f32 and written over that grad, and Kernel 4 rounds it stochastically
+        into ``cw``. ``cw.float()`` is a second (C, D) f32 array, as in the
+        JAX package; writing the result over the grad saves only a third."""
+        # fp8 grads would flush the sub-ulp updates the rounding preserves;
+        # bf16 keeps f32's exponent range at half the bytes
+        gdt = torch.bfloat16 if cw.element_size() == 1 else cw.dtype
+        g32 = binned_scatter_add(g_rows.to(gdt), perm, grouped, bins, cw.shape[0])
+        new32 = torch.sub(cw.float(), g32, alpha=slr, out=g32)
+        stochastic_astype(new32, cw.dtype, seed, out=cw)
+
     def _dispatch_window(self, win: _Window, progresses: List[float]) -> torch.Tensor:
         """Land the admits and enqueue every step of the window. Returns the
         (P,) per-step losses (device tensor, not yet read back)."""
@@ -208,12 +242,21 @@ class CachedDLRMTrainer:
         losses = []
         for p, progress in enumerate(progresses):
             slr, dlr = self._lrs(progress)
-            rows = self._gathered_rows(win, p).requires_grad_(True)
+            rows = self._gathered_rows(win, p)
+            if self._sr:
+                # differentiate w.r.t. the f32 upcast: a grad taken w.r.t.
+                # fp8 rows would be rounded through fp8
+                rows = rows.float()
+            rows.requires_grad_(True)
             sparse = pool_uniform(rows, B, self.cfg.reduction_mode)
             loss = bce_with_logits(self.model(win.dense[p], sparse), win.labels[p])
             loss.backward()
-            g_rows = rows.grad.reshape(-1, cw.shape[1]).to(cw.dtype)
-            binned_sgd_update(cw, g_rows, perms[p], groupeds[p], bins[p], slr)
+            g_rows = rows.grad.reshape(-1, cw.shape[1])
+            if self._sr:
+                seed = (self._step_idx * _SEED_MUL + p) & _M32
+                self._sr_update(cw, g_rows, perms[p], groupeds[p], bins[p], slr, seed)
+            else:
+                binned_sgd_update(cw, g_rows.to(cw.dtype), perms[p], groupeds[p], bins[p], slr)
             with torch.no_grad():
                 for prm in params:
                     prm.sub_(prm.grad * dlr)
@@ -268,6 +311,7 @@ class CachedDLRMTrainer:
                 events.append(ev)
             examples += sum(b.batch_size for b in cur)
             done += len(cur)
+            self._step_idx += len(cur)
             # plan + stage the NEXT window while the device executes this one
             th = time.perf_counter()
             nxt = fetch_window()

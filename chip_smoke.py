@@ -9,33 +9,59 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
   1. Build: the host C++ library (g++) and each CUDA kernel (nvcc, sm_90a),
      all started together, from the sources in the checkout into
      ``cachedembedding_tpu_torch/build/``.
-  2. Reference: the slice at a small f32 width, trained 6 windows and
-     evaluated on the card and on the CPU (the kernels' plain versions) from
-     the same seed; cache counts equal, losses, AUROC and dense weights within
-     f32 order, and the flushed rows of every id the training stream touched
-     within 1e-5, among them rows that were trained, evicted and admitted
-     again (which holds the writeback ordering to account).
-  3. The slice: bench.py's headline configuration (Criteo-Kaggle tables,
-     D=128, batch 16,384, 1% cache, prefetch 8, bf16 rows and compute,
-     resident tables <= 500k rows) with ship_sort_perm and the gather lookup
-     on: build the trainer, train 3 windows (24 steps), evaluate 1 window,
-     flush, and check flushed rows against the cache rows they came from.
-     Kernel launch counts are zeroed just before and read just after.
-  4. Kernels against their plain PyTorch versions on the slice's own first
-     training step (its device addresses and its grouping plan, 26 x 16,384
-     ids into 901,228 x 128 bf16 rows): the row gather must equal
-     index_select bit for bit; the fused binned SGD update must leave
-     untouched rows bit-equal, keep touched rows within one bf16 ulp of the
-     plain version, and give identical bits on two launches. Median times
-     beside each kernel's bound and yardsticks.
+  2. Reference: two small slices, each trained 6 windows and evaluated on the
+     card and on the CPU (the kernels' plain versions) from the same seed,
+     through a cache of 480 slots that evicts trained rows and admits them
+     again (which holds the writeback ordering to account):
+       a. f32 rows and compute (Kernels 1, 2): cache counts equal; losses,
+          AUROC and dense weights within f32 order; the flushed rows of every
+          id the training stream touched within 1e-5;
+       b. float8_e4m3fn rows with stochastic rounding, f32 compute (Kernels 1,
+          3, 4; kernel and plain version draw the same Philox bits): counts
+          equal; losses within rtol 1e-3; at least 99.9% of the flushed
+          elements equal and every one within 2 e4m3 steps (the f32 GEMMs
+          sum in another order on the card, which can flip a rounding).
+  3. The bf16 slice: bench.py's headline configuration (Criteo-Kaggle
+     tables, D=128, batch 16,384, 1% cache, prefetch 8, bf16 rows and
+     compute, resident tables <= 500k rows) with ship_sort_perm and the
+     gather lookup on: build the trainer, train 3 windows (24 steps),
+     evaluate 1 window, flush, and check flushed rows against the cache rows
+     they came from. Kernel launch counts are zeroed just before and read
+     just after.
+  4. Kernels 1 and 2 against their plain versions on the bf16 slice's first
+     training step (its device addresses and grouping plan, 26 x 16,384 ids
+     into 901,228 x 128 bf16 rows): the row gather must equal index_select
+     bit for bit; the fused binned SGD update must leave untouched rows
+     bit-equal, keep touched rows within one bf16 ulp of the plain version,
+     and give identical bits on two launches.
+  5. The fp8 slice: the same configuration with float8_e4m3fn rows
+     (stochastic rounding on), 24 steps, 1 evaluation window and a flush
+     checked as in phase 3; its own launch counts.
+  6. Kernels 1, 3 and 4 on the fp8 slice's first training step (its ids,
+     plan and row grads, and the cache rows before its update): the gather
+     of 128-byte fp8 rows equal to index_select bit for bit (uint8 view);
+     the binned scatter-add, and its plain version, each within 1e-5 of the
+     sum of |g| of every element's addends from a float64 index_add_,
+     untouched rows exactly 0, identical bits on two launches, and the gate
+     shown to reject three planted faults (all zeros, every second addend
+     dropped, the heaviest bin skipped); stochastic rounding of that step's
+     cw - slr * g bit-equal to its plain version for float8_e4m3fn, bf16 and
+     float8_e5m2.
+  7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
+     prepare_ids then lookup over seeded ids that together exceed its
+     capacity, equal to the host rows through the storage cast, pooled.
 
+Phases 4 and 6 time each kernel (median of CUDA-event-timed calls) beside its
+bound, its plain version and a PyTorch yardstick, and the binned kernels also
+on the light part of their step alone (the ids of bins of at most 1,024 ids).
 Prints per-phase results, then the card's name and power limit, then a
-``{"kernels": [...]}`` line, and as the last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
+``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero before that.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -44,6 +70,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 ITERS = 10
+FP8 = "float8_e4m3fn"
+BF16_KERNELS = ("gather_rows", "binned_sgd")  # timed on the bf16 slice, the others on the fp8 one
 
 
 def log(msg: str) -> None:
@@ -68,6 +96,26 @@ def median_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, by its name in the kernels line; a wrapper's
+    ``launches`` counts the launches of its CUDA kernel."""
+    from cachedembedding_tpu_torch.ops.binned_scatter import binned_scatter_add, binned_sgd_update
+    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype
+
+    return {"gather_rows": gather_rows, "binned_sgd": binned_sgd_update,
+            "binned_scatter_add": binned_scatter_add, "stochastic_round": stochastic_astype}
+
+
+def launch_counts() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def zero_launch_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
 def phase_build() -> None:
     from cachedembedding_tpu_torch._native import hostops
     from cachedembedding_tpu_torch.ops import _cuda
@@ -85,7 +133,7 @@ def phase_build() -> None:
                     log(f"[build]   {line.strip()}")
 
 
-def slice_config():
+def slice_config(cache_dtype: str):
     from cachedembedding_tpu_torch.config import (
         CRITEO_KAGGLE_NUM_EMBEDDINGS_PER_FEATURE,
         CacheConfig,
@@ -105,7 +153,7 @@ def slice_config():
         cache=CacheConfig(
             cache_ratio=0.01, warmup_ratio=0.7, prefetch_num=8, buffer_size=0,
             use_lfu_eviction=False, weight_init="virtual", transfer_dtype="bfloat16",
-            cache_dtype="bfloat16", resident_threshold=500_000,
+            cache_dtype=cache_dtype, resident_threshold=500_000,
             ship_sort_perm=True, use_pallas_lookup=True,
         ),
     )
@@ -118,10 +166,29 @@ def _ulp_bf16(x):
     return torch.exp2(e - 7)
 
 
+LIGHT_BIN = 1024  # a bin of at most this many ids is light
+
+
+def light_part(g, ids_nf, bins, num_rows):
+    """The light part of a step: its stream without the ids of bins of more
+    than LIGHT_BIN ids, in stream order, planned anew. Returns (g, perm,
+    v_grouped, bin_starts) of that part and the share of ids it keeps."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import BLOCK_ROWS, sort_plan_np
+
+    ids = ids_nf.cpu().numpy().astype("int32")
+    keep = torch.diff(bins).cpu().numpy()[ids // BLOCK_ROWS] <= LIGHT_BIN
+    g_l = g[torch.from_numpy(keep).to(g.device)].contiguous()
+    plan = (torch.from_numpy(a).to(g.device) for a in sort_plan_np(ids[keep], num_rows))
+    return (g_l, *plan), float(keep.mean())
+
+
 def phase_kernels(cfg, tr, win) -> list:
-    """Hold both kernels against their plain versions on the first training
-    step of the slice: its device addresses, its grouping plan and the
-    trained cache rows (cloned, so the trainer's state is not touched)."""
+    """Hold Kernels 1 and 2 against their plain versions on the first
+    training step of the bf16 slice: its device addresses, its grouping plan
+    and the trained cache rows (cloned, so the trainer's state is not
+    touched)."""
     import torch
 
     from cachedembedding_tpu_torch.ops.binned_scatter import (
@@ -163,6 +230,7 @@ def phase_kernels(cfg, tr, win) -> list:
         bound_ms=(L * 4 + (n_distinct + L) * row_bytes) / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
         library_ms=median_ms(lambda: torch.index_select(cw, 0, ids_nf)),
+        library="torch.index_select", timed_on="bf16 slice, first training step",
         tolerance="bit-exact",
     )
     log(f"[kernel] gather_rows: {n_distinct} distinct rows, equal to index_select; {json.dumps(k1)}")
@@ -190,6 +258,7 @@ def phase_kernels(cfg, tr, win) -> list:
     tol = _ulp_bf16(torch.maximum(at.abs(), rt.abs())) + 1e-6
     if bool((diff > tol).any()):
         raise AssertionError(f"binned_sgd kernel off by {diff.max().item()} > one bf16 ulp")
+    light, light_share = light_part(g, ids_nf, bins, C)
     sizes = torch.diff(bins)
     top = torch.topk(sizes, 5)
     heavy = [(int(n), int(b) * BLOCK_ROWS) for n, b in zip(top.values, top.indices)]
@@ -207,7 +276,11 @@ def phase_kernels(cfg, tr, win) -> list:
         bound_by="bytes",
         # rounds each addend to bf16: a different result, timed as a yardstick
         library_ms=median_ms(lambda: cw_l.index_add_(0, ids_nf, g, alpha=-slr)),
+        library="Tensor.index_add_ (bf16 addends: a different rounding)",
+        timed_on="bf16 slice, first training step",
         tolerance="untouched bit-equal; touched within one bf16 ulp (+1e-6 abs)",
+        light_ms=median_ms(lambda: binned_sgd_update(cw_t, *light, slr)),
+        light_share=light_share,
     )
     log(f"[kernel] binned_sgd: {n_touched} touched rows; heaviest bins (ids, first row) {heavy}, "
         f"cache slots below row {tr.embed.capacity}; two launches bit-identical; {json.dumps(k2)}")
@@ -215,20 +288,170 @@ def phase_kernels(cfg, tr, win) -> list:
     return results
 
 
-def phase_reference(device) -> None:
-    """The slice at a small width with f32 rows and compute, once on the card
-    (through the kernels) and once on the CPU (through their plain versions),
-    on the same seeded stream. Cache counts must be equal; losses, AUROC and
-    the dense weights may differ only by f32 sum order (rtol 1e-4, AUROC
-    within 1e-4), and the flushed rows of every id the training stream
-    touched by 1e-5 (as the CPU tests hold the port against the JAX package).
-    Six windows through a cache of 480 slots evict trained rows and admit
-    them again, so a writeback that read a slot out of order (before the
-    previous window's update, or after this window's admits) would show."""
+SCATTER_RTOL = 1e-5  # of the sum of |g| over an element's addends
+
+
+def scatter_add_faults(out, ref64, abs64):
+    """Elements of a (C, D) f32 scatter-add ``out`` that are off its float64
+    sum ``ref64`` by more than SCATTER_RTOL of the sum of |g| ``abs64`` over
+    their addends. f32 sum-order error stays far inside that; a row that
+    misses an addend does not. Untouched rows must be exactly 0."""
+    return int(((out.double() - ref64).abs() > SCATTER_RTOL * abs64).sum())
+
+
+def phase_kernels_fp8(cfg, tr, win, first_update):
+    """Hold Kernels 1, 3 and 4 against their plain versions on the first
+    training step of the fp8 slice: its ids, its grouping plan, its row grads
+    (as the trainer cast them, to bf16) and the cache rows before its update.
+    Returns Kernel 1's numbers on this path and the entries of Kernels 3, 4."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import (
+        BLOCK_ROWS,
+        binned_scatter_add,
+        binned_scatter_add_plain,
+    )
+    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_astype_plain
+
+    F, D, B = cfg.num_sparse_features, cfg.embedding_dim, cfg.batch_size
+    cw0, g_rows, slr, seed = first_update
+    ids = win.slot_ids[0]
+    perm, grouped, bins = (a[0] for a in win.plan)
+    L, C = ids.shape[0], cw0.shape[0]
+    device = cw0.device
+    ids_nf = ids.reshape(F, B).t().reshape(-1).long()  # the grads' row order
+    g = g_rows.to(torch.bfloat16)
+    results = []
+
+    # ---- Kernel 1 on fp8 rows (128-byte rows); compared through a uint8 view ----
+    u8 = torch.uint8
+    out = gather_rows(cw0, ids, F)
+    plain = gather_rows_plain(cw0.view(u8), ids, F)
+    lib = torch.index_select(cw0.view(u8), 0, ids_nf).reshape(B, F, D)
+    torch.cuda.synchronize()
+    if not (torch.equal(out.view(u8), plain) and torch.equal(out.view(u8), lib)):
+        raise AssertionError("gather_rows kernel differs from index_select on fp8 rows")
+    n_distinct = int(torch.unique(ids).numel())
+    k1 = dict(
+        max_abs_err=0.0,
+        ms=median_ms(lambda: gather_rows(cw0, ids, F)),
+        plain_ms=median_ms(lambda: gather_rows_plain(cw0.view(u8), ids, F)),
+        bound_ms=(L * 4 + (n_distinct + L) * D * cw0.element_size()) / HBM_BYTES_PER_S * 1e3,
+        library_ms=median_ms(lambda: torch.index_select(cw0.view(u8), 0, ids_nf)),
+        timed_on="fp8 slice, first training step", tolerance="bit-exact (uint8 view)",
+    )
+    log(f"[kernel] gather_rows on fp8 rows: {n_distinct} distinct rows, equal to index_select; {json.dumps(k1)}")
+    del out, plain, lib
+
+    # ---- Kernel 3: the binned scatter-add, against a float64 index_add_ ----
+    a = binned_scatter_add(g, perm, grouped, bins, C)
+    b = binned_scatter_add(g, perm, grouped, bins, C)
+    ref = binned_scatter_add_plain(g, perm, grouped, bins, C)
+    ref64 = torch.zeros((C, D), dtype=torch.float64, device=device).index_add_(0, ids_nf, g.double())
+    abs64 = torch.zeros((C, D), dtype=torch.float64, device=device).index_add_(0, ids_nf, g.double().abs())
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("binned_scatter_add kernel is not deterministic across launches")
+    touched = torch.zeros(C, dtype=torch.bool, device=device)
+    touched[ids.long()] = True
+    if not bool((a[~touched] == 0).all()):
+        raise AssertionError("binned_scatter_add kernel wrote a nonzero untouched row")
+    for name, x in (("kernel", a), ("plain version", ref)):
+        n_bad = scatter_add_faults(x, ref64, abs64)
+        if n_bad:
+            raise AssertionError(f"binned_scatter_add {name}: {n_bad} elements off the float64 sum "
+                                 f"by more than {SCATTER_RTOL} of their sum of |g|")
+    # the gate must reject a planted fault: an all-zero output, a stream with
+    # every second addend dropped, and the heaviest bin left at zero
+    g_half = g.clone()
+    g_half[1::2] = 0
+    heavy = int(torch.argmax(torch.diff(bins)))
+    skipped = a.clone()
+    skipped[heavy * BLOCK_ROWS:(heavy + 1) * BLOCK_ROWS] = 0
+    planted = {"zeros": torch.zeros_like(a), "half the addends": binned_scatter_add_plain(g_half, perm, grouped, bins, C),
+               "heaviest bin skipped": skipped}
+    for name, x in planted.items():
+        if not scatter_add_faults(x, ref64, abs64):
+            raise AssertionError(f"binned_scatter_add gate passed a planted fault ({name})")
+    del planted, skipped, g_half
+    err = (a - ref).abs().max().item()
+    rel64 = ((a.double() - ref64).abs() / abs64.clamp_min(1e-300)).max().item()
+    ref_max = ref64.abs().max().item()
+    light, light_share = light_part(g, ids_nf, bins, C)
+    bytes3 = 8 * L + L * D * g.element_size() + bins.numel() * 4 + C * D * 4
+    k3 = dict(
+        name="binned_scatter_add", route="cuda",
+        source="cachedembedding_tpu_torch/csrc/binned_scatter_add.cu",
+        replaces="cachedembedding_tpu/ops/binned_scatter.py:64",
+        max_abs_err=err,
+        ms=median_ms(lambda: binned_scatter_add(g, perm, grouped, bins, C)),
+        plain_ms=median_ms(lambda: binned_scatter_add_plain(g, perm, grouped, bins, C)),
+        bound_ms=bytes3 / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=median_ms(
+            lambda: torch.zeros((C, D), dtype=torch.float32, device=device).index_add_(0, ids_nf, g.float())),
+        library="torch.zeros(C, D).index_add_ (f32 atomics: another sum order)",
+        timed_on="fp8 slice, first training step",
+        tolerance=f"kernel and plain version each within {SCATTER_RTOL} x sum|g| of a float64 index_add_; "
+                  "untouched rows exactly 0; two launches bit-identical",
+        max_err_over_sum_abs_g=rel64, max_abs_sum=ref_max,
+        light_ms=median_ms(lambda: binned_scatter_add(*light, C)),
+        light_share=light_share,
+    )
+    log(f"[kernel] binned_scatter_add: {int(touched.sum())} touched rows of {C}; largest |sum| {ref_max:.3e}; "
+        f"the gate rejects all three planted faults; {json.dumps(k3)}")
+    results.append(k3)
+    del ref64, abs64, light
+
+    # ---- Kernel 4: stochastic rounding of that step's cw - slr * g ----
+    new32 = torch.sub(cw0.float(), a, alpha=slr)
+    del b, ref
+    views = {torch.float8_e4m3fn: torch.uint8, torch.float8_e5m2: torch.uint8, torch.bfloat16: torch.int16}
+    for dt, view in views.items():
+        k = stochastic_astype(new32, dt, seed)
+        p = stochastic_astype_plain(new32, dt, seed)
+        torch.cuda.synchronize()
+        if not torch.equal(k.view(view), p.view(view)):
+            n = int((k.view(view) != p.view(view)).sum())
+            raise AssertionError(f"stochastic_round kernel differs from its plain version in {n} elements ({dt})")
+        del k, p
+    fp8 = torch.float8_e4m3fn
+    out = torch.empty((C, D), dtype=fp8, device=device)
+    k4 = dict(
+        name="stochastic_round", route="cuda",
+        source="cachedembedding_tpu_torch/csrc/stochastic_round.cu",
+        replaces="cachedembedding_tpu/ops/rounding.py:37",
+        max_abs_err=0.0,
+        ms=median_ms(lambda: stochastic_astype(new32, fp8, seed, out=out)),
+        plain_ms=median_ms(lambda: stochastic_astype_plain(new32, fp8, seed)),
+        bound_ms=C * D * (4 + 1) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=median_ms(lambda: new32.to(fp8)),
+        library="Tensor.to(float8_e4m3fn): deterministic rounding, a different function",
+        timed_on="fp8 slice, first training step",
+        tolerance="bit-exact (float8_e4m3fn, bfloat16, float8_e5m2)",
+    )
+    log(f"[kernel] stochastic_round: ({C}, {D}) f32 -> fp8, seed {seed}, bit-equal to its plain "
+        f"version for e4m3fn, bf16 and e5m2; {json.dumps(k4)}")
+    results.append(k4)
+    return k1, results
+
+
+def phase_reference(device, cache_dtype: str) -> None:
+    """The slice at a small width with f32 compute and ``cache_dtype`` rows,
+    once on the card (through the kernels) and once on the CPU (through their
+    plain versions), on the same seeded stream; the gates are in the module
+    docstring (phase 2). Six windows through a cache of 480 slots evict
+    trained rows and admit them again, so a writeback that read a slot out of
+    order (before the previous window's update, or after this window's
+    admits) would show."""
     import numpy as np
+    import torch
 
     from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.ops.rounding import storage_steps
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
     tables = [50, 300, 4000, 20000]
@@ -239,7 +462,7 @@ def phase_reference(device) -> None:
         batch_size=256, learning_rate=1.0, compute_dtype="float32",
         cache=CacheConfig(
             cache_ratio=0.02, resident_threshold=500, prefetch_num=P, weight_init="virtual",
-            ship_sort_perm=True, use_pallas_lookup=True, cache_dtype="float32",
+            ship_sort_perm=True, use_pallas_lookup=True, cache_dtype=cache_dtype,
         ),
     )
     train = SyntheticLongTailDataset(tables, 256, steps, dense_in_features=13, skew=0.5, seed=7)
@@ -265,38 +488,56 @@ def phase_reference(device) -> None:
         tr.close()
         runs.append((np.asarray(rep.losses), ev["auroc"], counts, weights, rows, again))
     (lg, ag, cg, wg, rg, xg), (lc, ac, cc, wc, rc, xc) = runs
+    tag = f"[reference {cache_dtype}]"
     if cg != cc:
-        raise AssertionError(f"cache counts differ between the card and the CPU: {cg} vs {cc}")
+        raise AssertionError(f"{tag} cache counts differ between the card and the CPU: {cg} vs {cc}")
     if not np.array_equal(xg, xc) or xg.size == 0:
-        raise AssertionError(f"no trained row was evicted and admitted again ({xg.size} vs {xc.size})")
-    if lg.shape != (steps,) or not np.allclose(lg, lc, rtol=1e-4, atol=0):
-        raise AssertionError(f"losses differ between the card and the CPU: {lg} vs {lc}")
-    if abs(ag - ac) > 1e-4:
-        raise AssertionError(f"AUROC differs between the card and the CPU: {ag} vs {ac}")
-    for a, b in zip(wg, wc):
-        if not np.allclose(a, b, rtol=1e-4, atol=1e-7):
-            raise AssertionError("dense weights differ between the card and the CPU")
-    row_err = float(np.abs(rg - rc).max())
-    if row_err > 1e-5:
-        raise AssertionError(f"flushed rows differ between the card and the CPU by {row_err}")
+        raise AssertionError(f"{tag} no trained row was evicted and admitted again ({xg.size} vs {xc.size})")
+    if lg.shape != (steps,) or not np.isfinite(lg).all():
+        raise AssertionError(f"{tag} losses not finite: {lg}")
     rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
-    log(f"[reference] small f32 slice, card vs CPU: counts equal, {sum(cg[2])} writebacks, "
-        f"{xg.size} trained rows evicted and admitted again; {touched.size} trained rows "
-        f"max abs diff {row_err:.2e}; loss max rel diff {rel:.2e}, auroc {ag:.6f} vs {ac:.6f}")
+    w_rel = max(float(np.max(np.abs(a - b) / (np.abs(b) + 1e-7))) for a, b in zip(wg, wc))
+    if cache_dtype == FP8:
+        steps_off = storage_steps(*(torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (rg, rc)),
+                                 torch.float8_e4m3fn).numpy()
+        equal = float((steps_off == 0).mean())
+        if not np.allclose(lg, lc, rtol=1e-3, atol=0):
+            raise AssertionError(f"{tag} losses differ between the card and the CPU: {lg} vs {lc}")
+        if equal < 0.999 or int(steps_off.max()) > 2:
+            raise AssertionError(f"{tag} flushed rows: {equal:.5f} of elements equal, "
+                                 f"up to {int(steps_off.max())} e4m3 steps apart")
+        rows_msg = (f"{equal * 100:.3f}% of {rg.size} flushed elements equal, "
+                    f"{int((steps_off > 0).sum())} one or two e4m3 steps apart (max {int(steps_off.max())})")
+    else:
+        if not np.allclose(lg, lc, rtol=1e-4, atol=0):
+            raise AssertionError(f"{tag} losses differ between the card and the CPU: {lg} vs {lc}")
+        if abs(ag - ac) > 1e-4:
+            raise AssertionError(f"{tag} AUROC differs between the card and the CPU: {ag} vs {ac}")
+        for a, b in zip(wg, wc):
+            if not np.allclose(a, b, rtol=1e-4, atol=1e-7):
+                raise AssertionError(f"{tag} dense weights differ between the card and the CPU")
+        row_err = float(np.abs(rg - rc).max())
+        if row_err > 1e-5:
+            raise AssertionError(f"{tag} flushed rows differ between the card and the CPU by {row_err}")
+        rows_msg = f"{touched.size} trained rows max abs diff {row_err:.2e}"
+    log(f"{tag} small slice, card vs CPU: counts equal, {sum(cg[2])} writebacks, "
+        f"{xg.size} trained rows evicted and admitted again; {rows_msg}; loss max rel diff "
+        f"{rel:.2e}; dense weights max rel diff {w_rel:.2e}; auroc {ag:.6f} vs {ac:.6f}")
 
 
 def phase_slice(cfg, device):
-    """Drive the slice through its entry points with the launch counts
-    zeroed just before. Returns the counts, the trainer (still open) and its
-    first training window, which phase_kernels reads."""
+    """Drive a full-width slice through its entry points with the launch
+    counts zeroed just before. Returns the counts, the trainer (still open),
+    its first training window and, where the update rounds stochastically,
+    the first step's (cache rows before the update, row grads, slr, seed),
+    which the kernel phases read."""
     import numpy as np
     import torch
 
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
-    from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update
-    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
+    tag = f"[slice {cfg.cache.cache_dtype}]"
     steps, P = 24, cfg.cache.prefetch_num
     sizes = cfg.num_embeddings_per_feature
     train = SyntheticLongTailDataset(sizes, cfg.batch_size, steps, skew=0.5, seed=7)
@@ -304,45 +545,60 @@ def phase_slice(cfg, device):
     t0 = time.perf_counter()
     tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
     torch.cuda.synchronize()
-    log(f"[slice] trainer built in {time.perf_counter() - t0:.1f} s: capacity "
-        f"{tr.embed.capacity}, device rows {tr.embed.device_rows}")
-    first = []
+    log(f"{tag} trainer built in {time.perf_counter() - t0:.1f} s: capacity "
+        f"{tr.embed.capacity}, device rows {tr.embed.device_rows}, rows {tr.embed.cache_weight.dtype}")
+    first_win, first_update = [], []
     begin = tr._begin_window
 
     def begin_and_keep(batches, with_plan=True):
         win = begin(batches, with_plan)
-        if not first:
-            first.append(win)
+        if not first_win:
+            first_win.append(win)
         return win
 
     tr._begin_window = begin_and_keep
+    if tr._sr:
+        sr_update = tr._sr_update
+
+        def sr_update_and_keep(cw, g_rows, perm, grouped, bins, slr, seed):
+            if not first_update:  # one copy, at the first step only
+                first_update.append((cw.clone(), g_rows.detach().clone(), slr, seed))
+            return sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+
+        tr._sr_update = sr_update_and_keep
     torch.cuda.reset_peak_memory_stats(device)
-    gather_rows.launches = 0
-    binned_sgd_update.launches = 0
+    zero_launch_counts()
     rep = tr.train(train, num_iters=steps)
     t1 = time.perf_counter()
     ev = tr.evaluate(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t1
-    launches = {"gather_rows": gather_rows.launches, "binned_sgd": binned_sgd_update.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     losses = np.asarray(rep.losses)
     per_window = [float(x) for x in losses.reshape(-1, P).mean(axis=1)]
-    log(f"[slice] loss per window {per_window}")
-    log(f"[slice] hit rate {rep.hit_rate:.4f}; {rep.examples_per_s:.0f} examples/s "
+    log(f"{tag} loss per window {per_window}")
+    log(f"{tag} hit rate {rep.hit_rate:.4f}; {rep.examples_per_s:.0f} examples/s "
         f"({rep.it_per_s:.2f} it/s) over {steps} steps; peak device memory {peak / 2**30:.2f} GiB")
-    log(f"[slice] host s/window {[round(x, 4) for x in rep.window_host_s]}; "
+    log(f"{tag} host s/window {[round(x, 4) for x in rep.window_host_s]}; "
         f"device s/window {[round(x, 4) for x in rep.window_device_s]}")
-    log(f"[slice] eval of {ev['count']} examples in {eval_s:.2f} s: auroc {ev['auroc']:.4f}")
-    log(f"[slice] kernel launches {launches}")
+    log(f"{tag} eval of {ev['count']} examples in {eval_s:.2f} s: auroc {ev['auroc']:.4f}")
+    log(f"{tag} kernel launches {launches}")
     if losses.shape != (steps,) or not np.isfinite(losses).all():
-        raise AssertionError(f"losses not finite: {losses}")
+        raise AssertionError(f"{tag} losses not finite: {losses}")
     if not 0.0 < rep.hit_rate <= 1.0:
-        raise AssertionError(f"hit rate {rep.hit_rate} outside (0, 1]")
-    if launches["gather_rows"] < steps + P or launches["binned_sgd"] < steps:
-        raise AssertionError(f"a kernel of the path did not run every step: {launches}")
+        raise AssertionError(f"{tag} hit rate {rep.hit_rate} outside (0, 1]")
+    need = {"gather_rows": steps + P}
+    if tr._sr:
+        need.update(binned_scatter_add=steps, stochastic_round=steps, binned_sgd=0)
+    else:
+        need.update(binned_sgd=steps, binned_scatter_add=0, stochastic_round=0)
+    for name, n in need.items():
+        if (launches[name] < n) if n else launches[name]:
+            raise AssertionError(f"{tag} kernel {name} launched {launches[name]} times, expected "
+                                 f"{'at least ' + str(n) if n else 'none'}: {launches}")
     if ev["count"] != P * cfg.batch_size or not np.isfinite(ev["auroc"]):
-        raise AssertionError(f"bad eval: {ev}")
+        raise AssertionError(f"{tag} bad eval: {ev}")
     # flushed host rows must equal the cache rows they came from
     emb = tr.embed
     emb.flush()
@@ -353,9 +609,54 @@ def phase_slice(cfg, device):
     host = emb.host_table.gather(np.concatenate([rows[pick], emb._res_rows[res_pick]]))
     dev = emb.cache_weight[torch.from_numpy(addrs).to(device)].float().cpu().numpy()
     if not np.array_equal(host, dev):
-        raise AssertionError("flushed host rows differ from their cache rows")
-    log(f"[slice] flush: {addrs.shape[0]} sampled rows equal their cache rows")
-    return launches, tr, first[0]
+        raise AssertionError(f"{tag} flushed host rows differ from their cache rows")
+    log(f"{tag} flush: {addrs.shape[0]} sampled rows equal their cache rows")
+    return launches, tr, first_win[0], (first_update[0] if first_update else None)
+
+
+def phase_bare_module(device) -> None:
+    """The bare-module API on the card with fp8 rows: prepare_ids, then
+    lookup (Kernel 1), over six seeded id sets whose union exceeds the
+    capacity. Nothing trains, so each lookup must equal the host table's
+    rows of those ids through the storage cast, summed over the pooling
+    axis in f32, exactly."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.cache.manager import CachedEmbeddingBag
+    from cachedembedding_tpu_torch.jagged import RaggedFeatures
+    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    sizes, D, B, P = [40, 30_000, 5_000], 128, 256, 2
+    F = len(sizes)
+    bag = CachedEmbeddingBag(
+        sum(sizes), D, cache_ratio=0.05, table_sizes=sizes, seed=5, weight_init="virtual",
+        resident_tables=[0], warmup_ratio=0.0, dtype=FP8, device=device,
+    )
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    rng = np.random.default_rng(11)
+    seen = set()
+    g0 = gather_rows.launches
+    for _ in range(6):
+        ids = np.stack([off[t] + rng.integers(0, n, (B, P)) for t, n in enumerate(sizes)]).astype(np.int32)
+        seen.update(ids[1:].reshape(-1).tolist())
+        slots = bag.prepare_ids(torch.from_numpy(ids.reshape(-1)))
+        got = bag.lookup(RaggedFeatures.from_uniform(slots.reshape(F, B, P))).cpu()
+        with bag._host_lock:
+            host = torch.from_numpy(bag.host_table.gather(ids.reshape(-1).astype(np.int64)))
+        want = astype_storage(host, torch.float8_e4m3fn).float().reshape(F, B, P, D).sum(dim=2).transpose(0, 1)
+        if got.shape != (B, F, D) or not torch.equal(got, want):
+            raise AssertionError("bare-module lookup of fp8 rows differs from the host rows")
+    wb = sum(bag.stats.num_write_back_history)
+    launched = gather_rows.launches - g0
+    bag.close()
+    if len(seen) <= bag.capacity or wb == 0 or launched < 6:
+        raise AssertionError(f"bare module: {len(seen)} cached ids vs capacity {bag.capacity}, "
+                             f"{wb} writebacks, {launched} gathers")
+    log(f"[bare module] fp8 rows: 6 prepare_ids + lookup calls over {len(seen)} distinct cached ids "
+        f"(capacity {bag.capacity}), {wb} writebacks, {launched} gather launches; every lookup equals "
+        f"the host rows through the storage cast, pooled")
 
 
 def main() -> int:
@@ -376,13 +677,32 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[build] done in {time.perf_counter() - t0:.1f} s; card: {smi}")
-    cfg = slice_config()
-    phase_reference(device)
-    launches, tr, win = phase_slice(cfg, device)
+    phase_reference(device, "float32")
+    phase_reference(device, FP8)
+
+    cfg = slice_config("bfloat16")
+    launches_bf16, tr, win, _ = phase_slice(cfg, device)
     kernels = phase_kernels(cfg, tr, win)
     tr.close()
+    del tr, win
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg8 = slice_config(FP8)
+    launches_fp8, tr, win, first_update = phase_slice(cfg8, device)
+    k1_fp8, k34 = phase_kernels_fp8(cfg8, tr, win, first_update)
+    kernels[0]["on_fp8_slice"] = k1_fp8
+    kernels += k34
+    tr.close()
+    del tr, win, first_update
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_bare_module(device)
+
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        name = k["name"]
+        k["launches"] = (launches_bf16 if name in BF16_KERNELS else launches_fp8)[name]
+        k["launches_by_path"] = {"bf16 slice": launches_bf16[name], "fp8 slice": launches_fp8[name]}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

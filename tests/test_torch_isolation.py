@@ -12,8 +12,13 @@ import torch
 
 import cachedembedding_tpu_torch
 from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
-from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, sort_plan_np
+from cachedembedding_tpu_torch.ops.binned_scatter import (
+    binned_scatter_add,
+    binned_sgd_update,
+    sort_plan_np,
+)
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+from cachedembedding_tpu_torch.ops.rounding import stochastic_astype
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -26,7 +31,8 @@ for n in names:
 bad = [k for k in sys.modules
        if k in ("jax", "cachedembedding_tpu") or k.startswith(("jax.", "cachedembedding_tpu."))]
 print(len(names), bad)
-assert len(names) >= 15, names
+assert len(names) >= 16, names
+assert "cachedembedding_tpu_torch.ops.rounding" in names, names
 assert not bad, bad
 """
 
@@ -57,23 +63,34 @@ def test_default_device_needs_a_gpu():
     assert cachedembedding_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
+def _counts():
+    return (gather_rows.launches, binned_sgd_update.launches, binned_scatter_add.launches,
+            stochastic_astype.launches)
+
+
 def test_wrappers_take_the_plain_path_on_cpu_tensors():
-    g0, b0 = gather_rows.launches, binned_sgd_update.launches
+    before = _counts()
     w = torch.randn(64, 16)
     ids = torch.randint(0, 64, (40,), dtype=torch.int32)
     out = gather_rows(w, ids, 2)
     assert out.shape == (20, 2, 16)
     perm, grouped, bins = (torch.from_numpy(a) for a in sort_plan_np(ids.numpy(), 64))
     binned_sgd_update(w, torch.randn(40, 16), perm, grouped, bins, 0.5)
+    g32 = binned_scatter_add(torch.randn(40, 16).bfloat16(), perm, grouped, bins, 64)
+    assert g32.shape == (64, 16) and g32.dtype == torch.float32
+    assert stochastic_astype(g32, torch.float8_e4m3fn, 9).dtype == torch.float8_e4m3fn
     # the counts move only where a CUDA kernel launches
-    assert (gather_rows.launches, binned_sgd_update.launches) == (g0, b0)
+    assert _counts() == before
 
 
 def test_kernel_sources_and_build_dir_are_where_the_docs_say():
     from cachedembedding_tpu_torch import _build
     from cachedembedding_tpu_torch.ops import _cuda
 
+    assert set(_cuda.SOURCES) == set(_cuda._PROTOTYPES)
     for src in _cuda.SOURCES.values():
         assert src.exists() and src.suffix == ".cu"
+    for hdr in _cuda.HEADERS:
+        assert hdr.exists() and f'#include "{hdr.name}"' in (hdr.parent / "binned_sgd.cu").read_text()
     assert _build.BUILD_DIR == REPO / "cachedembedding_tpu_torch" / "build"
     assert "cachedembedding_tpu_torch/build/" in (REPO / ".gitignore").read_text().split()

@@ -198,3 +198,31 @@ def test_cached_lookup_equals_host_rows_under_churn():
         np.testing.assert_array_equal(got.numpy(), ref[ids].transpose(1, 0, 2))
     assert sum(bag.stats.num_write_back_history) > 0, "the stream must evict"
     bag.close()
+
+
+def test_cached_lookup_of_fp8_rows():
+    """fp8 cache rows through the bare-module API: each lookup equals the
+    host rows pushed through the storage cast (jnp.astype's) and pooled in
+    f32, through eviction churn, with one table resident."""
+    import ml_dtypes
+
+    sizes, D, F, B, P, seed = [40, 3000, 500], 16, 3, 32, 2, 5
+    bag = CachedEmbeddingBag(
+        sum(sizes), D, cache_ratio=0.05, table_sizes=sizes, seed=seed, weight_init="virtual",
+        resident_tables=[0], warmup_ratio=0.0, dtype="float8_e4m3fn", device="cpu",
+    )
+    assert bag.cache_weight.dtype == torch.float8_e4m3fn
+    ref = np.empty((sum(sizes), D), np.float32)
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    for t, n in enumerate(sizes):
+        jax_hostops.fill_rows_canonical(ref[off[t]:off[t + 1]], int(off[t]), seed=seed, bound=n ** -0.5)
+    ref = ref.astype(ml_dtypes.float8_e4m3fn).astype(np.float32)
+    rng = np.random.default_rng(7)
+    for _ in range(6):
+        ids = np.stack([off[t] + rng.integers(0, n, (B, P)) for t, n in enumerate(sizes)]).astype(np.int32)
+        slots = bag.prepare_ids(torch.from_numpy(ids.reshape(-1)))
+        got = bag.lookup(RaggedFeatures.from_uniform(slots.reshape(F, B, P)))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), ref[ids].sum(axis=2).transpose(1, 0, 2))
+    assert sum(bag.stats.num_write_back_history) > 0, "the stream must evict"
+    bag.close()

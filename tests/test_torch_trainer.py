@@ -2,10 +2,18 @@
 package's on the same synthetic stream, training 8 steps and evaluating 4
 batches at a small width. The JAX trainer runs with use_pallas_lookup=False:
 its evaluate vmaps the Pallas gather, which its CPU interpreter cannot run,
-and the jnp.take lookup computes the same function."""
+and the jnp.take lookup computes the same function.
 
+The fp8 slice (float8_e4m3fn rows, stochastic rounding) draws its rounding
+uniforms from Philox in the port and from threefry in JAX. With the port's
+``philox_uniform`` replaced by JAX's uniforms for each step seed, both round
+the same way; with its own Philox only the distribution agrees."""
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import cachedembedding_tpu.train.trainer as jax_trainer_mod
 import cachedembedding_tpu_torch.train.trainer as port_trainer_mod
@@ -15,6 +23,7 @@ from cachedembedding_tpu.data.synthetic import SyntheticLongTailDataset as JaxDa
 from cachedembedding_tpu.utils.metrics import StreamingMetrics as JaxMetrics
 from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
 from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+from cachedembedding_tpu_torch.ops import rounding as port_rounding
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
 TABLES = [50, 300, 4000, 20000]
@@ -22,26 +31,26 @@ STATS = ("num_hits_history", "num_miss_history", "num_write_back_history",
          "swap_in_bytes", "swap_out_bytes", "prepare_calls", "synth_rows")
 
 
-def _cfg(cache_cls, cfg_cls, dtype, cache_ratio, use_pallas):
+def _cfg(cache_cls, cfg_cls, dtype, cache_ratio, use_pallas, cache_dtype=None, sr="auto"):
     return cfg_cls(
         num_embeddings_per_feature=TABLES, embedding_dim=16, dense_in_features=13,
         dense_arch_layer_sizes=(32, 16), over_arch_layer_sizes=(64, 32, 1),
         batch_size=256, learning_rate=1.0, compute_dtype=dtype,
         cache=cache_cls(
             cache_ratio=cache_ratio, resident_threshold=500, prefetch_num=4,
-            weight_init="virtual", ship_sort_perm=True, cache_dtype=dtype,
-            id_wire="plain", use_pallas_lookup=use_pallas,
+            weight_init="virtual", ship_sort_perm=True, cache_dtype=cache_dtype or dtype,
+            stochastic_rounding=sr, id_wire="plain", use_pallas_lookup=use_pallas,
         ),
     )
 
 
-def _run(port, dtype, cache_ratio, monkeypatch):
+def _run(port, dtype, cache_ratio, monkeypatch, cache_dtype=None, sr="auto"):
     """Train 8 steps, evaluate 4 batches; returns what the tests compare."""
     if port:
-        cfg = _cfg(CacheConfig, DLRMConfig, dtype, cache_ratio, True)
+        cfg = _cfg(CacheConfig, DLRMConfig, dtype, cache_ratio, True, cache_dtype, sr)
         ds_cls, mod, metrics_cls = SyntheticLongTailDataset, port_trainer_mod, StreamingMetrics
     else:
-        cfg = _cfg(JaxCacheConfig, JaxDLRMConfig, dtype, cache_ratio, False)
+        cfg = _cfg(JaxCacheConfig, JaxDLRMConfig, dtype, cache_ratio, False, cache_dtype, sr)
         ds_cls, mod, metrics_cls = JaxDataset, jax_trainer_mod, JaxMetrics
     scores = []
 
@@ -109,6 +118,65 @@ def test_slice_matches_jax_bf16(monkeypatch):
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=2e-2)
 
 
+def _jax_uniform(seed, shape, device=None):
+    """JAX's rounding uniforms for one step seed (what its emulation draws)."""
+    u = jax.random.uniform(jax.random.PRNGKey(jnp.uint32(seed)), tuple(shape), jnp.float32)
+    return torch.from_numpy(np.array(u)).to(device)
+
+
+def _e4m3_steps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance in e4m3fn representables between arrays of e4m3fn values."""
+    t = [torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (a, b)]
+    return port_rounding.storage_steps(*t, torch.float8_e4m3fn).numpy()
+
+
+@pytest.mark.parametrize("compute,cache_ratio", [
+    ("float32", 0.1), ("float32", 0.02), ("bfloat16", 0.1),
+], ids=["f32_slice_config", "f32_eviction_churn", "bf16_compute"])
+def test_fp8_slice_matches_jax_with_shared_uniforms(compute, cache_ratio, monkeypatch):
+    """float8_e4m3fn rows, stochastic_rounding="auto" (on for fp8), the
+    rounding branch through Kernels 3 and 4. With JAX's uniforms: counts
+    equal; losses rtol 1e-4 in f32 compute and 1e-3 in bf16 compute (bf16
+    roundings of f32 values summed in another order); AUROC within 1e-4. The
+    flushed rows are equal but for at most 8 elements, each one e4m3 step
+    off: a rounding choice that an f32 sum-order difference flipped."""
+    monkeypatch.setattr(port_rounding, "philox_uniform", _jax_uniform)
+    ref = _run(False, compute, cache_ratio, monkeypatch, cache_dtype="float8_e4m3fn")
+    got = _run(True, compute, cache_ratio, monkeypatch, cache_dtype="float8_e4m3fn")
+    assert got["stats"] == ref["stats"]
+    if cache_ratio < 0.1:
+        assert sum(got["stats"]["num_write_back_history"]) > 0, "this config must evict"
+    assert np.isfinite(got["losses"]).all() and got["losses"].shape == (8,)
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-4 if compute == "float32" else 1e-3)
+    assert got["ev"]["count"] == ref["ev"]["count"] == 1024
+    assert abs(got["ev"]["auroc"] - ref["ev"]["auroc"]) <= 1e-4
+    steps = _e4m3_steps(got["rows"], ref["rows"])
+    assert int((steps > 0).sum()) <= 8 and int(steps.max()) <= 1
+
+
+def test_fp8_slice_with_its_own_philox(monkeypatch):
+    """The port's own Philox bits: other rounding choices than JAX's, the
+    same cache counts, and losses within rtol 2e-2."""
+    ref = _run(False, "float32", 0.1, monkeypatch, cache_dtype="float8_e4m3fn")
+    got = _run(True, "float32", 0.1, monkeypatch, cache_dtype="float8_e4m3fn")
+    assert got["stats"] == ref["stats"]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=2e-2)
+    assert np.isfinite(got["rows"]).all() and (_e4m3_steps(got["rows"], ref["rows"]) > 0).any()
+
+
+def test_bf16_rows_with_stochastic_rounding_on(monkeypatch):
+    """stochastic_rounding="on" rounds bf16 rows too (Kernel 3 on bf16
+    grads, Kernel 4 to bf16). Shared uniforms; f32 compute: counts equal,
+    losses rtol 1e-4, flushed rows within one bf16 ulp."""
+    monkeypatch.setattr(port_rounding, "philox_uniform", _jax_uniform)
+    ref = _run(False, "float32", 0.1, monkeypatch, cache_dtype="bfloat16", sr="on")
+    got = _run(True, "float32", 0.1, monkeypatch, cache_dtype="bfloat16", sr="on")
+    assert got["stats"] == ref["stats"]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-4)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref["rows"]), 2.0**-126))) - 7)
+    assert np.all(np.abs(got["rows"] - ref["rows"]) <= ulp)
+
+
 def test_refuses_outside_the_slice():
     base = dict(num_embeddings_per_feature=[10, 20], embedding_dim=16, dense_in_features=4,
                 dense_arch_layer_sizes=(16,), over_arch_layer_sizes=(8, 1), batch_size=8)
@@ -117,9 +185,17 @@ def test_refuses_outside_the_slice():
         ({"dense_input_dtype": "int8"}, {}),
         ({"model": "deepfm"}, {}),
         ({}, {"ship_sort_perm": False}),
-        ({}, {"cache_dtype": "float8_e4m3fn"}),
+        ({}, {"cache_dtype": "float8_e4m3fn", "stochastic_rounding": "off"}),
+        ({}, {"cache_dtype": "float8_e5m2"}),
         ({}, {"transfer_dtype": "int4"}),
     ]:
         cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, **cache_kw}))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item \d+"):
             port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
+    # fp8 rows with rounding on ("auto" or "on") are in the slice
+    for sr in ("auto", "on"):
+        cfg = DLRMConfig(**base, cache=CacheConfig(
+            ship_sort_perm=True, cache_dtype="float8_e4m3fn", stochastic_rounding=sr, cache_ratio=0.5))
+        tr = port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
+        assert tr._sr and tr.embed.cache_weight.dtype == torch.float8_e4m3fn
+        tr.close()
