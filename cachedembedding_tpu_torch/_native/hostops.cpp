@@ -1,13 +1,14 @@
 // Native host-DRAM staging ops: the port's own copy of the functions of
 // cachedembedding_tpu/_native/hostops.cpp that the cached-training slice
-// calls. Keep them bit-for-bit in step with the JAX package's copy
-// (tests/test_torch_native.py and tests/test_torch_ops.py hold the two
-// against each other):
+// calls. Keep them bit-for-bit in step with the JAX package's copy, but for
+// the plan's order inside a bin (tests/test_torch_native.py and
+// tests/test_torch_ops.py hold the two against each other):
 //   * multithreaded row gather/scatter over a large f32 host table;
 //   * the canonical procedural row init (gen_row_canonical), shared
 //     bit-for-bit with ops/synth_rows.py on the device;
 //   * the overlay (virtual) host table;
-//   * sort_plan_i32, the bin-grouping plan of the fused embedding update.
+//   * sort_plan_i32, the plan of the embedding update kernels (the JAX
+//     copy's bin grouping, sorted by row within each bin).
 //
 // Built at first use by cachedembedding_tpu_torch/_native/hostops.py
 // (g++ -O3 -march=native -fPIC -shared -std=c++17 -pthread) together with
@@ -91,25 +92,24 @@ void scatter_rows_f32(float* table, const int64_t* idx, const float* values,
   });
 }
 
-// Bin-grouping plan for the fused embedding update
-// (cachedembedding_tpu_torch/ops/binned_scatter.py): stable counting sort of
-// the id stream by (id / block_rows) bin, in two linear passes. The kernel
-// needs only bin-contiguity, not a full sort.
+// Row-sorted plan for the embedding update kernels
+// (cachedembedding_tpu_torch/ops/binned_scatter.py): the id stream stably
+// sorted by id, by one counting sort over the num_rows ids, so every row's
+// contributors end up contiguous and in stream order. bin_starts is read off
+// the rows' running counts at every block_rows-th row: the bin-grouping
+// plan's (the JAX package's copy counts by id / block_rows and stops there,
+// bin-contiguous only).
 // Outputs: perm (n), ids_grouped (n), bin_starts (nb+1).
 void sort_plan_i32(const int32_t* ids, int64_t n, int64_t num_rows,
                    int64_t block_rows, int32_t* perm, int32_t* ids_grouped,
                    int32_t* bin_starts) {
   const int64_t nb = (num_rows + block_rows - 1) / block_rows;
-  std::vector<int64_t> cur(nb + 1, 0);
-  for (int64_t i = 0; i < n; ++i) ++cur[ids[i] / block_rows + 1];
-  int64_t cum = 0;
-  for (int64_t b = 0; b <= nb; ++b) {
-    cum += cur[b];
-    cur[b] = cum;
-    bin_starts[b] = static_cast<int32_t>(cum);
-  }
+  std::vector<int32_t> start(num_rows + 1, 0);  // then: the next slot of each row
+  for (int64_t i = 0; i < n; ++i) ++start[ids[i] + 1];
+  for (int64_t r = 0; r < num_rows; ++r) start[r + 1] += start[r];
+  for (int64_t b = 0; b <= nb; ++b) bin_starts[b] = start[std::min(b * block_rows, num_rows)];
   for (int64_t i = 0; i < n; ++i) {
-    const int64_t p = cur[ids[i] / block_rows]++;
+    const int32_t p = start[ids[i]]++;
     perm[p] = static_cast<int32_t>(i);
     ids_grouped[p] = ids[i];
   }

@@ -109,9 +109,12 @@ def fill_rows_canonical(buf: np.ndarray, start_row: int, seed: int, bound: float
 
 
 def sort_plan(ids: np.ndarray, num_rows: int, block_rows: int):
-    """Bin-grouping plan for the fused embedding update: (perm, ids_grouped,
-    bin_starts) with the id stream stably grouped by (id // block_rows), by a
-    native two-pass counting sort."""
+    """Plan of the embedding update kernels: (perm, ids_grouped, bin_starts)
+    with the id stream stably sorted by id (so every row's contributors are
+    contiguous and in stream order), by a native counting sort over the
+    ``num_rows`` ids. ``bin_starts`` gives bin b the range of ids in
+    [b * block_rows, (b + 1) * block_rows), as in the JAX package's
+    bin-grouping plan."""
     ids = np.ascontiguousarray(ids.reshape(-1), dtype=np.int32)
     n = ids.shape[0]
     if n and (int(ids.min()) < 0 or int(ids.max()) >= num_rows):

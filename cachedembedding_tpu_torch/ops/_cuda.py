@@ -22,7 +22,7 @@ SOURCES = {
     "binned_scatter_add": _CSRC / "binned_scatter_add.cu",
     "stochastic_round": _CSRC / "stochastic_round.cu",
 }
-HEADERS = [_CSRC / "binned_walk.cuh"]  # part of every kernel's build hash
+HEADERS = [_CSRC / "row_runs.cuh"]  # part of every kernel's build hash
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -30,11 +30,11 @@ _PROTOTYPES = {
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _I64, _P]),
     "binned_sgd": (
         "binned_sgd_launch",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
+        [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
     ),
     "binned_scatter_add": (
         "binned_scatter_add_launch",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+        [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     ),
     "stochastic_round": (
         "stochastic_round_launch",

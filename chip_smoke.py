@@ -29,11 +29,13 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      they came from. Kernel launch counts are zeroed just before and read
      just after.
   4. Kernels 1 and 2 against their plain versions on the bf16 slice's first
-     training step (its device addresses and grouping plan, 26 x 16,384 ids
-     into 901,228 x 128 bf16 rows): the row gather must equal index_select
-     bit for bit; the fused binned SGD update must leave untouched rows
-     bit-equal, keep touched rows within one bf16 ulp of the plain version,
-     and give identical bits on two launches.
+     training step (its device addresses and row-sorted plan, 26 x 16,384
+     ids into 901,228 x 128 bf16 rows): the row gather must equal
+     index_select bit for bit; the fused binned SGD update must leave
+     untouched rows bit-equal, keep touched rows within one bf16 ulp of the
+     plain version, and give identical bits on two launches, with the gate
+     shown to reject a planted fault (the heaviest row's sum without one
+     chunk of ROW_CHUNK addends).
   5. The fp8 slice: the same configuration with float8_e4m3fn rows
      (stochastic rounding on), 24 steps, 1 evaluation window and a flush
      checked as in phase 3; its own launch counts.
@@ -43,17 +45,29 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      the binned scatter-add, and its plain version, each within 1e-5 of the
      sum of |g| of every element's addends from a float64 index_add_,
      untouched rows exactly 0, identical bits on two launches, and the gate
-     shown to reject three planted faults (all zeros, every second addend
-     dropped, the heaviest bin skipped); stochastic rounding of that step's
-     cw - slr * g bit-equal to its plain version for float8_e4m3fn, bf16 and
-     float8_e5m2.
+     shown to reject four planted faults (all zeros, every second addend
+     dropped, the heaviest bin skipped, the heaviest row without one chunk);
+     the same gates on the step's f32 grads; Kernels 2 and 3 on the same
+     plan through their one-element-a-lane path (D = 18, and D = 128 with the
+     grads one element off 16-byte alignment), under the same gates;
+     stochastic rounding of that step's cw - slr * g bit-equal to its plain
+     version for float8_e4m3fn, bf16 and float8_e5m2.
   7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
      prepare_ids then lookup over seeded ids that together exceed its
      capacity, equal to the host rows through the storage cast, pooled.
+  8. Kernels 2 and 3 refuse a plan grouped by bin but not sorted by id (the
+     JAX package's layout): each, in a child process started after the
+     build, must stop with a device-side assert.
 
-Phases 4 and 6 time each kernel (median of CUDA-event-timed calls) beside its
-bound, its plain version and a PyTorch yardstick, and the binned kernels also
-on the light part of their step alone (the ids of bins of at most 1,024 ids).
+Phases 4 and 6 time each kernel beside its bound, its plain version and a
+PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
+events and synchronized, so a call faster than its wrapper's host work reads
+as that host time; ``device_ms`` is the median of calls enqueued back to back
+behind a device-side sleep, device time only. The binned kernels are also
+timed on the light part of their step alone (the ids of bins of at most 1,024
+ids), split by CUDA launch (``torch.profiler``), with the step's heaviest
+row, its runs that cross chunks, and the host time of its plan
+(``sort_plan_np``).
 Prints per-phase results, then the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
@@ -70,6 +84,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 ITERS = 10
+SLEEP_CYCLES_PER_MS = 2.0e6  # the SM clock is at most 1.98 GHz: this lasts at least 1 ms
 FP8 = "float8_e4m3fn"
 BF16_KERNELS = ("gather_rows", "binned_sgd")  # timed on the bf16 slice, the others on the fp8 one
 
@@ -79,7 +94,9 @@ def log(msg: str) -> None:
 
 
 def median_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Median time of one call, by CUDA events around each call, each call
+    synchronized alone: a call faster than its host work (the wrapper's
+    checks, the launch) reads as that host time."""
     import torch
 
     for _ in range(warmup):
@@ -94,6 +111,55 @@ def median_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_median_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
+    """Median device time of one call, by CUDA events around each call. All
+    the calls are enqueued behind a device-side sleep that outlasts their
+    host time, so the card runs them back to back and the host's share does
+    not show; a call that synchronizes inside still counts its host time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_MS * (1.0 + 1.5 * iters * host_ms)))
+    for a, b in pairs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
+
+
+def kernel_breakdown(fn, iters: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel (``*_kernel``) that ``fn``
+    launches, by torch.profiler; empty where it sees no device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        m = re.search(r"(\w+_kernel)\b", e.key)
+        if us > 0 and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / iters / 1e3
+    return out
 
 
 def kernel_wrappers() -> dict:
@@ -184,6 +250,50 @@ def light_part(g, ids_nf, bins, num_rows):
     return (g_l, *plan), float(keep.mean())
 
 
+def row_runs(grouped, chunk: int) -> dict:
+    """The runs of one row in a step's sorted stream: the heaviest row's
+    length, the chunks of ``chunk`` contributors, and the runs that cross a
+    chunk boundary (finished by the second launch)."""
+    import torch
+
+    _, counts = torch.unique_consecutive(grouped, return_counts=True)
+    b = torch.arange(chunk, grouped.numel(), chunk, device=grouped.device)
+    crossing = grouped[b][grouped[b - 1] == grouped[b]]
+    return {"heaviest_row_ids": int(counts.max()), "chunks": -(-grouped.numel() // chunk),
+            "crossing_runs": int(torch.unique(crossing).numel())}
+
+
+def heaviest_row_chunk(grouped, chunk: int):
+    """Stream positions of one whole chunk of ``chunk`` contributors inside
+    the heaviest row's run of the sorted stream (a planted fault leaves them
+    out)."""
+    import torch
+
+    _, counts = torch.unique_consecutive(grouped, return_counts=True)
+    r = int(torch.argmax(counts))
+    start = int(counts[:r].sum())
+    s0 = -(-start // chunk) * chunk
+    if s0 + chunk > start + int(counts[r]):
+        raise AssertionError(f"the heaviest row ({int(counts[r])} ids) holds no whole chunk of {chunk}")
+    return slice(s0, s0 + chunk)
+
+
+def plan_host_ms(win, F: int, num_rows: int, iters: int = 10) -> float:
+    """Median host ms of ``sort_plan_np`` on the window's first step, in the
+    trainer's (N, F) stream order."""
+    from cachedembedding_tpu_torch.ops.binned_scatter import sort_plan_np
+
+    ids = win.slot_ids[0].cpu().numpy()
+    v = ids.reshape(F, -1).T
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        sort_plan_np(v, num_rows)
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def phase_kernels(cfg, tr, win) -> list:
     """Hold Kernels 1 and 2 against their plain versions on the first
     training step of the bf16 slice: its device addresses, its grouping plan
@@ -193,6 +303,7 @@ def phase_kernels(cfg, tr, win) -> list:
 
     from cachedembedding_tpu_torch.ops.binned_scatter import (
         BLOCK_ROWS,
+        ROW_CHUNK,
         binned_sgd_update,
         binned_sgd_update_plain,
     )
@@ -226,6 +337,7 @@ def phase_kernels(cfg, tr, win) -> list:
         replaces="cachedembedding_tpu/ops/pallas_bag.py:29",
         max_abs_err=err,
         ms=median_ms(lambda: gather_rows(cw, ids, F)),
+        device_ms=device_median_ms(lambda: gather_rows(cw, ids, F)),
         plain_ms=median_ms(lambda: gather_rows_plain(cw, ids, F)),
         bound_ms=(L * 4 + (n_distinct + L) * row_bytes) / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
@@ -249,20 +361,23 @@ def phase_kernels(cfg, tr, win) -> list:
     touched = torch.zeros(C, dtype=torch.bool, device=device)
     touched[ids.long()] = True
     n_touched = int(touched.sum())
-    if not torch.equal(a[~touched], cw[~touched]):
-        raise AssertionError("binned_sgd kernel changed untouched rows")
-    at, rt = a[touched].float(), ref[touched].float()
-    diff = (at - rt).abs()
-    # one bf16 ulp of the result, plus f32 rounding of the O(0.1) terms where
-    # cw - slr*acc cancels towards zero
-    tol = _ulp_bf16(torch.maximum(at.abs(), rt.abs())) + 1e-6
-    if bool((diff > tol).any()):
-        raise AssertionError(f"binned_sgd kernel off by {diff.max().item()} > one bf16 ulp")
+    n_bad = sgd_faults(a, cw, ref, touched)
+    if n_bad:
+        raise AssertionError(f"binned_sgd kernel: {n_bad} elements off by more than one bf16 ulp")
+    diff = (a[touched].float() - ref[touched].float()).abs()
+    # the gate must reject a planted fault: the heaviest row's sum without
+    # one chunk of ROW_CHUNK addends
+    g_drop = g.clone()
+    g_drop[perm[heaviest_row_chunk(grouped, ROW_CHUNK)].long()] = 0
+    if not sgd_faults(binned_sgd_update_plain(cw.clone(), g_drop, perm, grouped, bins, slr), cw, ref, touched):
+        raise AssertionError("binned_sgd gate passed a planted fault (heaviest row missing one chunk)")
+    del g_drop
+    cw_t = cw.clone()
     light, light_share = light_part(g, ids_nf, bins, C)
     sizes = torch.diff(bins)
     top = torch.topk(sizes, 5)
     heavy = [(int(n), int(b) * BLOCK_ROWS) for n, b in zip(top.values, top.indices)]
-    cw_t = cw.clone()
+    runs = row_runs(grouped, ROW_CHUNK)
     cw_l = cw.clone()
     bytes2 = L * row_bytes + 2 * L * 4 + bins.numel() * 4 + 2 * n_touched * row_bytes
     k2 = dict(
@@ -271,6 +386,7 @@ def phase_kernels(cfg, tr, win) -> list:
         replaces="cachedembedding_tpu/ops/binned_scatter.py:199",
         max_abs_err=diff.max().item(),
         ms=median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
+        device_ms=device_median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
         plain_ms=median_ms(lambda: binned_sgd_update_plain(cw_t, g, perm, grouped, bins, slr)),
         bound_ms=bytes2 / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
@@ -281,11 +397,30 @@ def phase_kernels(cfg, tr, win) -> list:
         tolerance="untouched bit-equal; touched within one bf16 ulp (+1e-6 abs)",
         light_ms=median_ms(lambda: binned_sgd_update(cw_t, *light, slr)),
         light_share=light_share,
+        chunk=ROW_CHUNK, cuda_launches_per_call=2, **runs,
+        plan_host_ms=plan_host_ms(win, F, C),
+        cuda_kernels_ms=kernel_breakdown(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
     )
     log(f"[kernel] binned_sgd: {n_touched} touched rows; heaviest bins (ids, first row) {heavy}, "
-        f"cache slots below row {tr.embed.capacity}; two launches bit-identical; {json.dumps(k2)}")
+        f"cache slots below row {tr.embed.capacity}; heaviest row {runs['heaviest_row_ids']} ids, "
+        f"{runs['crossing_runs']} runs cross chunks of {ROW_CHUNK}; two launches bit-identical; the gate "
+        f"rejects the planted fault; {json.dumps(k2)}")
     results.append(k2)
     return results
+
+
+def sgd_faults(x, cw, ref, touched) -> int:
+    """Elements of ``x``, ``cw`` updated by Kernel 2, off the plain version's
+    ``ref`` by more than one bf16 ulp of the result, plus f32 rounding of the
+    O(0.1) terms where cw - slr*acc cancels towards zero; rows not in
+    ``touched`` must stay bit-equal."""
+    import torch
+
+    if not torch.equal(x[~touched], cw[~touched]):
+        raise AssertionError("binned_sgd changed untouched rows")
+    xt, rt = x[touched].float(), ref[touched].float()
+    tol = _ulp_bf16(torch.maximum(xt.abs(), rt.abs())) + 1e-6
+    return int(((xt - rt).abs() > tol).sum())
 
 
 SCATTER_RTOL = 1e-5  # of the sum of |g| over an element's addends
@@ -308,6 +443,7 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
 
     from cachedembedding_tpu_torch.ops.binned_scatter import (
         BLOCK_ROWS,
+        ROW_CHUNK,
         binned_scatter_add,
         binned_scatter_add_plain,
     )
@@ -336,6 +472,7 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
     k1 = dict(
         max_abs_err=0.0,
         ms=median_ms(lambda: gather_rows(cw0, ids, F)),
+        device_ms=device_median_ms(lambda: gather_rows(cw0, ids, F)),
         plain_ms=median_ms(lambda: gather_rows_plain(cw0.view(u8), ids, F)),
         bound_ms=(L * 4 + (n_distinct + L) * D * cw0.element_size()) / HBM_BYTES_PER_S * 1e3,
         library_ms=median_ms(lambda: torch.index_select(cw0.view(u8), 0, ids_nf)),
@@ -363,22 +500,50 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
             raise AssertionError(f"binned_scatter_add {name}: {n_bad} elements off the float64 sum "
                                  f"by more than {SCATTER_RTOL} of their sum of |g|")
     # the gate must reject a planted fault: an all-zero output, a stream with
-    # every second addend dropped, and the heaviest bin left at zero
+    # every second addend dropped, the heaviest bin left at zero, and the
+    # heaviest row's sum without one chunk of ROW_CHUNK addends
     g_half = g.clone()
     g_half[1::2] = 0
+    g_chunk = g.clone()
+    g_chunk[perm[heaviest_row_chunk(grouped, ROW_CHUNK)].long()] = 0
     heavy = int(torch.argmax(torch.diff(bins)))
     skipped = a.clone()
     skipped[heavy * BLOCK_ROWS:(heavy + 1) * BLOCK_ROWS] = 0
-    planted = {"zeros": torch.zeros_like(a), "half the addends": binned_scatter_add_plain(g_half, perm, grouped, bins, C),
-               "heaviest bin skipped": skipped}
-    for name, x in planted.items():
-        if not scatter_add_faults(x, ref64, abs64):
+    planted = {"zeros": lambda: torch.zeros_like(a),
+               "half the addends": lambda: binned_scatter_add_plain(g_half, perm, grouped, bins, C),
+               "heaviest bin skipped": lambda: skipped,
+               "heaviest row missing one chunk": lambda: binned_scatter_add_plain(g_chunk, perm, grouped, bins, C)}
+    for name, make in planted.items():
+        if not scatter_add_faults(make(), ref64, abs64):
             raise AssertionError(f"binned_scatter_add gate passed a planted fault ({name})")
-    del planted, skipped, g_half
+    del planted, skipped, g_half, g_chunk
     err = (a - ref).abs().max().item()
     rel64 = ((a.double() - ref64).abs() / abs64.clamp_min(1e-300)).max().item()
     ref_max = ref64.abs().max().item()
+    del ref64, abs64
+    # f32 grads (16-byte loads a lane): the same gates against their own float64 sums
+    g32 = g_rows.float().contiguous()
+    a32 = binned_scatter_add(g32, perm, grouped, bins, C)
+    b32 = binned_scatter_add(g32, perm, grouped, bins, C)
+    ref64 = torch.zeros((C, D), dtype=torch.float64, device=device).index_add_(0, ids_nf, g32.double())
+    abs64 = torch.zeros((C, D), dtype=torch.float64, device=device).index_add_(0, ids_nf, g32.double().abs())
+    if not torch.equal(a32, b32) or not bool((a32[~touched] == 0).all()):
+        raise AssertionError("binned_scatter_add kernel on f32 grads: launches differ or untouched rows nonzero")
+    n_bad = scatter_add_faults(a32, ref64, abs64)
+    if n_bad:
+        raise AssertionError(f"binned_scatter_add kernel on f32 grads: {n_bad} elements off the float64 sum")
+    on_f32 = dict(
+        max_err_over_sum_abs_g=((a32.double() - ref64).abs() / abs64.clamp_min(1e-300)).max().item(),
+        ms=median_ms(lambda: binned_scatter_add(g32, perm, grouped, bins, C)),
+        device_ms=device_median_ms(lambda: binned_scatter_add(g32, perm, grouped, bins, C)),
+        bound_ms=(8 * L + L * D * 4 + bins.numel() * 4 + C * D * 4) / HBM_BYTES_PER_S * 1e3,
+        library_ms=median_ms(
+            lambda: torch.zeros((C, D), dtype=torch.float32, device=device).index_add_(0, ids_nf, g32)),
+    )
+    del a32, b32, ref64, abs64, g32
+    scalar = check_scalar_path(perm, grouped, bins, ids_nf, touched, slr)
     light, light_share = light_part(g, ids_nf, bins, C)
+    runs = row_runs(grouped, ROW_CHUNK)
     bytes3 = 8 * L + L * D * g.element_size() + bins.numel() * 4 + C * D * 4
     k3 = dict(
         name="binned_scatter_add", route="cuda",
@@ -386,23 +551,29 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
         replaces="cachedembedding_tpu/ops/binned_scatter.py:64",
         max_abs_err=err,
         ms=median_ms(lambda: binned_scatter_add(g, perm, grouped, bins, C)),
+        device_ms=device_median_ms(lambda: binned_scatter_add(g, perm, grouped, bins, C)),
         plain_ms=median_ms(lambda: binned_scatter_add_plain(g, perm, grouped, bins, C)),
         bound_ms=bytes3 / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
         library_ms=median_ms(
             lambda: torch.zeros((C, D), dtype=torch.float32, device=device).index_add_(0, ids_nf, g.float())),
         library="torch.zeros(C, D).index_add_ (f32 atomics: another sum order)",
-        timed_on="fp8 slice, first training step",
+        timed_on="fp8 slice, first training step (bf16 grads)",
         tolerance=f"kernel and plain version each within {SCATTER_RTOL} x sum|g| of a float64 index_add_; "
                   "untouched rows exactly 0; two launches bit-identical",
         max_err_over_sum_abs_g=rel64, max_abs_sum=ref_max,
         light_ms=median_ms(lambda: binned_scatter_add(*light, C)),
         light_share=light_share,
+        chunk=ROW_CHUNK, cuda_launches_per_call=3, **runs,
+        plan_host_ms=plan_host_ms(win, F, C), on_f32_grads=on_f32, one_element_a_lane=scalar,
+        cuda_kernels_ms=kernel_breakdown(lambda: binned_scatter_add(g, perm, grouped, bins, C)),
     )
     log(f"[kernel] binned_scatter_add: {int(touched.sum())} touched rows of {C}; largest |sum| {ref_max:.3e}; "
-        f"the gate rejects all three planted faults; {json.dumps(k3)}")
+        f"heaviest row {runs['heaviest_row_ids']} ids, {runs['crossing_runs']} runs cross chunks of "
+        f"{ROW_CHUNK}; the gate rejects all four planted faults; on f32 grads and on the one-element-a-lane "
+        f"path ({', '.join(scalar)}) the same gates pass; {json.dumps(k3)}")
     results.append(k3)
-    del ref64, abs64, light
+    del light
 
     # ---- Kernel 4: stochastic rounding of that step's cw - slr * g ----
     new32 = torch.sub(cw0.float(), a, alpha=slr)
@@ -424,6 +595,7 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
         replaces="cachedembedding_tpu/ops/rounding.py:37",
         max_abs_err=0.0,
         ms=median_ms(lambda: stochastic_astype(new32, fp8, seed, out=out)),
+        device_ms=device_median_ms(lambda: stochastic_astype(new32, fp8, seed, out=out)),
         plain_ms=median_ms(lambda: stochastic_astype_plain(new32, fp8, seed)),
         bound_ms=C * D * (4 + 1) / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes",
@@ -436,6 +608,112 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
         f"version for e4m3fn, bf16 and e5m2; {json.dumps(k4)}")
     results.append(k4)
     return k1, results
+
+
+def check_scalar_path(perm, grouped, bins, ids_nf, touched, slr) -> dict:
+    """Kernels 2 and 3 through their one-element-a-lane path, which they take
+    where D is not a multiple of 4 or a row is not 16-byte aligned, on a
+    step's plan (``ids_nf`` the stream's ids, ``touched`` its rows): D = 18,
+    and D = 128 with the grads one element off 16-byte alignment. Each case
+    meets its kernel's gates: Kernel 2 on bf16 rows within one bf16 ulp of
+    its plain version, untouched rows bit-equal; Kernel 3 on bf16 and f32
+    grads within SCATTER_RTOL of a float64 index_add_, untouched rows 0; two
+    launches bit-identical. Returns each case's largest error of Kernel 3
+    over the sum of |g|."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import (
+        binned_scatter_add,
+        binned_sgd_update,
+        binned_sgd_update_plain,
+    )
+
+    C, L, device = touched.shape[0], ids_nf.shape[0], touched.device
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {}
+    for case, D, offset in (("D=18", 18, 0), ("D=128, grads one element off 16-byte alignment", 128, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            buf = torch.empty(L * D + offset, dtype=dt, device=device)
+            g = buf[offset:].view(L, D)  # contiguous; offset 1 breaks 16-byte alignment
+            g.copy_(1e-3 * torch.randn((L, D), generator=gen, device=device))
+            if dt == torch.bfloat16:
+                cw = (0.1 * torch.randn((C, D), generator=gen, device=device)).to(dt)
+                a = binned_sgd_update(cw.clone(), g, perm, grouped, bins, slr)
+                b = binned_sgd_update(cw.clone(), g, perm, grouped, bins, slr)
+                ref = binned_sgd_update_plain(cw.clone(), g, perm, grouped, bins, slr)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"binned_sgd ({case}) is not deterministic across launches")
+                n_bad = sgd_faults(a, cw, ref, touched)
+                if n_bad:
+                    raise AssertionError(f"binned_sgd ({case}): {n_bad} elements off by more than one bf16 ulp")
+                del a, b, ref, cw
+            a = binned_scatter_add(g, perm, grouped, bins, C)
+            b = binned_scatter_add(g, perm, grouped, bins, C)
+            ref64 = torch.zeros((C, D), dtype=torch.float64, device=device).index_add_(0, ids_nf, g.double())
+            abs64 = torch.zeros((C, D), dtype=torch.float64, device=device).index_add_(0, ids_nf, g.double().abs())
+            if not torch.equal(a, b) or not bool((a[~touched] == 0).all()):
+                raise AssertionError(f"binned_scatter_add ({case}, {dt}): launches differ or untouched rows nonzero")
+            n_bad = scatter_add_faults(a, ref64, abs64)
+            if n_bad:
+                raise AssertionError(f"binned_scatter_add ({case}, {dt}): {n_bad} elements off the float64 sum")
+            out[f"{case}, {str(dt).removeprefix('torch.')} grads"] = (
+                ((a.double() - ref64).abs() / abs64.clamp_min(1e-300)).max().item())
+            del a, b, ref64, abs64, buf, g
+    return out
+
+
+UNSORTED_PLAN_KERNELS = ("binned_sgd", "binned_scatter_add")
+
+
+def refuse_unsorted_plan(kernel: str) -> int:
+    """Child process of phase 8: hand ``kernel``'s wrapper a plan grouped by
+    bin but not sorted by id inside a bin (the JAX package's layout) and
+    synchronize. Returns 0 if the kernel stopped with a device-side assert,
+    1 if it took the plan."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import BLOCK_ROWS, binned_scatter_add, binned_sgd_update
+
+    rng = np.random.default_rng(0)
+    L, C, D = 4096, 1000, 128
+    v = rng.integers(0, C, L).astype(np.int32)
+    perm = np.argsort(v // BLOCK_ROWS, kind="stable").astype(np.int32)
+    grouped = v[perm]
+    bins = np.searchsorted(grouped // BLOCK_ROWS, np.arange(-(-C // BLOCK_ROWS) + 1)).astype(np.int32)
+    if bool((np.diff(grouped) >= 0).all()):
+        raise AssertionError("the bin-grouped plan happens to be sorted")
+    device = torch.device("cuda", 0)
+    perm_d, grouped_d, bins_d = (torch.from_numpy(x).to(device) for x in (perm, grouped, bins))
+    g = torch.randn((L, D), device=device)
+    try:
+        if kernel == "binned_sgd":
+            binned_sgd_update(torch.zeros((C, D), device=device), g, perm_d, grouped_d, bins_d, 1.0)
+        else:
+            binned_scatter_add(g, perm_d, grouped_d, bins_d, C)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        if "device-side assert" in str(e):
+            return 0
+        raise
+    return 1
+
+
+def start_unsorted_plan_checks() -> dict:
+    """Phase 8's child processes, one per kernel (a device-side assert ends
+    its process's CUDA context)."""
+    return {k: subprocess.Popen([sys.executable, __file__, "--unsorted-plan", k], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for k in UNSORTED_PLAN_KERNELS}
+
+
+def finish_unsorted_plan_checks(procs: dict) -> None:
+    for k, p in procs.items():
+        _, err = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"{k} took a plan not sorted by id (exit {p.returncode}): {err[-3000:]}")
+        log(f"[plan check] {k}: a plan grouped by bin but not sorted by id stopped the kernel "
+            f"with a device-side assert")
 
 
 def phase_reference(device, cache_dtype: str) -> None:
@@ -667,6 +945,21 @@ def main() -> int:
         return 2
     import cachedembedding_tpu_torch  # noqa: F401  (fails outside the checkout)
 
+    if sys.argv[1:2] == ["--unsorted-plan"]:  # phase 8's child process
+        return refuse_unsorted_plan(sys.argv[2])
+    procs = {}
+    try:
+        return run_phases(procs)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def run_phases(procs: dict) -> int:
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls stay f32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -677,8 +970,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[build] done in {time.perf_counter() - t0:.1f} s; card: {smi}")
+    procs.update(start_unsorted_plan_checks())
     phase_reference(device, "float32")
     phase_reference(device, FP8)
+    finish_unsorted_plan_checks(procs)
 
     cfg = slice_config("bfloat16")
     launches_bf16, tr, win, _ = phase_slice(cfg, device)

@@ -4,7 +4,11 @@ JAX package's ``binned_scatter_add(..., interpret=True)``, on the cases of
 bins in JAX, 64-row bins in the port; the result does not depend on the bin
 height. Sums are f32 in both, in different orders: rtol 1e-5, atol 1e-4, with
 untouched rows exactly 0. On CPU tensors the wrapper runs the plain version,
-which is what these tests exercise."""
+which is what these tests exercise. The last tests feed the port's plan
+(sorted by row) to the JAX kernels themselves, and hold the scratch size the
+wrappers allocate to the chunk the CUDA kernels compile in."""
+
+import re
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -13,9 +17,12 @@ import pytest
 import torch
 
 from cachedembedding_tpu.ops.binned_scatter import binned_scatter_add as jax_binned_scatter_add
+from cachedembedding_tpu.ops.binned_scatter import binned_sgd_update as jax_binned_sgd_update
 from cachedembedding_tpu.ops.binned_scatter import sort_plan_np as jax_sort_plan
+from cachedembedding_tpu_torch.ops import _cuda
 from cachedembedding_tpu_torch.ops.binned_scatter import (
     BLOCK_ROWS,
+    ROW_CHUNK,
     binned_scatter_add,
     sort_plan_np,
 )
@@ -88,3 +95,40 @@ def test_validates_its_inputs():
         binned_scatter_add(g, perm, grouped, bins[:-1], 100)
     with pytest.raises(ValueError, match="agree"):
         binned_scatter_add(g, perm[:-1], grouped, bins, 100)
+
+
+@pytest.mark.parametrize("kernel", ["binned_sgd_update", "binned_scatter_add"])
+def test_jax_kernels_take_the_row_sorted_plan(kernel):
+    """The port's plan, each bin sorted by row, fed to the JAX kernel at the
+    port's bin height gives what that kernel gives on JAX's own plan (512-row
+    bins, grouped only): the JAX kernels need bin-contiguity only. f32
+    tolerances as above (rtol 1e-5, atol 1e-4); the sums differ in order."""
+    rng = np.random.default_rng(3)
+    L, num_rows, D, lr = 3000, 1000, 128, 0.37
+    v = np.where(rng.random(L) < 0.1, 321, rng.integers(0, num_rows, L)).astype(np.int32)
+    g = rng.standard_normal((L, D)).astype(np.float32)
+    jp, jg, jb = jax_sort_plan(v, num_rows)
+    perm, grouped, bins = sort_plan_np(v, num_rows)
+    assert not np.array_equal(perm, jp)  # the two plans differ inside bins
+    if kernel == "binned_scatter_add":
+        def run(plan, **kw):
+            return np.asarray(jax_binned_scatter_add(
+                jnp.asarray(g), *map(jnp.asarray, plan), num_rows, interpret=True, **kw))
+    else:
+        cw = rng.standard_normal((num_rows, D)).astype(np.float32)
+
+        def run(plan, **kw):
+            return np.asarray(jax_binned_sgd_update(
+                jnp.asarray(cw), jnp.asarray(g), *map(jnp.asarray, plan), jnp.asarray(lr, jnp.float32),
+                interpret=True, **kw))
+    ref = run((jp, jg, jb))
+    got = run((perm, grouped, bins), block_rows=BLOCK_ROWS)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_row_chunk_is_the_cuda_kernels_chunk():
+    """The wrappers size the kernels' partials with ROW_CHUNK: it must be the
+    kChunk that csrc/row_runs.cuh compiles in, which no CPU run executes."""
+    header = next(h for h in _cuda.HEADERS if h.name == "row_runs.cuh")
+    m = re.search(r"constexpr int kChunk = (\d+);", header.read_text())
+    assert m is not None and int(m.group(1)) == ROW_CHUNK

@@ -68,15 +68,43 @@ def test_directory_errors():
         d.plan(np.arange(10, dtype=np.int32))
 
 
+def _check_plan_against_jax(ids, num_rows, block_rows):
+    """The port's plan is JAX's bin grouping re-sorted stably by id inside
+    each bin: bin_starts equal bit for bit, perm the stable sort by id, and
+    ids_grouped == ids[perm]."""
+    perm, grouped, bins = hostops.sort_plan(ids, num_rows, block_rows)
+    jperm, _, jbins = jax_hostops.sort_plan(ids, num_rows, block_rows)
+    np.testing.assert_array_equal(bins, jbins)
+    np.testing.assert_array_equal(perm, jperm[np.argsort(ids[jperm], kind="stable")])
+    np.testing.assert_array_equal(grouped, ids[perm])
+    np.testing.assert_array_equal(perm, np.argsort(ids, kind="stable"))
+    assert perm.dtype == grouped.dtype == bins.dtype == np.int32
+
+
 @pytest.mark.parametrize("block_rows", [64, 512])
 @pytest.mark.parametrize("L,num_rows", [(1000, 700), (4096, 2048), (777, 1000)])
 def test_sort_plan_matches_jax(L, num_rows, block_rows):
     rng = np.random.default_rng(L + block_rows)
     ids = rng.integers(0, num_rows, size=L).astype(np.int32)
-    mine = hostops.sort_plan(ids, num_rows, block_rows)
-    ref = jax_hostops.sort_plan(ids, num_rows, block_rows)
-    for a, b in zip(mine, ref):
-        np.testing.assert_array_equal(a, b)
+    _check_plan_against_jax(ids, num_rows, block_rows)
+
+
+def _skewed_stream(case, rng):
+    if case == "one_row_most":  # one row holds 90% of the stream
+        n = 5000
+        ids = np.where(rng.random(n) < 0.9, 321, rng.integers(0, 2000, n))
+        return ids.astype(np.int32), 2000
+    if case == "empty_bins":  # four rows far apart: most bins empty
+        return rng.choice([3, 4, 700, 1999], size=900).astype(np.int32), 2000
+    if case == "unaligned_rows":  # num_rows not a multiple of 64, the last row used
+        return np.concatenate([rng.integers(0, 1001, 600), [1000, 1000]]).astype(np.int32), 1001
+    return np.zeros((0,), np.int32), 700  # empty stream
+
+
+@pytest.mark.parametrize("case", ["one_row_most", "empty_bins", "unaligned_rows", "empty"])
+def test_sort_plan_sorts_skewed_streams(case):
+    ids, num_rows = _skewed_stream(case, np.random.default_rng(9))
+    _check_plan_against_jax(ids, num_rows, 64)
 
 
 def test_virtual_table_matches_jax():
