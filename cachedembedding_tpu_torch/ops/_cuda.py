@@ -26,19 +26,24 @@ HEADERS = [_CSRC / "row_runs.cuh"]  # part of every kernel's build hash
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+# entry name -> (library, C symbol, argument types)
 _PROTOTYPES = {
-    "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I64, _I64, _I64, _P]),
+    "gather_rows": ("gather_rows", "gather_rows_launch", [_P, _P, _P, _I64, _I64, _I64, _P]),
     "binned_sgd": (
-        "binned_sgd_launch",
+        "binned_sgd", "binned_sgd_launch",
         [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
     ),
     "binned_scatter_add": (
-        "binned_scatter_add_launch",
+        "binned_scatter_add", "binned_scatter_add_launch",
         [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     ),
     "stochastic_round": (
-        "stochastic_round_launch",
+        "stochastic_round", "stochastic_round_launch",
         [_P, _P, _I64, ctypes.c_uint32, ctypes.c_int, _P],
+    ),
+    "stochastic_sgd_round": (
+        "stochastic_round", "stochastic_sgd_round_launch",
+        [_P, _P, _I64, ctypes.c_float, ctypes.c_uint32, ctypes.c_int, _P],
     ),
 }
 
@@ -50,10 +55,11 @@ def build_kernel(name: str):
 
 @functools.lru_cache(maxsize=None)
 def kernel_entry(name: str):
-    """The C launch function of kernel ``name``, built at first use."""
-    path, _, _ = build_kernel(name)
+    """The C launch function ``name`` (a key of ``_PROTOTYPES``), its
+    library built at first use."""
+    lib_name, sym, argtypes = _PROTOTYPES[name]
+    path, _, _ = build_kernel(lib_name)
     lib = ctypes.CDLL(str(path))
-    sym, argtypes = _PROTOTYPES[name]
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

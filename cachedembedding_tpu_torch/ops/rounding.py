@@ -193,6 +193,42 @@ def stochastic_astype(
 stochastic_astype.launches = 0
 
 
+def stochastic_sgd_round_plain(cw: torch.Tensor, g32: torch.Tensor, slr: float, seed: int) -> torch.Tensor:
+    """Plain version of the fused entry: ``cw - slr * g32`` in f32, then
+    Kernel 4's plain version into ``cw``'s dtype (a new tensor)."""
+    return stochastic_astype_plain(torch.sub(cw.float(), g32, alpha=slr), cw.dtype, seed)
+
+
+def stochastic_sgd_round_(cw: torch.Tensor, g32: torch.Tensor, slr: float, seed: int) -> torch.Tensor:
+    """``cw = stochastic_astype(cw - slr * g32, cw.dtype, seed)``, in place,
+    for bf16, float8_e4m3fn or float8_e5m2 rows ``cw`` and an f32 ``g32`` of
+    the same shape. On the card one launch of Kernel 4 forms ``cw - slr * g``
+    in registers (as ``torch.sub(..., alpha=slr)`` does there: one fused
+    multiply-add) and rounds it into ``cw``; no f32 copy of ``cw`` is made.
+    Returns ``cw``."""
+    if cw.dtype not in _DTYPE_CODES:
+        raise ValueError(f"stochastic_sgd_round_ rounds into bf16, float8_e4m3fn or float8_e5m2 rows, not {cw.dtype}")
+    if g32.dtype != torch.float32:
+        raise ValueError(f"stochastic_sgd_round_ takes a float32 grad, not {g32.dtype}")
+    if g32.shape != cw.shape or g32.device != cw.device:
+        raise ValueError("stochastic_sgd_round_: the grad must have the rows' shape and device")
+    if not (cw.is_contiguous() and g32.is_contiguous()):
+        raise ValueError("stochastic_sgd_round_ needs contiguous rows and grad")
+    seed = int(seed) & _M32
+    if cw.device.type == "cpu":
+        return cw.copy_(stochastic_sgd_round_plain(cw, g32, slr, seed))
+    if cw.device.type != "cuda":
+        raise ValueError("stochastic_sgd_round_ needs CUDA (or CPU) tensors")
+    launch = _cuda.kernel_entry("stochastic_sgd_round")
+    rc = launch(cw.data_ptr(), g32.data_ptr(), cw.numel(), float(slr), seed, _DTYPE_CODES[cw.dtype], _cuda.stream_of(cw))
+    _cuda.check_launch("stochastic_sgd_round", rc)
+    stochastic_sgd_round_.launches += 1
+    return cw
+
+
+stochastic_sgd_round_.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # deterministic storage cast
 # ---------------------------------------------------------------------------

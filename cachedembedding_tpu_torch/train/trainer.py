@@ -21,9 +21,10 @@ With stochastic rounding on (fp8 rows by default, ``CacheConfig.
 rounds_stochastically``), steps 3-6 take the JAX package's rounding branch
 (``_scan_window``): the rows are upcast to f32 before the gradient is taken,
 the row gradients go to bf16 (or the storage dtype, if wider), Kernel 3
-builds the (C, D) f32 grad from the same plan, ``cw - slr * g`` is formed in
-f32, and Kernel 4 (``ops/rounding.py``) rounds it stochastically back into
-the cache with a per-step seed.
+builds the (C, D) f32 grad from the same plan, and Kernel 4's fused entry
+(``ops/rounding.stochastic_sgd_round_``) forms ``cw - slr * g`` in f32
+registers and rounds it stochastically back into the cache with a per-step
+seed.
 
 The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
@@ -53,7 +54,7 @@ from cachedembedding_tpu_torch.ops.binned_scatter import (
 )
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-from cachedembedding_tpu_torch.ops.rounding import stochastic_astype
+from cachedembedding_tpu_torch.ops.rounding import stochastic_sgd_round_
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
 _EVAL_READBACK_STEPS = 32  # eval scores stay on the device this many steps
@@ -220,16 +221,18 @@ class CachedDLRMTrainer:
 
     def _sr_update(self, cw, g_rows, perm, grouped, bins, slr: float, seed: int) -> None:
         """The rounding branch's update of one step, in place on ``cw``:
-        Kernel 3 builds the (C, D) f32 grad, ``cw - slr * g`` is formed in
-        f32 and written over that grad, and Kernel 4 rounds it stochastically
-        into ``cw``. ``cw.float()`` is a second (C, D) f32 array, as in the
-        JAX package; writing the result over the grad saves only a third."""
+        Kernel 3 builds the (C, D) f32 grad, and Kernel 4's fused entry forms
+        ``cw - slr * g`` in registers and rounds it stochastically into
+        ``cw`` (bf16 and fp8 rows), with no f32 copy of ``cw``. f32 rows take
+        ``cw - slr * g`` as it is."""
         # fp8 grads would flush the sub-ulp updates the rounding preserves;
         # bf16 keeps f32's exponent range at half the bytes
         gdt = torch.bfloat16 if cw.element_size() == 1 else cw.dtype
         g32 = binned_scatter_add(g_rows.to(gdt), perm, grouped, bins, cw.shape[0])
-        new32 = torch.sub(cw.float(), g32, alpha=slr, out=g32)
-        stochastic_astype(new32, cw.dtype, seed, out=cw)
+        if cw.dtype == torch.float32:
+            cw.sub_(g32, alpha=slr)
+        else:
+            stochastic_sgd_round_(cw, g32, slr, seed)
 
     def _dispatch_window(self, win: _Window, progresses: List[float]) -> torch.Tensor:
         """Land the admits and enqueue every step of the window. Returns the

@@ -27,7 +27,9 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      gather lookup on: build the trainer, train 3 windows (24 steps),
      evaluate 1 window, flush, and check flushed rows against the cache rows
      they came from. Kernel launch counts are zeroed just before and read
-     just after.
+     just after. Then one more training window under torch.profiler: the
+     device's busy time, the idle share of its span and its heaviest
+     kernels.
   4. Kernels 1 and 2 against their plain versions on the bf16 slice's first
      training step (its device addresses and row-sorted plan, 26 x 16,384
      ids into 901,228 x 128 bf16 rows): the row gather must equal
@@ -38,7 +40,9 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      chunk of ROW_CHUNK addends).
   5. The fp8 slice: the same configuration with float8_e4m3fn rows
      (stochastic rounding on), 24 steps, 1 evaluation window and a flush
-     checked as in phase 3; its own launch counts.
+     checked as in phase 3; its own launch counts; the device memory peak
+     also read just before and after the first step's update (its inputs,
+     which phase 6 reads, are kept in pinned host memory).
   6. Kernels 1, 3 and 4 on the fp8 slice's first training step (its ids,
      plan and row grads, and the cache rows before its update): the gather
      of 128-byte fp8 rows equal to index_select bit for bit (uint8 view);
@@ -50,8 +54,17 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      the same gates on the step's f32 grads; Kernels 2 and 3 on the same
      plan through their one-element-a-lane path (D = 18, and D = 128 with the
      grads one element off 16-byte alignment), under the same gates;
-     stochastic rounding of that step's cw - slr * g bit-equal to its plain
-     version for float8_e4m3fn, bf16 and float8_e5m2.
+     Kernel 4 bit-equal to its plain version for float8_e4m3fn, bf16 and
+     float8_e5m2: on that step's cw - slr * g, on every one of the 2^32 f32
+     bit patterns (2^28 a launch, a seed each), and, with a second seed, on
+     n % 16 != 0 with every special value and inputs 4 bytes off 16-byte
+     alignment; its fused entry (stochastic_sgd_round_, which the fp8
+     slice's update calls) bit-equal to the unfused chain (cw.float(),
+     torch.sub, the plain rounding) on the step's rows and grad as e4m3fn
+     and bf16 rows, at the step's slr and at 0.37, and on the ragged,
+     misaligned case; the gate shown to reject two planted faults (u <= p in
+     place of u < p, the Philox stream shifted by one word) on an input that
+     puts p on u for one element in 16.
   7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
      prepare_ids then lookup over seeded ids that together exceed its
      capacity, equal to the host rows through the storage cast, pooled.
@@ -67,7 +80,10 @@ behind a device-side sleep, device time only. The binned kernels are also
 timed on the light part of their step alone (the ids of bins of at most 1,024
 ids), split by CUDA launch (``torch.profiler``), with the step's heaviest
 row, its runs that cross chunks, and the host time of its plan
-(``sort_plan_np``).
+(``sort_plan_np``). Kernel 4's entry holds its fused entry's times beside
+their own bound and the device time of the unfused chain it replaced.
+Phase 5 counts both of Kernel 4's entries: the fused one 24 times on the
+fp8 slice, neither on the bf16 slice; the kernels line gives their sum.
 Prints per-phase results, then the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
@@ -87,6 +103,8 @@ ITERS = 10
 SLEEP_CYCLES_PER_MS = 2.0e6  # the SM clock is at most 1.98 GHz: this lasts at least 1 ms
 FP8 = "float8_e4m3fn"
 BF16_KERNELS = ("gather_rows", "binned_sgd")  # timed on the bf16 slice, the others on the fp8 one
+# a kernel whose CUDA kernel two wrappers launch: its launches are both wrappers' counts
+KERNEL_ENTRIES = {"stochastic_round": ("stochastic_round", "stochastic_sgd_round")}
 
 
 def log(msg: str) -> None:
@@ -167,10 +185,11 @@ def kernel_wrappers() -> dict:
     ``launches`` counts the launches of its CUDA kernel."""
     from cachedembedding_tpu_torch.ops.binned_scatter import binned_scatter_add, binned_sgd_update
     from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype
+    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_sgd_round_
 
     return {"gather_rows": gather_rows, "binned_sgd": binned_sgd_update,
-            "binned_scatter_add": binned_scatter_add, "stochastic_round": stochastic_astype}
+            "binned_scatter_add": binned_scatter_add, "stochastic_round": stochastic_astype,
+            "stochastic_sgd_round": stochastic_sgd_round_}
 
 
 def launch_counts() -> dict:
@@ -448,7 +467,12 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
         binned_scatter_add_plain,
     )
     from cachedembedding_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
-    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_astype_plain
+    from cachedembedding_tpu_torch.ops.rounding import (
+        stochastic_astype,
+        stochastic_astype_plain,
+        stochastic_sgd_round_,
+        stochastic_sgd_round_plain,
+    )
 
     F, D, B = cfg.num_sparse_features, cfg.embedding_dim, cfg.batch_size
     cw0, g_rows, slr, seed = first_update
@@ -578,17 +602,30 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
     # ---- Kernel 4: stochastic rounding of that step's cw - slr * g ----
     new32 = torch.sub(cw0.float(), a, alpha=slr)
     del b, ref
-    views = {torch.float8_e4m3fn: torch.uint8, torch.float8_e5m2: torch.uint8, torch.bfloat16: torch.int16}
-    for dt, view in views.items():
-        k = stochastic_astype(new32, dt, seed)
-        p = stochastic_astype_plain(new32, dt, seed)
-        torch.cuda.synchronize()
-        if not torch.equal(k.view(view), p.view(view)):
-            n = int((k.view(view) != p.view(view)).sum())
-            raise AssertionError(f"stochastic_round kernel differs from its plain version in {n} elements ({dt})")
-        del k, p
+    for name in ROUND_VIEWS:
+        dt = getattr(torch, name)
+        rounding_gate(stochastic_astype(new32, dt, seed), stochastic_astype_plain(new32, dt, seed),
+                      f"stochastic_round on the step's cw - slr * g ({name})")
+    fused = check_fused_entry(cw0, a, slr, seed)
+    t0 = time.perf_counter()
+    sweep = check_rounding_sweep(device)
+    sweep["planted_faults"] = check_planted_rounding_faults(device)
+    edges = check_rounding_edges(device)
+    checks_s = time.perf_counter() - t0
     fp8 = torch.float8_e4m3fn
     out = torch.empty((C, D), dtype=fp8, device=device)
+    cw_t = cw0.clone()
+    fused.update(
+        ms=median_ms(lambda: stochastic_sgd_round_(cw_t, a, slr, seed)),
+        device_ms=device_median_ms(lambda: stochastic_sgd_round_(cw_t, a, slr, seed)),
+        plain_ms=median_ms(lambda: stochastic_sgd_round_plain(cw0, a, slr, seed)),
+        bound_ms=C * D * (1 + 4 + 1) / HBM_BYTES_PER_S * 1e3,  # rows read and written, f32 grad read
+        bound_by="bytes",
+        library_ms=None,  # no one PyTorch call rounds stochastically
+        # the step before: cw.float(), torch.sub, then the standalone kernel
+        chain_device_ms=device_median_ms(
+            lambda: stochastic_astype(torch.sub(cw0.float(), a, alpha=slr), fp8, seed, out=out)),
+    )
     k4 = dict(
         name="stochastic_round", route="cuda",
         source="cachedembedding_tpu_torch/csrc/stochastic_round.cu",
@@ -603,11 +640,160 @@ def phase_kernels_fp8(cfg, tr, win, first_update):
         library="Tensor.to(float8_e4m3fn): deterministic rounding, a different function",
         timed_on="fp8 slice, first training step",
         tolerance="bit-exact (float8_e4m3fn, bfloat16, float8_e5m2)",
+        fused_entry=fused, sweep=sweep, edges=edges, checks_s=checks_s,
     )
     log(f"[kernel] stochastic_round: ({C}, {D}) f32 -> fp8, seed {seed}, bit-equal to its plain "
-        f"version for e4m3fn, bf16 and e5m2; {json.dumps(k4)}")
+        f"version for e4m3fn, bf16 and e5m2 on the step, on all 2^32 f32 bit patterns, on tails and "
+        f"misaligned inputs; the fused entry bit-equal to the unfused chain; the gate rejects both planted "
+        f"faults; {json.dumps(k4)}")
     results.append(k4)
     return k1, results
+
+
+ROUND_VIEWS = {"float8_e4m3fn": "uint8", "bfloat16": "int16", "float8_e5m2": "uint8"}
+SWEEP_CHUNK = 1 << 28  # f32 bit patterns per launch of the sweep
+
+
+def rounding_gate(got, want, what: str) -> None:
+    """Kernel 4's gate: ``got`` bit-equal to the plain version's ``want``."""
+    import torch
+
+    view = getattr(torch, ROUND_VIEWS[str(want.dtype).removeprefix("torch.")])
+    n_bad = rounding_faults(got, want)
+    if n_bad:
+        g, w = got.reshape(-1).view(view), want.reshape(-1).view(view)
+        idx = torch.nonzero(g != w)[:6, 0].tolist()
+        raise AssertionError(f"{what}: {n_bad} elements differ from the plain version; at {idx}: "
+                             f"{[int(g[i]) for i in idx]} vs {[int(w[i]) for i in idx]}")
+
+
+def rounding_faults(got, want) -> int:
+    import torch
+
+    view = getattr(torch, ROUND_VIEWS[str(want.dtype).removeprefix("torch.")])
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return want.numel()
+    return int((got.view(view) != want.view(view)).sum())
+
+
+def check_rounding_sweep(device) -> dict:
+    """Kernel 4 against its plain version on every f32 bit pattern, for each
+    target dtype, SWEEP_CHUNK patterns a launch, each chunk with its own
+    seed. Returns the seconds it took."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_astype_plain
+
+    t0 = time.perf_counter()
+    for name in ROUND_VIEWS:
+        dt = getattr(torch, name)
+        for c, lo in enumerate(range(-(1 << 31), 1 << 31, SWEEP_CHUNK)):
+            x = torch.arange(lo, lo + SWEEP_CHUNK, dtype=torch.int64, device=device).to(torch.int32)
+            x = x.view(torch.float32)
+            seed = (0x9E3779B9 * c + 17) & 0xFFFFFFFF
+            want = stochastic_astype_plain(x, dt, seed)
+            rounding_gate(stochastic_astype(x, dt, seed), want,
+                          f"stochastic_round sweep ({name}, bits {lo & 0xFFFFFFFF:#010x}.., seed {seed})")
+            del x, want
+    return {"patterns": 1 << 32, "dtypes": list(ROUND_VIEWS), "seconds": time.perf_counter() - t0}
+
+
+def check_planted_rounding_faults(device, n: int = 1 << 24) -> dict:
+    """Kernel 4's gate shown to reject two planted faults: ``u <= p`` in
+    place of ``u < p``, and the Philox stream shifted by one word. The input
+    puts p on u for one element in 16 (x = 1 + u rounded down to 2^-20 of
+    the e4m3 step 0.125: p = u wherever u's low 4 bits are 0), so ties,
+    which a random input meets once in 2^24 draws, are common; the kernel
+    must still equal the plain version there. Returns each fault's count of
+    mismatches."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.rounding import (
+        philox_uniform,
+        sr_from_uniform,
+        stochastic_astype,
+        stochastic_astype_plain,
+    )
+
+    fp8, seed = torch.float8_e4m3fn, 0x5EED
+    u = philox_uniform(seed, (n,), device)
+    x = 1.0 + torch.floor(u * 2.0**20) * 2.0**-23
+    want = stochastic_astype_plain(x, fp8, seed)
+    rounding_gate(stochastic_astype(x, fp8, seed), want, "stochastic_round on ties (p = u)")
+    faults = {
+        "u <= p": sr_from_uniform(x, torch.nextafter(u, torch.full_like(u, -float("inf"))), fp8),
+        "Philox shifted one word": sr_from_uniform(x, philox_uniform(seed, (n + 1,), device)[1:], fp8),
+    }
+    found = {}
+    for fault, bad in faults.items():
+        found[fault] = rounding_faults(bad, want)
+        if not found[fault]:
+            raise AssertionError(f"stochastic_round gate passed a planted fault ({fault})")
+    return {"n": n, "ties": int((u * 2.0**24 % 16 == 0).sum()), "mismatches": found}
+
+
+def check_rounding_edges(device) -> dict:
+    """Kernel 4 and its fused entry where they take their element-wise path:
+    n % 16 != 0 (the ragged end) and inputs 4 bytes off 16-byte alignment
+    (rows one element off), on seeded values with every special class, and
+    a second seed. Returns the cases checked."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.rounding import (
+        stochastic_astype,
+        stochastic_astype_plain,
+        stochastic_sgd_round_,
+        stochastic_sgd_round_plain,
+    )
+
+    n, seed = 1_000_003, 0xC0FFEE
+    gen = torch.Generator(device=device).manual_seed(3)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), -float("nan"), 448.0, -448.0,
+                            464.0, 465.0, 57344.0, 6e4, 1e-30, -1e-30, 2.0**-10, -2.0**-10, 1.5 * 2.0**-9,
+                            3.0e38, -3.0e38, 1e-40, -1e-40], device=device)
+    vals = 3 * torch.randn(n, generator=gen, device=device)
+    vals[: special.numel()] = special
+    vals[special.numel():: 7] *= 2.0 ** -12  # target subnormals
+    cases = []
+    for offset in (0, 1):  # 1: the input one element off 16-byte alignment
+        buf = torch.empty(n + offset, device=device)
+        x = buf[offset:]
+        x.copy_(vals)
+        for name in ROUND_VIEWS:
+            dt = getattr(torch, name)
+            rounding_gate(stochastic_astype(x, dt, seed), stochastic_astype_plain(x, dt, seed),
+                          f"stochastic_round, n = {n}, offset {offset} ({name})")
+            # the fused entry: rows and grad both `offset` elements in
+            rows0 = stochastic_astype_plain(vals.clamp(-400.0, 400.0).nan_to_num(0.0), dt, seed + 1)
+            rbuf = torch.empty(n + offset, dtype=dt, device=device)
+            rows = rbuf[offset:]
+            rows.view(torch.uint8 if dt.itemsize == 1 else torch.int16).copy_(
+                rows0.view(torch.uint8 if dt.itemsize == 1 else torch.int16))
+            g = buf[offset:]
+            rounding_gate(stochastic_sgd_round_(rows, g, 0.37, seed), stochastic_sgd_round_plain(rows0, g, 0.37, seed),
+                          f"stochastic_sgd_round_, n = {n}, offset {offset} ({name})")
+            cases.append(f"{name}, offset {offset}")
+        del buf, x
+    return {"n": n, "seed": seed, "cases": cases}
+
+
+def check_fused_entry(cw0, g32, slr: float, seed: int) -> dict:
+    """The fused entry against the unfused chain (cw.float(), torch.sub,
+    the plain rounding) on a step's rows and f32 grad, for e4m3fn and bf16
+    rows, at the step's slr and at 0.37 (where a multiply-add and two
+    roundings differ)."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.rounding import stochastic_sgd_round_, stochastic_sgd_round_plain
+
+    checked = []
+    for name in ("float8_e4m3fn", "bfloat16"):
+        rows = cw0 if name == "float8_e4m3fn" else cw0.float().to(torch.bfloat16)
+        for s in (slr, 0.37):
+            rounding_gate(stochastic_sgd_round_(rows.clone(), g32, s, seed), stochastic_sgd_round_plain(rows, g32, s, seed),
+                          f"stochastic_sgd_round_ on the step ({name} rows, slr {s})")
+            checked.append(f"{name} rows, slr {s}")
+    return {"entry": "stochastic_sgd_round_", "bit_equal_to_chain": checked}
 
 
 def check_scalar_path(perm, grouped, bins, ids_nf, touched, slr) -> dict:
@@ -825,7 +1011,7 @@ def phase_slice(cfg, device):
     torch.cuda.synchronize()
     log(f"{tag} trainer built in {time.perf_counter() - t0:.1f} s: capacity "
         f"{tr.embed.capacity}, device rows {tr.embed.device_rows}, rows {tr.embed.cache_weight.dtype}")
-    first_win, first_update = [], []
+    first_win, first_update, peaks = [], [], []
     begin = tr._begin_window
 
     def begin_and_keep(batches, with_plan=True):
@@ -839,9 +1025,17 @@ def phase_slice(cfg, device):
         sr_update = tr._sr_update
 
         def sr_update_and_keep(cw, g_rows, perm, grouped, bins, slr, seed):
-            if not first_update:  # one copy, at the first step only
-                first_update.append((cw.clone(), g_rows.detach().clone(), slr, seed))
-            return sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+            if first_update:
+                return sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+            # the first step: its inputs copied to pinned host memory in stream
+            # order (no device copy in the peak), the device peak read around its update
+            keep = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                    for t in (cw, g_rows.detach())]
+            first_update.append((*keep, slr, seed))
+            peaks.append(torch.cuda.max_memory_allocated(device))
+            sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+            peaks.append(torch.cuda.max_memory_allocated(device))
+            return None
 
         tr._sr_update = sr_update_and_keep
     torch.cuda.reset_peak_memory_stats(device)
@@ -857,7 +1051,9 @@ def phase_slice(cfg, device):
     per_window = [float(x) for x in losses.reshape(-1, P).mean(axis=1)]
     log(f"{tag} loss per window {per_window}")
     log(f"{tag} hit rate {rep.hit_rate:.4f}; {rep.examples_per_s:.0f} examples/s "
-        f"({rep.it_per_s:.2f} it/s) over {steps} steps; peak device memory {peak / 2**30:.2f} GiB")
+        f"({rep.it_per_s:.2f} it/s) over {steps} steps; peak device memory {peak / 2**30:.2f} GiB"
+        + (f" ({peaks[0] / 2**30:.2f} GiB before the first step's update, {peaks[1] / 2**30:.2f} after it)"
+           if peaks else ""))
     log(f"{tag} host s/window {[round(x, 4) for x in rep.window_host_s]}; "
         f"device s/window {[round(x, 4) for x in rep.window_device_s]}")
     log(f"{tag} eval of {ev['count']} examples in {eval_s:.2f} s: auroc {ev['auroc']:.4f}")
@@ -868,15 +1064,19 @@ def phase_slice(cfg, device):
         raise AssertionError(f"{tag} hit rate {rep.hit_rate} outside (0, 1]")
     need = {"gather_rows": steps + P}
     if tr._sr:
-        need.update(binned_scatter_add=steps, stochastic_round=steps, binned_sgd=0)
+        need.update(binned_scatter_add=steps, stochastic_sgd_round=steps, stochastic_round=0, binned_sgd=0)
     else:
-        need.update(binned_sgd=steps, binned_scatter_add=0, stochastic_round=0)
+        need.update(binned_sgd=steps, binned_scatter_add=0, stochastic_round=0, stochastic_sgd_round=0)
     for name, n in need.items():
         if (launches[name] < n) if n else launches[name]:
             raise AssertionError(f"{tag} kernel {name} launched {launches[name]} times, expected "
                                  f"{'at least ' + str(n) if n else 'none'}: {launches}")
     if ev["count"] != P * cfg.batch_size or not np.isfinite(ev["auroc"]):
         raise AssertionError(f"{tag} bad eval: {ev}")
+    from cachedembedding_tpu_torch.slice_ab import profile_window
+
+    prof = profile_window(tr, cfg)
+    log(f"{tag} one more training window under torch.profiler: {json.dumps(prof)}")
     # flushed host rows must equal the cache rows they came from
     emb = tr.embed
     emb.flush()
@@ -889,7 +1089,11 @@ def phase_slice(cfg, device):
     if not np.array_equal(host, dev):
         raise AssertionError(f"{tag} flushed host rows differ from their cache rows")
     log(f"{tag} flush: {addrs.shape[0]} sampled rows equal their cache rows")
-    return launches, tr, first_win[0], (first_update[0] if first_update else None)
+    first = None
+    if first_update:
+        cw0, g0, slr, seed = first_update[0]
+        first = (cw0.to(device), g0.to(device), slr, seed)
+    return launches, tr, first_win[0], first
 
 
 def phase_bare_module(device) -> None:
@@ -996,8 +1200,14 @@ def run_phases(procs: dict) -> int:
 
     for k in kernels:
         name = k["name"]
-        k["launches"] = (launches_bf16 if name in BF16_KERNELS else launches_fp8)[name]
-        k["launches_by_path"] = {"bf16 slice": launches_bf16[name], "fp8 slice": launches_fp8[name]}
+        entries = KERNEL_ENTRIES.get(name, (name,))
+        by_path = {path: sum(counts[e] for e in entries)
+                   for path, counts in (("bf16 slice", launches_bf16), ("fp8 slice", launches_fp8))}
+        k["launches"] = by_path["bf16 slice" if name in BF16_KERNELS else "fp8 slice"]
+        k["launches_by_path"] = by_path
+        if len(entries) > 1:
+            k["launches_by_entry"] = {e: {"bf16 slice": launches_bf16[e], "fp8 slice": launches_fp8[e]}
+                                      for e in entries}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,7 @@ from cachedembedding_tpu_torch.ops.binned_scatter import (
     sort_plan_np,
 )
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-from cachedembedding_tpu_torch.ops.rounding import stochastic_astype
+from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_sgd_round_
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -65,7 +65,7 @@ def test_default_device_needs_a_gpu():
 
 def _counts():
     return (gather_rows.launches, binned_sgd_update.launches, binned_scatter_add.launches,
-            stochastic_astype.launches)
+            stochastic_astype.launches, stochastic_sgd_round_.launches)
 
 
 def test_wrappers_take_the_plain_path_on_cpu_tensors():
@@ -79,6 +79,8 @@ def test_wrappers_take_the_plain_path_on_cpu_tensors():
     g32 = binned_scatter_add(torch.randn(40, 16).bfloat16(), perm, grouped, bins, 64)
     assert g32.shape == (64, 16) and g32.dtype == torch.float32
     assert stochastic_astype(g32, torch.float8_e4m3fn, 9).dtype == torch.float8_e4m3fn
+    cw = torch.zeros(64, 16).to(torch.float8_e4m3fn)
+    assert stochastic_sgd_round_(cw, g32, 0.5, 9) is cw
     # the counts move only where a CUDA kernel launches
     assert _counts() == before
 
@@ -87,7 +89,8 @@ def test_kernel_sources_and_build_dir_are_where_the_docs_say():
     from cachedembedding_tpu_torch import _build
     from cachedembedding_tpu_torch.ops import _cuda
 
-    assert set(_cuda.SOURCES) == set(_cuda._PROTOTYPES)
+    assert {lib for lib, _, _ in _cuda._PROTOTYPES.values()} == set(_cuda.SOURCES)
+    assert set(_cuda.SOURCES) <= set(_cuda._PROTOTYPES)  # each library's own entry
     for src in _cuda.SOURCES.values():
         assert src.exists() and src.suffix == ".cu"
     for hdr in _cuda.HEADERS:

@@ -23,6 +23,8 @@ from cachedembedding_tpu_torch.ops.rounding import (
     philox_uniform,
     sr_from_uniform,
     stochastic_astype,
+    stochastic_sgd_round_,
+    stochastic_sgd_round_plain,
 )
 
 _DT = {
@@ -228,3 +230,150 @@ def test_index_copy_storage_rows(name):
     got = dst.float()
     np.testing.assert_array_equal(got[[4, 1]].numpy(), want.numpy())
     assert bool((got[[0, 2, 3, 5]] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4's integer rounding (csrc/stochastic_round.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+# storage dtype -> (mantissa bits, biased f32 exponent of the smallest normal, f32 bits of max)
+_KERNEL_PARAMS = {
+    "float8_e4m3fn": (3, 121, 0x43E00000),
+    "float8_e5m2": (2, 113, 0x47600000),
+    "bfloat16": (7, 1, 0x7F7F0000),
+}
+
+
+def _kernel_carry_input(b: np.ndarray, name: str):
+    """What the kernel computes before it looks at the uniform, step for
+    step: per f32 bit pattern, the code's exponent part, w = n * 2^24 + D
+    (n whole grid steps of the clipped |x|, D the dropped part in 2^-24
+    steps: ceil(D) for x > 0, rne(D) for x < 0), the sign mask and NaN."""
+    m_bits, emin, max_bits = _KERNEL_PARAMS[name]
+    b = b.astype(np.int64)
+    s = np.where(b >> 31 == 1, 0xFFFFFFFF, 0)
+    ax = b & 0x7FFFFFFF
+    a = np.minimum(ax, max_bits)
+    e = np.maximum(a >> 23, 1)
+    m = a - ((e - 1) << 23)
+    lo = np.minimum(e, emin)
+    sh = lo - (emin - m_bits - 1)
+    v = m << np.maximum(sh, 0)
+    r = np.minimum(np.maximum(-sh, 0), 25)
+    mask = (1 << r) - 1
+    add = (s & ((mask + ((v >> r) & 1)) >> 1)) | (~s & mask & 0xFFFFFFFF)
+    return (e - lo) << m_bits, (v + add) >> r, s, ax > 0x7F800000
+
+
+def _kernel_model(b: np.ndarray, k: np.ndarray, name: str) -> np.ndarray:
+    """The kernel's output codes for f32 bit patterns ``b`` and 24-bit
+    uniform integers ``k`` (u = k * 2^-24). NaN: e4m3fn +NaN -> 0x7E (448),
+    -NaN -> 0xFF; e5m2 0x7F | sign; bf16 replays the platform's casts, so
+    only NaN-ness is modelled."""
+    if name == "bfloat16":  # 16 dropped bits everywhere, f32 subnormals included
+        b = b.astype(np.int64)
+        s = np.where(b >> 31 == 1, 0xFFFFFFFF, 0)
+        a = np.minimum(b & 0x7FFFFFFF, 0x7F7F0000)
+        kk = k ^ (~s & 0xFFFFFF)
+        return ((a >> 16) + ((kk + ((a & 0xFFFF) << 8)) >> 24)) | (s & 0x8000)
+    c0, w, s, nan = _kernel_carry_input(b, name)
+    kk = k ^ (~s & 0xFFFFFF)
+    out = (c0 + ((kk + w) >> 24)) | (s & 0x80)
+    if name == "float8_e4m3fn":
+        return np.where(nan, np.where(s != 0, 0xFF, 0x7E), out)
+    return np.where(nan, 0x7F | (s & 0x80), out)
+
+
+def _f32_patterns(rng) -> np.ndarray:
+    """Every f32 exponent with sampled and edge mantissas, both signs: ±0,
+    f32 subnormals, target subnormals, values beyond ±max, ±inf and NaNs."""
+    mant = np.concatenate([
+        rng.integers(0, 1 << 23, 24),
+        [0, 1, 2, 0x7FFFFF, 0x400000, 0x400001, 0x3FFFFF, 0x80000, 0x80001, 0x7FFFF, 0x100000, 0x100001,
+         0xFFFFF, 0x200000, 0x1FFFFF, 0x200001],
+    ]).astype(np.int64)
+    b = (np.arange(256, dtype=np.int64)[:, None] << 23 | mant[None, :]).reshape(-1)
+    return np.concatenate([b, b | (1 << 31)])
+
+
+@pytest.mark.parametrize("name", list(_DT))
+@pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
+def test_kernel_integer_rounding_model_matches_plain_core(name, seed):
+    """The kernel's integer arithmetic (no conversions, no division), as the
+    .cu computes it, equals ``sr_from_uniform`` bit for bit over every f32
+    exponent, both signs, the special classes and target subnormals, with
+    the seed's Philox uniforms and with the uniform set at each element's
+    threshold and one grid step to either side (where the ceil / round to
+    nearest even of a dropped fraction decides)."""
+    rng = np.random.default_rng(seed % 1000)
+    b = _f32_patterns(rng)
+    _, tdt, _, _ = _DT[name]
+    if name == "bfloat16":
+        s = np.where(b >> 31 == 1, 0xFFFFFFFF, 0)
+        w, nan = (np.minimum(b & 0x7FFFFFFF, 0x7F7F0000) & 0xFFFF) << 8, (b & 0x7FFFFFFF) > 0x7F800000
+    else:
+        _, w, s, nan = _kernel_carry_input(b, name)
+    d = w & 0xFFFFFF
+    t = np.where(s != 0, (1 << 24) - d, d)  # up iff k >= t (x < 0), k < t (x > 0)
+    philox_k = (philox_uniform(seed, (b.size,)).double().numpy() * 2.0**24).astype(np.int64)
+    x = torch.from_numpy(b.astype(np.uint32).view(np.float32).copy())
+    for k in (philox_k, *(np.clip(t + s, 0, (1 << 24) - 1) for s in (-1, 0, 1))):
+        r = torch.from_numpy((k * 2.0**-24).astype(np.float32))
+        got = _kernel_model(b, k, name)
+        ref = sr_from_uniform(x, r, tdt)
+        want = _bits(ref, name)
+        if name == "bfloat16":
+            np.testing.assert_array_equal(got[~nan], want[~nan])
+            assert torch.isnan(ref.float()[torch.from_numpy(nan)]).all()
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2"])
+def test_nan_rounds_as_jax_emulation(name):
+    """A quirk the kernel keeps: for float8_e4m3fn the emulation rounds +NaN
+    to 448 (``below`` is false, so ``lo`` is the step under the NaN code
+    0x7F) and keeps -NaN a NaN; e5m2 keeps both NaNs."""
+    jdt, tdt, np_u, _ = _DT[name]
+    x = np.array([np.nan, -np.nan, 1.0], np.float32)
+    ref = np.asarray(_stochastic_astype_emulated(jnp.asarray(x), jnp.uint32(3), jdt))
+    got = sr_from_uniform(torch.from_numpy(x), torch.from_numpy(_jax_uniform(3, x.shape)), tdt)
+    want = _kernel_model(x.view(np.uint32).astype(np.int64), np.zeros(3, np.int64), name)
+    if name == "float8_e4m3fn":
+        assert ref[0] == 448.0 and np.isnan(ref[1].astype(np.float32))
+        assert got.float()[0] == 448.0 and torch.isnan(got.float()[1])
+    else:
+        assert np.isnan(ref[:2].astype(np.float32)).all() and torch.isnan(got.float()[:2]).all()
+    np.testing.assert_array_equal(_bits(got, name), want)
+
+
+@pytest.mark.parametrize("name", list(_DT))
+def test_fused_sgd_round_equals_unfused_chain(name):
+    """``stochastic_sgd_round_`` on CPU tensors: in place, bit-equal to
+    ``cw.float() - slr * g`` rounded by the plain version, for each storage
+    dtype and two learning rates."""
+    _, tdt, _, _ = _DT[name]
+    rng = np.random.default_rng(4)
+    cw0 = stochastic_astype(torch.from_numpy(rng.standard_normal((48, 20)).astype(np.float32)), tdt, 1)
+    g = torch.from_numpy((rng.standard_normal((48, 20)) * 0.05).astype(np.float32))
+    for slr in (1.0, 0.37):
+        cw = cw0.clone()
+        assert stochastic_sgd_round_(cw, g, slr, 11) is cw
+        want = stochastic_astype(torch.sub(cw0.float(), g, alpha=slr), tdt, 11)
+        np.testing.assert_array_equal(_bits(cw, name), _bits(want, name))
+        np.testing.assert_array_equal(_bits(stochastic_sgd_round_plain(cw0, g, slr, 11), name), _bits(want, name))
+
+
+def test_fused_sgd_round_rejects_bad_inputs():
+    cw = torch.zeros((8, 16)).to(torch.float8_e4m3fn)
+    g = torch.zeros((8, 16))
+    with pytest.raises(ValueError, match="rows"):
+        stochastic_sgd_round_(torch.zeros((8, 16)), g, 1.0, 0)  # f32 rows take cw.sub_
+    with pytest.raises(ValueError, match="float32 grad"):
+        stochastic_sgd_round_(cw, g.bfloat16(), 1.0, 0)
+    with pytest.raises(ValueError, match="shape"):
+        stochastic_sgd_round_(cw, torch.zeros((8, 8)), 1.0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        stochastic_sgd_round_(cw, torch.zeros((16, 8)).t(), 1.0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        stochastic_sgd_round_(torch.zeros((16, 8)).to(torch.float8_e4m3fn).t(), g, 1.0, 0)

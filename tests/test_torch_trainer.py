@@ -199,3 +199,30 @@ def test_refuses_outside_the_slice():
         tr = port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
         assert tr._sr and tr.embed.cache_weight.dtype == torch.float8_e4m3fn
         tr.close()
+
+
+@pytest.mark.parametrize("cache_dtype", ["float8_e4m3fn", "bfloat16", "float32"])
+def test_sr_update_equals_the_unfused_chain(cache_dtype):
+    """The rounding branch's update of one step on CPU tensors equals the
+    chain it replaced bit for bit: Kernel 3's f32 grad, ``cw.float() - slr *
+    g``, then the stochastic rounding into the rows (f32 rows: the
+    difference itself)."""
+    from cachedembedding_tpu_torch.ops.binned_scatter import binned_scatter_add, sort_plan_np
+
+    tr = port_trainer_mod.CachedDLRMTrainer(_cfg(CacheConfig, DLRMConfig, "float32", 0.1, True, cache_dtype, "on"),
+                                            device="cpu")
+    tr.close()
+    rng = np.random.default_rng(5)
+    C, D, L, slr, seed = 300, 16, 1000, 0.37, 0xDEADBEEF
+    dt = getattr(torch, cache_dtype)
+    cw0 = port_rounding.stochastic_astype(torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32)), dt, 1)
+    g_rows = torch.from_numpy((rng.standard_normal((L, D)) * 0.1).astype(np.float32))
+    perm, grouped, bins = (torch.from_numpy(a) for a in sort_plan_np(rng.integers(0, C, L).astype(np.int32), C))
+    gdt = torch.bfloat16 if dt.itemsize == 1 else dt
+    g32 = binned_scatter_add(g_rows.to(gdt), perm, grouped, bins, C)
+    want = port_rounding.stochastic_astype(torch.sub(cw0.float(), g32, alpha=slr), dt, seed)
+    cw = cw0.clone()
+    tr._sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[dt.itemsize]
+    np.testing.assert_array_equal(cw.view(view).numpy(), want.view(view).numpy())
+    assert (cw.view(view) != cw0.view(view)).any()
