@@ -8,7 +8,8 @@
 //     bit-for-bit with ops/synth_rows.py on the device;
 //   * the overlay (virtual) host table;
 //   * sort_plan_i32, the plan of the embedding update kernels (the JAX
-//     copy's bin grouping, sorted by row within each bin).
+//     copy's bin grouping, sorted by row within each bin);
+//   * bincount_i64, the id-frequency pass.
 //
 // Built at first use by cachedembedding_tpu_torch/_native/hostops.py
 // (g++ -O3 -march=native -fPIC -shared -std=c++17 -pthread) together with
@@ -92,26 +93,77 @@ void scatter_rows_f32(float* table, const int64_t* idx, const float* values,
   });
 }
 
+// out[id] += 1 for every id in [0, num_rows) (the id-frequency pass of
+// data/feature_counter.py; ids outside the range are skipped).
+void bincount_i64(const int64_t* ids, int64_t* out, int64_t n, int64_t num_rows) {
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t r = ids[i];
+    if (r >= 0 && r < num_rows) ++out[r];
+  }
+}
+
 // Row-sorted plan for the embedding update kernels
 // (cachedembedding_tpu_torch/ops/binned_scatter.py): the id stream stably
-// sorted by id, by one counting sort over the num_rows ids, so every row's
-// contributors end up contiguous and in stream order. bin_starts is read off
-// the rows' running counts at every block_rows-th row: the bin-grouping
-// plan's (the JAX package's copy counts by id / block_rows and stops there,
-// bin-contiguous only).
+// sorted by id, so every row's contributors end up contiguous and in stream
+// order, by an LSD radix sort whose cost follows the n ids, not the table
+// (a counting sort over the rows zeroes and sums a num_rows vector: 135 MB a
+// step over a 33.8M-row table). Ids below 2^bits take ceil(bits / 20)
+// passes of equal digits (at most 2 for int32 ids), each a stable scatter of
+// the stream into its digit's buckets; both histograms come from one read
+// of the ids. Up to 2^20 rows that is one pass into num_rows buckets, the
+// counting sort over the rows, which two scatters of the stream do not beat
+// there on the card machine's host; past it, two passes beat a top-bits
+// scatter followed by a local sort of each bucket (plan_ab.py, PERF.md).
+// bin_starts, the bin-grouping plan's (the JAX package's copy counts by
+// id / block_rows and stops there, bin-contiguous only), is one walk of the
+// sorted ids.
 // Outputs: perm (n), ids_grouped (n), bin_starts (nb+1).
 void sort_plan_i32(const int32_t* ids, int64_t n, int64_t num_rows,
                    int64_t block_rows, int32_t* perm, int32_t* ids_grouped,
                    int32_t* bin_starts) {
   const int64_t nb = (num_rows + block_rows - 1) / block_rows;
-  std::vector<int32_t> start(num_rows + 1, 0);  // then: the next slot of each row
-  for (int64_t i = 0; i < n; ++i) ++start[ids[i] + 1];
-  for (int64_t r = 0; r < num_rows; ++r) start[r + 1] += start[r];
-  for (int64_t b = 0; b <= nb; ++b) bin_starts[b] = start[std::min(b * block_rows, num_rows)];
+  int bits = 1;
+  while (bits < 31 && (int64_t{1} << bits) < num_rows) ++bits;
+  const int passes = (bits + 19) / 20;
+  const int digit = (bits + passes - 1) / passes;
+  const uint32_t mask = (1u << digit) - 1;
+  const size_t buckets = passes > 1 ? size_t{1} << digit : static_cast<size_t>(num_rows);
+  std::vector<int32_t> count(passes * buckets, 0);  // n < 2^31
+  int32_t* const lo_next = count.data();
+  int32_t* const hi_next = lo_next + (passes - 1) * buckets;
   for (int64_t i = 0; i < n; ++i) {
-    const int32_t p = start[ids[i]]++;
-    perm[p] = static_cast<int32_t>(i);
-    ids_grouped[p] = ids[i];
+    const uint32_t v = static_cast<uint32_t>(ids[i]);
+    ++lo_next[v & mask];
+    if (passes > 1) ++hi_next[v >> digit];
+  }
+  for (int p = 0; p < passes; ++p) {  // counts -> first slot of each bucket
+    int32_t run = 0;
+    for (size_t d = 0; d < buckets; ++d) {
+      const int32_t c = count[p * buckets + d];
+      count[p * buckets + d] = run;
+      run += c;
+    }
+  }
+  std::vector<int32_t> tmp_ids(passes > 1 ? n : 0), tmp_perm(passes > 1 ? n : 0);
+  int32_t* dst_ids = passes > 1 ? tmp_ids.data() : ids_grouped;
+  int32_t* dst_perm = passes > 1 ? tmp_perm.data() : perm;
+  for (int64_t i = 0; i < n; ++i) {  // by the low digit
+    const int32_t q = lo_next[static_cast<uint32_t>(ids[i]) & mask]++;
+    dst_ids[q] = ids[i];
+    dst_perm[q] = static_cast<int32_t>(i);
+  }
+  if (passes > 1) {  // by the high digit, stable
+    for (int64_t i = 0; i < n; ++i) {
+      const int32_t q = hi_next[static_cast<uint32_t>(tmp_ids[i]) >> digit]++;
+      ids_grouped[q] = tmp_ids[i];
+      perm[q] = tmp_perm[i];
+    }
+  }
+  int64_t j = 0;
+  for (int64_t b = 0; b <= nb; ++b) {
+    const int64_t lo = std::min(b * block_rows, num_rows);
+    while (j < n && ids_grouped[j] < lo) ++j;
+    bin_starts[b] = static_cast<int32_t>(j);
   }
 }
 

@@ -28,6 +28,7 @@ _PROTOTYPES = [
     ("gather_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
     ("scatter_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
     ("sort_plan_i32", [_P, _I64, _I64, _I64, _P, _P, _P], None),
+    ("bincount_i64", [_P, _P, _I64, _I64], None),
     ("fill_rows_canonical", [_P, _I64, _I64, _I64, ctypes.c_uint32, ctypes.c_float], None),
     ("overlay_create", [_I64, ctypes.c_uint64, _I64], _P),
     ("overlay_free", [_P], None),
@@ -111,8 +112,8 @@ def fill_rows_canonical(buf: np.ndarray, start_row: int, seed: int, bound: float
 def sort_plan(ids: np.ndarray, num_rows: int, block_rows: int):
     """Plan of the embedding update kernels: (perm, ids_grouped, bin_starts)
     with the id stream stably sorted by id (so every row's contributors are
-    contiguous and in stream order), by a native counting sort over the
-    ``num_rows`` ids. ``bin_starts`` gives bin b the range of ids in
+    contiguous and in stream order), by a native LSD radix sort whose cost
+    follows the ids, not ``num_rows``. ``bin_starts`` gives bin b the range of ids in
     [b * block_rows, (b + 1) * block_rows), as in the JAX package's
     bin-grouping plan."""
     ids = np.ascontiguousarray(ids.reshape(-1), dtype=np.int32)
@@ -128,3 +129,15 @@ def sort_plan(ids: np.ndarray, num_rows: int, block_rows: int):
         perm.ctypes.data, grouped.ctypes.data, bin_starts.ctypes.data,
     )
     return perm, grouped, bin_starts
+
+
+def bincount(ids: np.ndarray, num_rows: int, out: np.ndarray | None = None) -> np.ndarray:
+    """Accumulating int64 bincount: ``out[id] += 1`` for every id in
+    ``[0, num_rows)``; ids outside the range are skipped."""
+    if out is None:
+        out = np.zeros((num_rows,), dtype=np.int64)
+    if out.dtype != np.int64 or not out.flags.c_contiguous or out.shape != (num_rows,):
+        raise ValueError(f"out must be a C-contiguous ({num_rows},) int64 array")
+    ids = np.ascontiguousarray(ids.reshape(-1), dtype=np.int64)
+    load_lib().bincount_i64(ids.ctypes.data, out.ctypes.data, ids.shape[0], num_rows)
+    return out

@@ -83,6 +83,12 @@ class DenseHostTable:
     def row_bounds(self, idx: np.ndarray) -> np.ndarray:
         return row_bounds_of(self.table_offsets, self._bounds, idx)
 
+    def mark_all_written(self) -> None:
+        """After restoring arbitrary values (a checkpoint load), no row can be
+        assumed to still hold its canonical init."""
+        if self._written is not None:
+            self._written[:] = True
+
 
 class VirtualHostTable:
     def __init__(

@@ -60,9 +60,25 @@ class CacheStats:
     prepare_calls: int = 0
     synth_rows: int = 0  # admits materialized on the device (no link bytes)
 
-    def hit_rate(self) -> float:
-        tot = sum(self.num_hits_history) + sum(self.num_miss_history)
-        return sum(self.num_hits_history) / tot if tot else 0.0
+    def hit_rate(self, window: int = 0) -> float:
+        """Hits over lookups of unique ids, over the last ``window`` planned
+        windows (every window when 0)."""
+        hits = self.num_hits_history[-window:] if window else self.num_hits_history
+        miss = self.num_miss_history[-window:] if window else self.num_miss_history
+        tot = sum(hits) + sum(miss)
+        return sum(hits) / tot if tot else 0.0
+
+    def summary(self) -> str:
+        gib = 1024 ** 3
+        in_bw = self.swap_in_bytes / self.swap_in_time / gib if self.swap_in_time else 0.0
+        out_bw = self.swap_out_bytes / self.swap_out_time / gib if self.swap_out_time else 0.0
+        return (
+            f"CacheStats: prepare_calls={self.prepare_calls} "
+            f"hit_rate={self.hit_rate():.4f} "
+            f"swap_in={self.swap_in_bytes / gib:.3f}GiB @ {in_bw:.2f}GiB/s "
+            f"swap_out={self.swap_out_bytes / gib:.3f}GiB @ {out_bw:.2f}GiB/s "
+            f"synth_rows={self.synth_rows}"
+        )
 
 
 class WindowStaging(NamedTuple):
@@ -78,6 +94,19 @@ class WindowStaging(NamedTuple):
     fetch_payload: torch.Tensor  # (nf, D) transfer dtype, pinned on CUDA
     admit_slots: np.ndarray    # (n_miss,) full plan arrays for the writebacks
     evict_rows: np.ndarray     # (n_miss,)
+
+
+def host_to_device(arr, device: torch.device) -> torch.Tensor:
+    """Asynchronous host->device copy of a numpy array or CPU tensor. On
+    CUDA the source is staged in pinned memory, so the copy never waits for
+    earlier device work; the caching host allocator keeps the pinned block
+    alive until the copy has run. On the CPU it is a copy."""
+    src = torch.from_numpy(np.ascontiguousarray(arr)) if isinstance(arr, np.ndarray) else arr
+    if device.type != "cuda":
+        return src.clone()
+    if not src.is_pinned():
+        src = torch.empty(src.shape, dtype=src.dtype, pin_memory=True).copy_(src)
+    return src.to(device, non_blocking=True)
 
 
 def default_table_init(table_sizes: Sequence[int], seed: int):
@@ -170,6 +199,7 @@ class CachedEmbeddingBag:
         self._res_rows = np.concatenate(res_rows) if res_rows else np.zeros((0,), np.int64)
 
         # --- host-DRAM master weight ---
+        t0 = time.perf_counter()
         if weight_init == "virtual":
             self.host_table = VirtualHostTable(
                 self.table_sizes, self.embedding_dim, seed=seed,
@@ -185,6 +215,7 @@ class CachedEmbeddingBag:
             )
         else:
             raise ValueError(f"unknown weight_init {weight_init!r}")
+        self.table_init_s = time.perf_counter() - t0  # the host table's fill
 
         self._dir = make_directory(self.num_embeddings, self.capacity, evict_strategy)
         self.cache_weight = torch.zeros(
@@ -240,18 +271,8 @@ class CachedEmbeddingBag:
         return torch.empty(shape, dtype=dtype, pin_memory=self._on_cuda)
 
     def to_device(self, arr) -> torch.Tensor:
-        """Asynchronous host->device copy of a numpy array or CPU tensor. On
-        CUDA the source is staged in pinned memory, so the copy never waits for
-        earlier device work; the caching host allocator keeps the pinned block
-        alive until the copy has run."""
-        src = torch.from_numpy(np.ascontiguousarray(arr)) if isinstance(arr, np.ndarray) else arr
-        if not self._on_cuda:
-            return src.clone()
-        if not src.is_pinned():
-            pinned = self._pinned(src.shape, src.dtype)
-            pinned.copy_(src)
-            src = pinned
-        return src.to(self.device, non_blocking=True)
+        """Asynchronous host->device copy (``host_to_device``)."""
+        return host_to_device(arr, self.device)
 
     @property
     def device_rows(self) -> int:
@@ -552,6 +573,23 @@ class CachedEmbeddingBag:
                 return self.host_table.array
             rows = np.arange(self.num_embeddings, dtype=np.int64)
         return self.host_table.gather(np.asarray(rows, np.int64))
+
+    def print_comm_stats(self) -> None:
+        print(self.stats.summary())
+
+    def reset_cache(self) -> None:
+        """Drop the cache's contents and directory and warm it again from the
+        id-frequency map (cache contents are derived state: used after a
+        checkpoint load has replaced the host table)."""
+        self._drain_writebacks()
+        self._dir = make_directory(self.num_embeddings, self.capacity, self.evict_strategy)
+        if self._host_freq is not None and self.evict_strategy == EvictionStrategy.DATASET:
+            self._dir.set_dataset_freq(self._host_freq)
+        self.cache_weight.zero_()
+        if self.resident_total:
+            self._init_resident_region()
+        if self._host_freq is not None and self.warmup_ratio > 0:
+            self._warmup(self.warmup_ratio)
 
     def close(self) -> None:
         """Land outstanding writebacks and stop the drain thread."""

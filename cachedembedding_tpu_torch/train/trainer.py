@@ -1,5 +1,6 @@
-"""Single-device trainer: cached embedding + DLRM dense towers (counterpart of
-``cachedembedding_tpu/train/trainer.py``, uniform-window slice).
+"""Single-device trainer: cached embedding + DLRM or DeepFM dense towers
+(counterpart of ``cachedembedding_tpu/train/trainer.py``, uniform-window
+slice).
 
 Far-sighted prefetch: every ``prefetch_num`` batches form a window whose ids
 are planned once by the host directory. Per window, in order:
@@ -17,14 +18,31 @@ are planned once by the host directory. Per window, in order:
      bin-grouping plan the host computed for the step;
   7. dense SGD follows.
 
+DLRM trains on logits (BCE with logits), DeepFM on its probabilities (BCE
+on probabilities); ``evaluate`` scores the sigmoid of DLRM's logits and
+DeepFM's probabilities as they are. ``embed_override`` swaps the cache for any
+embedding that speaks the same staging protocol, such as the fully resident
+table of ``baselines/full_resident.py``.
+
+The JAX package's ``ship_sort_perm`` picks between its update paths; all of
+them compute ``cw.at[ids].add(-slr * g)`` with f32 duplicate sums and one
+rounding, which is Kernel 2, so the port takes Kernel 2 whichever way the
+flag is set. With ``ship_sort_perm=False`` JAX differentiates w.r.t. the rows
+in the storage dtype (bf16 grads) and upcasts each addend to f32 inside its
+scatter-add; the port casts the grads to the storage dtype and sums them in
+f32 in Kernel 2: the same addends, summed in another order.
+
 With stochastic rounding on (fp8 rows by default, ``CacheConfig.
-rounds_stochastically``), steps 3-6 take the JAX package's rounding branch
+rounds_stochastically``) and rows narrower than f32, steps 3-6 take the JAX
+package's rounding branch
 (``_scan_window``): the rows are upcast to f32 before the gradient is taken,
 the row gradients go to bf16 (or the storage dtype, if wider), Kernel 3
 builds the (C, D) f32 grad from the same plan, and Kernel 4's fused entry
 (``ops/rounding.stochastic_sgd_round_``) forms ``cw - slr * g`` in f32
 registers and rounds it stochastically back into the cache with a per-step
-seed.
+seed. For f32 rows that branch reduces to ``cw - slr * g`` (rounding to f32
+is the identity), which Kernel 2 computes without the (C, D) f32 grad: f32
+rows take Kernel 2 whether rounding is on or not.
 
 The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
@@ -46,6 +64,7 @@ from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, CachedEmbeddin
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
 from cachedembedding_tpu_torch.jagged import Batch, concat_uniform_values
+from cachedembedding_tpu_torch.models.deepfm import DeepFM, bce_probs
 from cachedembedding_tpu_torch.models.dlrm import DLRM, bce_with_logits
 from cachedembedding_tpu_torch.ops.binned_scatter import (
     binned_scatter_add,
@@ -63,13 +82,15 @@ _M32 = 0xFFFFFFFF
 _SEED_MUL = 0x9E3779B9  # per-step rounding seeds: uint32(step) * this + p, as in JAX
 
 
-def _refuse_outside_slice(cfg: DLRMConfig) -> None:
+def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
-    the port does not run yet."""
+    the port does not run yet (the cache's storage options only where the
+    cache is used)."""
     c = cfg.cache
-    fp8 = c.cache_dtype.startswith("float8")
+    fp8 = cached and c.cache_dtype.startswith("float8")
+    if cfg.model not in ("dlrm", "deepfm"):
+        raise ValueError(f"unknown model {cfg.model!r}")
     refusals = [
-        (cfg.model != "dlrm", f"model={cfg.model!r}: DeepFM is ROADMAP Queue 1 item 3"),
         (cfg.interaction_impl != "bmm", "interaction_impl='gather' is ROADMAP Queue 1 item 3"),
         (tuple(cfg.mesh_shape) != (1,) or cfg.use_tablewise,
          "the mesh (data/model parallel) is ROADMAP Queue 1 item 9"),
@@ -80,15 +101,12 @@ def _refuse_outside_slice(cfg: DLRMConfig) -> None:
          f"dense_input_dtype={cfg.dense_input_dtype!r}: int8/int4 dense inputs are ROADMAP Queue 1 item 8"),
         (c.transfer_dtype not in _FLOAT_DTYPES,
          f"transfer_dtype={c.transfer_dtype!r}: int8/int4 transfers are ROADMAP Queue 1 item 4"),
-        (c.cache_dtype not in CACHE_DTYPES,
+        (cached and c.cache_dtype not in CACHE_DTYPES,
          f"cache_dtype={c.cache_dtype!r}: storage dtypes other than float32, bfloat16 and "
          "float8_e4m3fn are ROADMAP Queue 1 item 7"),
         (fp8 and not c.rounds_stochastically,
          "fp8 cache rows with stochastic_rounding='off' (the fused update on fp8 grads) "
          "are ROADMAP Queue 1 item 7"),
-        (not c.ship_sort_perm,
-         "ship_sort_perm=False: the port's update is the binned kernel; the scatter "
-         "update path is ROADMAP Queue 1 item 5"),
         (c.planner == "device", "the device planner is ROADMAP Queue 1 item 11"),
     ]
     for bad, msg in refusals:
@@ -102,8 +120,9 @@ class TrainReport:
     it_per_s: float
     examples_per_s: float
     hit_rate: float
-    window_host_s: List[float]    # host seconds per window: data, plan, staging
-    window_device_s: List[float]  # device seconds per window (CUDA events); empty on the CPU
+    window_host_s: List[float] = dataclasses.field(default_factory=list)  # host s per window: data, plan, staging
+    window_device_s: List[float] = dataclasses.field(default_factory=list)  # device s per window (CUDA events)
+    window_plan_s: List[float] = dataclasses.field(default_factory=list)  # host s per window in the update plans
 
 
 class _Window(NamedTuple):
@@ -114,14 +133,28 @@ class _Window(NamedTuple):
     dense: torch.Tensor     # (P, B, Din) float32
     labels: torch.Tensor    # (P, B) float32
     plan: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # perm, grouped, bins
+    plan_s: float  # host seconds spent in the update plans
+
+
+def _model_loss(model: str, out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """DLRM trains on logits, DeepFM on its Sigmoid outputs."""
+    return bce_with_logits(out, labels) if model == "dlrm" else bce_probs(out, labels)
+
+
+def _model_probs(model: str, out: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(out) if model == "dlrm" else out
 
 
 class CachedDLRMTrainer:
-    """Cached DLRM training and evaluation on one device (default: the
-    current CUDA device; pass ``device="cpu"`` to run on the CPU)."""
+    """Cached DLRM or DeepFM training and evaluation on one device (default:
+    the current CUDA device, or ``embed_override``'s; pass ``device="cpu"``
+    to run on the CPU)."""
 
-    def __init__(self, cfg: DLRMConfig, id_freq_map: Optional[np.ndarray] = None, device=None):
-        _refuse_outside_slice(cfg)
+    def __init__(self, cfg: DLRMConfig, id_freq_map: Optional[np.ndarray] = None, device=None,
+                 embed_override=None):
+        _refuse_outside_slice(cfg, cached=embed_override is None)
+        if device is None and embed_override is not None:
+            device = embed_override.device
         self.device = resolve_device(device)
         self.cfg = cfg
         c = cfg.cache
@@ -130,7 +163,7 @@ class CachedDLRMTrainer:
             if c.resident_threshold > 0 else None
         )
         use_dataset = not c.use_lfu_eviction and c.use_freq and id_freq_map is not None
-        self.embed = CachedEmbeddingBag(
+        self.embed = embed_override if embed_override is not None else CachedEmbeddingBag(
             cfg.total_num_embeddings,
             cfg.embedding_dim,
             mode=cfg.reduction_mode,
@@ -147,20 +180,36 @@ class CachedDLRMTrainer:
             device=self.device,
             resident_tables=resident,
         )
-        self.model = DLRM(
-            cfg.embedding_dim,
-            cfg.num_sparse_features,
-            cfg.dense_in_features,
-            cfg.dense_arch_layer_sizes,
-            cfg.over_arch_layer_sizes,
-            compute_dtype=_FLOAT_DTYPES[cfg.compute_dtype],
-            interaction_impl=cfg.interaction_impl,
-            seed=cfg.seed,
-            device=self.device,
-        )
+        if self.embed.device != self.device:
+            raise ValueError(f"embed_override lives on {self.embed.device}, the trainer on {self.device}")
+        compute_dtype = _FLOAT_DTYPES[cfg.compute_dtype]
+        if cfg.model == "deepfm":
+            self.model = DeepFM(
+                cfg.embedding_dim,
+                cfg.num_sparse_features,
+                cfg.dense_in_features,
+                hidden_layer_size=cfg.dense_arch_layer_sizes[0],
+                deep_fm_dimension=cfg.deep_fm_dimension,
+                compute_dtype=compute_dtype,
+                seed=cfg.seed,
+                device=self.device,
+            )
+        else:
+            self.model = DLRM(
+                cfg.embedding_dim,
+                cfg.num_sparse_features,
+                cfg.dense_in_features,
+                cfg.dense_arch_layer_sizes,
+                cfg.over_arch_layer_sizes,
+                compute_dtype=compute_dtype,
+                interaction_impl=cfg.interaction_impl,
+                seed=cfg.seed,
+                device=self.device,
+            )
         self.data_parallel_size = int(np.prod(cfg.mesh_shape))
         self._dense_dtype = _FLOAT_DTYPES[cfg.dense_input_dtype]
-        self._sr = c.rounds_stochastically
+        # f32 rows: the rounding branch is cw - slr * g, Kernel 2's function
+        self._sr = c.rounds_stochastically and self.embed.cache_weight.dtype != torch.float32
         self._step_idx = 0  # training steps dispatched before the current window
 
     # ------------------------------------------------------------------
@@ -176,7 +225,8 @@ class CachedDLRMTrainer:
         """Row count of the device embedding array (cache slots + resident region)."""
         return self.embed.device_rows
 
-    def _begin_window(self, batches: List[Batch], with_plan: bool = True) -> _Window:
+    def _begin_window(self, batches: List[Batch], with_plan: bool = True,
+                      dense_dtype: Optional[torch.dtype] = None) -> _Window:
         """Plan and stage a uniform window, then enqueue its inputs to the
         device: remapped ids, dense features (in ``dense_input_dtype``),
         labels, and (``with_plan``) per-step grouping plans for the update."""
@@ -194,13 +244,15 @@ class CachedDLRMTrainer:
         N = L // F
         ws = self.embed.begin_window_staging(all_ids, (P, L), uniform_fbp=(P, F, N))
         to_dev = self.embed.to_device
-        dense = torch.stack([b.dense_features for b in batches]).to(self._dense_dtype)
+        dense = torch.stack([b.dense_features for b in batches]).to(dense_dtype or self._dense_dtype)
         labels = torch.stack([b.labels for b in batches]).to(torch.uint8)
-        plan = None
+        plan, plan_s = None, 0.0
         if with_plan:
             NR = self._device_rows()
+            t0 = time.perf_counter()
             # the update's stream is the gathered rows' order: (N, F)
             steps = [sort_plan_np(ws.slot_ids[p].reshape(F, N).T, NR) for p in range(P)]
+            plan_s = time.perf_counter() - t0
             plan = tuple(to_dev(np.stack(a)) for a in zip(*steps))
         return _Window(
             staging=ws,
@@ -208,6 +260,7 @@ class CachedDLRMTrainer:
             dense=to_dev(dense).float(),
             labels=to_dev(labels).float(),
             plan=plan,
+            plan_s=plan_s,
         )
 
     def _finish_window(self, win: _Window) -> None:
@@ -252,7 +305,7 @@ class CachedDLRMTrainer:
                 rows = rows.float()
             rows.requires_grad_(True)
             sparse = pool_uniform(rows, B, self.cfg.reduction_mode)
-            loss = bce_with_logits(self.model(win.dense[p], sparse), win.labels[p])
+            loss = _model_loss(self.cfg.model, self.model(win.dense[p], sparse), win.labels[p])
             loss.backward()
             g_rows = rows.grad.reshape(-1, cw.shape[1])
             if self._sr:
@@ -267,14 +320,17 @@ class CachedDLRMTrainer:
             losses.append(loss.detach())
         return torch.stack(losses)
 
-    def train(self, data: Iterable[Batch], num_iters: Optional[int] = None) -> TrainReport:
-        """Pipelined far-sighted training over uniform windows."""
+    def train(self, data: Iterable[Batch], num_iters: Optional[int] = None, log_every: int = 0) -> TrainReport:
+        """Pipelined far-sighted training over uniform windows. With
+        ``log_every``, prints ``it {done}: loss=... hit_rate=...`` whenever
+        the steps done cross a multiple of it (a readback of the last loss)."""
         pn = max(1, self.cfg.cache.prefetch_num)
         it = iter(data)
         total = num_iters
         fetched = done = examples = 0
         loss_chunks: List[torch.Tensor] = []
         host_s: List[float] = []
+        plan_s: List[float] = []
         events = []
 
         def fetch_window() -> List[Batch]:
@@ -293,6 +349,7 @@ class CachedDLRMTrainer:
             th = time.perf_counter()
             win = self._begin_window(batches)
             self._finish_window(win)
+            plan_s.append(win.plan_s)
             return win, th
 
         cuda = self.device.type == "cuda"
@@ -313,8 +370,12 @@ class CachedDLRMTrainer:
                 ev[1].record()
                 events.append(ev)
             examples += sum(b.batch_size for b in cur)
+            prev_done = done
             done += len(cur)
             self._step_idx += len(cur)
+            if log_every and done // log_every != prev_done // log_every:
+                print(f"it {done}: loss={loss_chunks[-1][-1].item():.5f} "
+                      f"hit_rate={self.embed.stats.hit_rate(window=pn):.4f}")
             # plan + stage the NEXT window while the device executes this one
             th = time.perf_counter()
             nxt = fetch_window()
@@ -334,6 +395,7 @@ class CachedDLRMTrainer:
             hit_rate=self.embed.stats.hit_rate(),
             window_host_s=host_s,
             window_device_s=[a.elapsed_time(b) / 1e3 for a, b in events],
+            window_plan_s=plan_s,
         )
 
     @torch.no_grad()
@@ -352,6 +414,10 @@ class CachedDLRMTrainer:
                 pending_labels.clear()
 
         pn = max(1, self.cfg.cache.prefetch_num)
+        # as in JAX: the cache's windows ship the dense features in
+        # dense_input_dtype, while a fully resident table is scored batch by
+        # batch on the f32 features
+        eval_dense = None if isinstance(self.embed, CachedEmbeddingBag) else torch.float32
         it = iter(data)
         while True:
             window: List[Batch] = []
@@ -363,13 +429,13 @@ class CachedDLRMTrainer:
             if not window:
                 break
             # forward-only windows never need the update's grouping plans
-            win = self._begin_window(window, with_plan=False)
+            win = self._begin_window(window, with_plan=False, dense_dtype=eval_dense)
             self._finish_window(win)
             self.embed.apply_admits(win.staging)
             B = win.labels.shape[1]
             for p in range(len(window)):
                 sparse = pool_uniform(self._gathered_rows(win, p), B, self.cfg.reduction_mode)
-                pending.append(torch.sigmoid(self.model(win.dense[p], sparse)))
+                pending.append(_model_probs(self.cfg.model, self.model(win.dense[p], sparse)))
             pending_labels.append(np.concatenate([b.labels.numpy() for b in window]))
             if len(pending) >= _EVAL_READBACK_STEPS:
                 drain()

@@ -1,0 +1,148 @@
+"""Checkpoint and resume (counterpart of
+``cachedembedding_tpu/utils/checkpoint.py``), in the JAX package's layout, so
+either package reads the other's checkpoints:
+
+  meta.json          the step counter, format version, table kind and shape
+  dense_params.npz   the DLRM/DeepFM tower weights, under the JAX pytree
+                     paths (".dense_arch/[0]/['w']", ...), each ``w`` (in, out)
+  host_table.npy     the flushed f32 master table (a dense host table, or
+                     the fully resident table read off the device), or
+  overlay.npz        for a virtual host table, only its written rows
+                     (``rows``, ``vals``)
+
+Saving flushes the cache first. Loading restores the dense weights and the
+table; the cache is derived state and warms again from the id-frequency map
+as at a cold start (``CachedEmbeddingBag.reset_cache``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from cachedembedding_tpu_torch.baselines.full_resident import FullyResidentEmbeddingBag
+from cachedembedding_tpu_torch.cache.host_table import DenseHostTable, VirtualHostTable
+from cachedembedding_tpu_torch.models import deepfm, dlrm
+from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+FORMAT_VERSION = 1
+_ROWS_PER_COPY = 1 << 20  # rows moved between the device table and the file at a time
+
+
+def _model_module(trainer):
+    return deepfm if trainer.cfg.model == "deepfm" else dlrm
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{JAX pytree path: leaf}. The top level is the params NamedTuple (its
+    fields print as ".name"); lists print "[i]" and dicts "['key']"."""
+    if isinstance(tree, np.ndarray):
+        return {prefix: tree}
+    if isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        items = [(f".{k}" if not prefix else f"['{k}']", v) for k, v in tree.items()]
+    out = {}
+    for key, v in items:
+        out.update(_flatten(v, f"{prefix}/{key}" if prefix else key))
+    return out
+
+
+def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix: str = ""):
+    if isinstance(template, np.ndarray):
+        arr = np.asarray(flat[prefix], np.float32)
+        if arr.shape != template.shape:
+            raise ValueError(f"{prefix}: checkpoint shape {arr.shape}, model {template.shape}")
+        return arr
+    if isinstance(template, (list, tuple)):
+        return [_unflatten_like(v, flat, f"{prefix}/[{i}]") for i, v in enumerate(template)]
+    return {k: _unflatten_like(v, flat, (f"{prefix}/['{k}']" if prefix else f".{k}")) for k, v in template.items()}
+
+
+def save_checkpoint(path: str, trainer, extra: Optional[Dict[str, Any]] = None) -> None:
+    """Flush ``trainer``'s embedding and write its checkpoint to ``path``."""
+    os.makedirs(path, exist_ok=True)
+    embed = trainer.embed
+    embed.flush()
+    params = _model_module(trainer).params_to_jax(trainer.model)
+    np.savez(os.path.join(path, "dense_params.npz"), **_flatten(params))
+    if isinstance(embed, FullyResidentEmbeddingBag):
+        out = np.lib.format.open_memmap(os.path.join(path, "host_table.npy"), mode="w+", dtype=np.float32,
+                                        shape=tuple(embed.cache_weight.shape))
+        for s in range(0, out.shape[0], _ROWS_PER_COPY):
+            out[s : s + _ROWS_PER_COPY] = embed.cache_weight[s : s + _ROWS_PER_COPY].float().cpu().numpy()
+        out.flush()
+        del out
+        table_kind = "dense"
+    elif isinstance(embed.host_table, DenseHostTable):
+        np.save(os.path.join(path, "host_table.npy"), embed.host_table.array)
+        table_kind = "dense"
+    elif isinstance(embed.host_table, VirtualHostTable):
+        rows = embed.host_table.written_rows()
+        vals = embed.host_table.gather(rows) if rows.size else np.zeros((0, embed.embedding_dim), np.float32)
+        np.savez(os.path.join(path, "overlay.npz"), rows=rows, vals=vals)
+        table_kind = "virtual"
+    else:
+        raise TypeError(f"unknown host table {type(embed.host_table)}")
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "step": trainer._step_idx,
+        "optimizer": trainer.cfg.embedding_optimizer,
+        "table_kind": table_kind,
+        "num_embeddings": embed.num_embeddings,
+        "embedding_dim": embed.embedding_dim,
+    }
+    meta.update(extra or {})
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def load_checkpoint(path: str, trainer) -> int:
+    """Restore a checkpoint (this package's or the JAX package's) into an
+    already-built ``trainer`` of the same shapes. Returns the step counter."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    embed = trainer.embed
+    if meta["format_version"] != FORMAT_VERSION:
+        raise ValueError(f"checkpoint format {meta['format_version']}, expected {FORMAT_VERSION}")
+    if (meta["num_embeddings"], meta["embedding_dim"]) != (embed.num_embeddings, embed.embedding_dim):
+        raise ValueError(f"checkpoint table {meta['num_embeddings']} x {meta['embedding_dim']}, trainer "
+                         f"{embed.num_embeddings} x {embed.embedding_dim}")
+    if meta.get("optimizer", "sgd") != "sgd":
+        raise NotImplementedError(f"optimizer {meta['optimizer']!r}: rowwise_adagrad state is ROADMAP Queue 1 item 7")
+
+    module = _model_module(trainer)
+    flat = dict(np.load(os.path.join(path, "dense_params.npz")))
+    params = _unflatten_like(module.params_to_jax(trainer.model), flat)
+    with torch.no_grad():
+        trainer.model.load_state_dict(module.params_from_jax(params))
+
+    kind = meta["table_kind"]
+    if isinstance(embed, FullyResidentEmbeddingBag):
+        if kind != "dense":
+            raise ValueError(f"a {kind!r} checkpoint table into the resident table")
+        arr = np.load(os.path.join(path, "host_table.npy"), mmap_mode="r")
+        for s in range(0, arr.shape[0], _ROWS_PER_COPY):
+            rows = embed.to_device(np.array(arr[s : s + _ROWS_PER_COPY]))  # a writable copy
+            embed.cache_weight[s : s + rows.shape[0]] = astype_storage(rows, embed.dtype)
+    elif kind == "dense":
+        ht = embed.host_table
+        if not isinstance(ht, DenseHostTable):
+            raise ValueError("a dense checkpoint table into a virtual host table")
+        np.copyto(ht.array, np.load(os.path.join(path, "host_table.npy"), mmap_mode="r"))
+        ht.mark_all_written()  # restored values are arbitrary: no row holds its init
+        embed.reset_cache()
+    else:
+        ht = embed.host_table
+        if not isinstance(ht, VirtualHostTable):
+            raise ValueError("a virtual checkpoint table into a dense host table")
+        ov = np.load(os.path.join(path, "overlay.npz"))
+        if ov["rows"].size:
+            ht.scatter(ov["rows"], ov["vals"])
+        embed.reset_cache()
+    trainer._step_idx = meta["step"]
+    return meta["step"]

@@ -71,6 +71,23 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
   8. Kernels 2 and 3 refuse a plan grouped by bin but not sorted by id (the
      JAX package's layout): each, in a child process started after the
      build, must stop with a device-side assert.
+  9. The command line (``cli``): a Criteo-Kaggle-format dataset written
+     under ``cachedembedding_tpu_torch/build/`` (24 training and 4 val/test
+     batches of 16,384 rows; long-tail raw values that ``% hash`` spreads
+     over the Kaggle tables; learnable labels), then the users' command,
+     ``python -m cachedembedding_tpu_torch.train.dlrm_main``, each run its
+     own process, at full Criteo-Kaggle width (26 tables, 33,762,577 rows,
+     D=128) with ``scripts/kaggle.sh``'s flags, 24 steps and 2 + 2
+     evaluation batches: ``cli cached`` (bf16 cache rows), ``cli
+     resident`` (no --use_cache: the 17.29 GB f32 table on the card) and
+     ``cli deepfm`` (at --learning_rate 0.1). Each must give finite
+     losses, val/test AUROC above 0.5 over 32,768 examples, a hit rate in
+     (0, 1] where it caches, Kernel 1 and 2 launches (one Kernel 2 launch a
+     step) and no others; the first
+     computes id_freq_map.npy and the others read it. Then Kernels 1 and 2
+     on the resident table's first training step, in this process (gates in
+     ``check_resident_kernels``), and a checkpoint round trip on small
+     tables (``check_checkpoint_round_trip``).
 
 Phases 4 and 6 time each kernel beside its bound, its plain version and a
 PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
@@ -83,7 +100,11 @@ row, its runs that cross chunks, and the host time of its plan
 (``sort_plan_np``). Kernel 4's entry holds its fused entry's times beside
 their own bound and the device time of the unfused chain it replaced.
 Phase 5 counts both of Kernel 4's entries: the fused one 24 times on the
-fp8 slice, neither on the bf16 slice; the kernels line gives their sum.
+fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
+each kernel's launches on every path (the two slices and the three CLI
+runs, whose processes report their counts in their ``run stats`` line).
+Phase 9 adds Kernels 1 and 2's times on the resident table
+(``on_resident_table``).
 Prints per-phase results, then the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
@@ -93,6 +114,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -180,23 +202,9 @@ def kernel_breakdown(fn, iters: int = 5) -> dict:
     return out
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper, by its name in the kernels line; a wrapper's
-    ``launches`` counts the launches of its CUDA kernel."""
-    from cachedembedding_tpu_torch.ops.binned_scatter import binned_scatter_add, binned_sgd_update
-    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-    from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_sgd_round_
-
-    return {"gather_rows": gather_rows, "binned_sgd": binned_sgd_update,
-            "binned_scatter_add": binned_scatter_add, "stochastic_round": stochastic_astype,
-            "stochastic_sgd_round": stochastic_sgd_round_}
-
-
-def launch_counts() -> dict:
-    return {name: w.launches for name, w in kernel_wrappers().items()}
-
-
 def zero_launch_counts() -> None:
+    from cachedembedding_tpu_torch.ops import kernel_wrappers
+
     for w in kernel_wrappers().values():
         w.launches = 0
 
@@ -998,6 +1006,7 @@ def phase_slice(cfg, device):
     import numpy as np
     import torch
 
+    from cachedembedding_tpu_torch import ops
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
@@ -1014,8 +1023,8 @@ def phase_slice(cfg, device):
     first_win, first_update, peaks = [], [], []
     begin = tr._begin_window
 
-    def begin_and_keep(batches, with_plan=True):
-        win = begin(batches, with_plan)
+    def begin_and_keep(batches, with_plan=True, dense_dtype=None):
+        win = begin(batches, with_plan, dense_dtype)
         if not first_win:
             first_win.append(win)
         return win
@@ -1045,7 +1054,7 @@ def phase_slice(cfg, device):
     ev = tr.evaluate(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t1
-    launches = launch_counts()
+    launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     losses = np.asarray(rep.losses)
     per_window = [float(x) for x in losses.reshape(-1, P).mean(axis=1)]
@@ -1141,6 +1150,322 @@ def phase_bare_module(device) -> None:
         f"the host rows through the storage cast, pooled")
 
 
+CLI_TRAIN_BATCHES, CLI_EVAL_BATCHES, CLI_BATCH = 24, 4, 16384
+CLI_FLAGS = ["--kaggle", "--use_freq", "--cache_ratio", "0.01", "--warmup_ratio", "0.7",
+             "--buffer_size", "50000", "--prefetch_num", "8", "--limit_train_batches", str(CLI_TRAIN_BATCHES),
+             "--limit_val_batches", "2", "--limit_test_batches", "2"]
+# DeepFM diverges at DLRM's learning rate of 1.0 on this data (its scores
+# collapse to one value); it trains at 0.1, as the JAX package's DeepFM test
+# does
+CLI_RUNS = {"cli cached": ["--use_cache"], "cli resident": [],
+            "cli deepfm": ["--use_cache", "--model", "deepfm", "--learning_rate", "0.1"]}
+CHECKPOINT_TABLE_CAP = 20_000  # the checkpoint round trip's tables: Kaggle's, capped at this many rows
+CLI_TAIL = 0.2  # P(rank >= r) ~ r^-CLI_TAIL: 426,827 distinct training ids, above the 1% cache's 337,625
+
+
+def write_cli_dataset(root):
+    """A Criteo-Kaggle-format dataset under ``root``: ``day_0_*`` with
+    CLI_TRAIN_BATCHES x 16,384 rows, ``day_6_*`` (the final day: val and test
+    halves) with CLI_EVAL_BATCHES x 16,384. Each feature's raw values are
+    long-tail ranks (CLI_TAIL) over 4x its Kaggle table size, scattered by a
+    multiplicative hash, so ``% hash`` spreads the hot ids over the table and
+    the training ids outnumber the cache's slots (evictions happen).
+    Labels follow a logistic of the first dense feature and hidden weights of
+    the 32 hottest ranks of four features."""
+    import numpy as np
+
+    from cachedembedding_tpu_torch.config import CRITEO_KAGGLE_NUM_EMBEDDINGS_PER_FEATURE as sizes
+
+    rng = np.random.default_rng(2024)
+    hidden = rng.normal(0.0, 1.5, (4, 32))
+    for day, nb in ((0, CLI_TRAIN_BATCHES), (6, CLI_EVAL_BATCHES)):
+        n = nb * CLI_BATCH
+        dense = np.log1p(rng.exponential(4.0, (n, 13))).astype(np.float32)
+        sparse = np.empty((n, len(sizes)), np.int64)
+        logit = 1.5 * (dense[:, 0] - 1.5)
+        for f, size in enumerate(sizes):
+            lo = (1.0 / (4 * size)) ** CLI_TAIL
+            rank = np.floor((rng.random(n) * (1 - lo) + lo) ** (-1.0 / CLI_TAIL)).astype(np.int64) - 1
+            if f < 4:
+                logit += np.where(rank < 32, hidden[f, np.minimum(rank, 31)], 0.0)
+            sparse[:, f] = (rank * 2654435761 + 97 * f) % (1 << 31)
+        labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int32)
+        np.save(root / f"day_{day}_dense.npy", dense)
+        np.save(root / f"day_{day}_sparse.npy", sparse)
+        np.save(root / f"day_{day}_labels.npy", labels)
+    return root
+
+
+def run_cli(name: str, data_dir, extra) -> dict:
+    """One run of the users' command in its own process: ``python -m
+    cachedembedding_tpu_torch.train.dlrm_main``. Returns what it printed:
+    the epoch line, val/test metrics, the frequency map's and the table's
+    seconds, and its ``run stats``."""
+    import re
+
+    argv = [sys.executable, "-m", "cachedembedding_tpu_torch.train.dlrm_main",
+            "--dataset_dir", str(data_dir), *CLI_FLAGS, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{name}] exit {proc.returncode}: {proc.stderr[-4000:]}")
+    out, err = proc.stdout, proc.stderr
+    epoch = re.search(r"epoch 0: (\d+) iters .*?\(([0-9.]+) it/s, (\d+) ex/s, hit_rate=([0-9.]+)\)", out)
+    metrics = {s: (float(a), int(c)) for s, a, c in
+               re.findall(r"epoch 0 (val|test): auroc=([0-9.]+) accuracy=[0-9.]+ over (\d+)", out)}
+    freq = re.search(r"id_freq_map: (loaded|computed) in ([0-9.]+) s", err)
+    stats = json.loads(re.search(r"run stats: (\{.*\})", err).group(1))
+    if not (epoch and freq and set(metrics) == {"val", "test"}):
+        raise AssertionError(f"[{name}] unexpected output:\n{out[-3000:]}\n{err[-3000:]}")
+    res = dict(wall_s=wall, iters=int(epoch.group(1)), examples_per_s=float(epoch.group(3)),
+               hit_rate=float(epoch.group(4)), metrics=metrics, freq=freq.group(1), freq_s=float(freq.group(2)),
+               stats=stats, comm=next((ln for ln in out.splitlines() if "CacheStats" in ln or "Resident" in ln), ""))
+    log(f"[{name}] {' '.join(argv[1:])}")
+    log(f"[{name}] {wall:.1f} s wall; {res['iters']} steps at {res['examples_per_s']:.0f} examples/s, hit rate "
+        f"{res['hit_rate']:.4f}; val auroc {metrics['val'][0]:.4f}, test auroc {metrics['test'][0]:.4f} over "
+        f"{metrics['test'][1]}; id_freq_map {res['freq']} in {res['freq_s']:.2f} s; table filled in "
+        f"{stats['table_init_s']:.2f} s; plan {stats['plan_host_ms_per_step']:.3f} host ms/step; peak device "
+        f"memory {stats['peak_device_bytes'] / 2**30:.2f} GiB; {res['comm']}")
+    log(f"[{name}] host s/window {[round(x, 4) for x in stats['window_host_s']]}; device s/window "
+        f"{[round(x, 4) for x in stats['window_device_s']]}; kernel launches {stats['kernel_launches']}")
+    losses = stats["losses"]
+    if len(losses) != CLI_TRAIN_BATCHES or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[{name}] losses not finite: {losses}")
+    for stage, (auroc, count) in metrics.items():
+        if not auroc > 0.5 or count != 2 * CLI_BATCH:
+            raise AssertionError(f"[{name}] {stage}: auroc {auroc} over {count}")
+    k = stats["kernel_launches"]
+    if (k["gather_rows"] < CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES or k["binned_sgd"] != CLI_TRAIN_BATCHES
+            or k["binned_scatter_add"] or k["stochastic_round"] or k["stochastic_sgd_round"]):
+        raise AssertionError(f"[{name}] kernel launches {k}")
+    return res
+
+
+def check_resident_kernels(data_dir, device) -> tuple:
+    """Kernels 1 and 2 on the resident path's first training step: the f32
+    rows of the 33,762,577-row table, built as the CLI builds it. Kernel 1
+    bit for bit against its plain version and index_select. Kernel 2 in
+    place on the table, since a 17 GB clone would not fit beside it: on the
+    touched rows within 1e-5 of slr * sum|g| (plus one f32 ulp) of the
+    float64 result, as is its plain version on a compact copy of those rows;
+    a sample of 65,536 untouched rows bit-equal; a second launch from the
+    restored rows bit-identical; and the gate shown to reject a planted fault
+    (the heaviest row without one chunk). Returns their entries."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import ROW_CHUNK, binned_sgd_update, binned_sgd_update_plain
+    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+    from cachedembedding_tpu_torch.train import dlrm_main
+
+    args = dlrm_main.parse_args(["--dataset_dir", str(data_dir), *CLI_FLAGS])
+    cfg = dlrm_main.build_config(args)
+    t0 = time.perf_counter()
+    tr = dlrm_main.build_trainer(args, cfg, None, device)
+    build_s = time.perf_counter() - t0
+    F, B = cfg.num_sparse_features, cfg.batch_size
+    batches = [b for _, b in zip(range(cfg.cache.prefetch_num), dlrm_main.get_data(args, cfg, "train"))]
+    win = tr._begin_window(batches)
+    ids = win.slot_ids[0]
+    perm, grouped, bins = (a[0] for a in win.plan)
+    cw = tr.embed.cache_weight
+    C, D = cw.shape
+    L = ids.shape[0]
+    row_bytes = D * cw.element_size()
+    ids_nf = ids.reshape(F, B).t().reshape(-1).long()
+
+    out = gather_rows(cw, ids, F)
+    if not (torch.equal(out, gather_rows_plain(cw, ids, F)) and
+            torch.equal(out, torch.index_select(cw, 0, ids_nf).reshape(B, F, D))):
+        raise AssertionError("gather_rows differs from index_select on the resident table")
+    del out
+    n_distinct = int(torch.unique(ids).numel())
+    k1 = dict(
+        max_abs_err=0.0,
+        ms=median_ms(lambda: gather_rows(cw, ids, F)),
+        device_ms=device_median_ms(lambda: gather_rows(cw, ids, F)),
+        plain_ms=median_ms(lambda: gather_rows_plain(cw, ids, F)),
+        bound_ms=(L * 4 + (n_distinct + L) * row_bytes) / HBM_BYTES_PER_S * 1e3,
+        library_ms=median_ms(lambda: torch.index_select(cw, 0, ids_nf)),
+        timed_on=f"cli resident, first training step ({C} x {D} f32 rows)", tolerance="bit-exact",
+    )
+    log(f"[cli kernels] gather_rows on the resident table: {n_distinct} distinct rows, equal to index_select; "
+        f"{json.dumps(k1)}")
+
+    slr = cfg.learning_rate
+    gen = torch.Generator(device=device).manual_seed(0)
+    g = 1e-3 * torch.randn((L, D), generator=gen, device=device)  # stream order (B, F)
+    touched = torch.unique(grouped)
+    before = cw[touched.long()].clone()
+    pos = torch.searchsorted(touched, grouped).to(torch.int32)  # the plan over the compact rows
+    untouched = torch.ones(C, dtype=torch.bool, device=device)
+    untouched[touched.long()] = False
+    sample = torch.nonzero(untouched)[:, 0]
+    sample = sample[torch.randperm(sample.numel(), generator=gen, device=device)[:65536]]
+    del untouched
+    before_u = cw[sample].clone()
+    exact = before.double() - slr * torch.zeros_like(before, dtype=torch.float64).index_add_(
+        0, pos.long(), g[perm.long()].double())
+    abs64 = torch.zeros_like(exact).index_add_(0, pos.long(), g[perm.long()].double().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 23)
+
+    def faults(x) -> int:
+        return int(((x.double() - exact).abs() > SCATTER_RTOL * slr * abs64 + ulp).sum())
+
+    binned_sgd_update(cw, g, perm, grouped, bins, slr)
+    a = cw[touched.long()].clone()
+    if not torch.equal(cw[sample], before_u):
+        raise AssertionError("binned_sgd changed untouched rows of the resident table")
+    cw[touched.long()] = before
+    binned_sgd_update(cw, g, perm, grouped, bins, slr)
+    if not torch.equal(cw[touched.long()], a):
+        raise AssertionError("binned_sgd is not deterministic across launches on the resident table")
+    plain = binned_sgd_update_plain(before.clone(), g, perm, pos, bins, slr)
+    for what, x in (("kernel", a), ("plain version", plain)):
+        if faults(x):
+            raise AssertionError(f"binned_sgd {what} on the resident table: {faults(x)} elements off the float64 "
+                                 f"result by more than {SCATTER_RTOL} x slr x sum|g| + 1 ulp")
+    g_drop = g.clone()
+    g_drop[perm[heaviest_row_chunk(grouped, ROW_CHUNK)].long()] = 0
+    if not faults(binned_sgd_update_plain(before.clone(), g_drop, perm, pos, bins, slr)):
+        raise AssertionError("the resident-table gate passed a planted fault (heaviest row missing one chunk)")
+    del g_drop
+    n_touched = touched.numel()
+    compact = before.clone()
+    k2 = dict(
+        max_abs_err=(a - plain).abs().max().item(),
+        max_err_over_slr_sum_abs_g=((a.double() - exact).abs() / (slr * abs64).clamp_min(1e-300)).max().item(),
+        ms=median_ms(lambda: binned_sgd_update(cw, g, perm, grouped, bins, slr)),
+        device_ms=device_median_ms(lambda: binned_sgd_update(cw, g, perm, grouped, bins, slr)),
+        # on the touched rows: its (C, D) f32 accumulator would be a second 17 GB table
+        plain_ms=median_ms(lambda: binned_sgd_update_plain(compact, g, perm, pos, bins, slr)),
+        plain_on="the touched rows (compact copy)",
+        bound_ms=(L * row_bytes + 2 * L * 4 + bins.numel() * 4 + 2 * n_touched * row_bytes) / HBM_BYTES_PER_S * 1e3,
+        library_ms=median_ms(lambda: cw.index_add_(0, ids_nf, g, alpha=-slr)),
+        library="Tensor.index_add_ (f32 atomics: another sum order)",
+        timed_on=f"cli resident, first training step ({C} x {D} f32 rows)",
+        tolerance=f"touched rows within {SCATTER_RTOL} x slr x sum|g| + 1 f32 ulp of float64; untouched sample "
+                  "bit-equal; two launches bit-identical",
+        plan_host_ms=plan_host_ms(win, F, C), touched_rows=n_touched, **row_runs(grouped, ROW_CHUNK),
+    )
+    log(f"[cli kernels] binned_sgd on the resident table: {n_touched} touched rows of {C}, a sample of "
+        f"{sample.numel()} untouched rows bit-equal, two launches bit-identical, the gate rejects the planted "
+        f"fault; trainer built in {build_s:.1f} s; {json.dumps(k2)}")
+    tr.close()
+    return k1, k2
+
+
+def check_checkpoint_round_trip(data_dir, ckpt_root, device) -> dict:
+    """Train through the CLI's functions on small tables (Kaggle's, capped at
+    CHECKPOINT_TABLE_CAP rows; the same files serve, the ids being hashed),
+    save, load into a fresh trainer and evaluate: the scores and AUROC equal
+    the saved trainer's bit for bit."""
+    import numpy as np
+    import torch
+
+    import cachedembedding_tpu_torch.train.trainer as trainer_mod
+    from cachedembedding_tpu_torch.config import CRITEO_KAGGLE_NUM_EMBEDDINGS_PER_FEATURE as sizes
+    from cachedembedding_tpu_torch.train import dlrm_main
+    from cachedembedding_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    small_dir = ckpt_root / "small_tables_kaggle"  # its own frequency map
+    small_dir.mkdir()
+    for f in data_dir.glob("day_*.npy"):
+        (small_dir / f.name).symlink_to(f)
+    tables = ",".join(str(min(n, CHECKPOINT_TABLE_CAP)) for n in sizes)
+    args = dlrm_main.parse_args(["--dataset_dir", str(small_dir), *CLI_FLAGS, "--use_cache",
+                                 "--num_embeddings_per_feature", tables, "--cache_ratio", "0.8"])
+    cfg = dlrm_main.build_config(args)
+    freq = dlrm_main.get_freq(args, cfg)
+    scores = []
+
+    class Recording(trainer_mod.StreamingMetrics):
+        def update(self, s, labels):
+            scores.append(np.asarray(s))
+            super().update(s, labels)
+
+    def evaluate(tr):
+        scores.clear()
+        original, trainer_mod.StreamingMetrics = trainer_mod.StreamingMetrics, Recording
+        try:
+            m = tr.evaluate(list(dlrm_main.get_data(args, cfg, "val"))[:2])
+        finally:
+            trainer_mod.StreamingMetrics = original
+        return m, np.concatenate(scores)
+
+    t0 = time.perf_counter()
+    tr = dlrm_main.build_trainer(args, cfg, freq, device)
+    tr.train(dlrm_main.get_data(args, cfg, "train"), num_iters=CLI_TRAIN_BATCHES)
+    save_checkpoint(str(ckpt_root / "ckpt"), tr)
+    m1, s1 = evaluate(tr)
+    tr.close()
+    tr2 = dlrm_main.build_trainer(args, cfg, freq, device)
+    step = load_checkpoint(str(ckpt_root / "ckpt"), tr2)
+    m2, s2 = evaluate(tr2)
+    tr2.close()
+    torch.cuda.synchronize()
+    if step != CLI_TRAIN_BATCHES or not np.array_equal(s1, s2) or m1 != m2:
+        raise AssertionError(f"checkpoint round trip: step {step}, auroc {m1['auroc']} vs {m2['auroc']}, "
+                             f"{int((s1 != s2).sum())} scores differ")
+    res = {"tables_rows": int(sum(cfg.num_embeddings_per_feature)), "step": step, "auroc": m1["auroc"],
+           "scores": int(s1.size), "seconds": time.perf_counter() - t0}
+    log(f"[cli checkpoint] trained {step} steps on {res['tables_rows']} rows of small tables, saved, loaded "
+        f"into a fresh trainer: {s1.size} scores and auroc {m1['auroc']:.6f} bit-equal; {res['seconds']:.1f} s")
+    return res
+
+
+def phase_cli(device) -> dict:
+    """Phase 9: the users' command line at full Criteo-Kaggle width on a
+    written dataset (cached, resident and DeepFM runs, each its own
+    process), Kernels 1 and 2 on the resident table, and the checkpoint
+    round trip. Returns each run's kernel launches by path and the kernels'
+    resident-table entries."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from cachedembedding_tpu_torch import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the runs' processes share the card with this one
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cli_", dir=_build.BUILD_DIR))
+    try:
+        data_dir = write_cli_dataset(Path(tempfile.mkdtemp(prefix="criteo_kaggle_", dir=root)))
+        log(f"[cli] wrote {CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES} x {CLI_BATCH} rows in "
+            f"{time.perf_counter() - t0:.1f} s to {data_dir.relative_to(_build.PKG_DIR.parent)}")
+        with open("/proc/meminfo") as f:
+            mem = {k: int(v.split()[0]) / 2**20 for k, v in (ln.split(":", 1) for ln in f)}
+        log(f"[cli] host memory: {mem['MemTotal']:.1f} GiB total, {mem['MemAvailable']:.1f} GiB available")
+        freq_path = data_dir / "id_freq_map.npy"
+        runs, mtime = {}, None
+        for name, extra in CLI_RUNS.items():
+            runs[name] = run_cli(name, data_dir, extra)
+            if name == "cli cached":
+                mtime = freq_path.stat().st_mtime_ns
+            if (runs[name]["freq"] == "computed") != (name == "cli cached"):
+                raise AssertionError(f"[{name}] id_freq_map {runs[name]['freq']}")
+            if name != "cli resident" and not 0.0 < runs[name]["hit_rate"] <= 1.0:
+                raise AssertionError(f"[{name}] hit rate {runs[name]['hit_rate']} outside (0, 1]")
+        if freq_path.stat().st_mtime_ns != mtime:
+            raise AssertionError("id_freq_map.npy was written again")
+        log("[cli] id_freq_map.npy computed once by the first run and reused by the other two")
+        torch.cuda.empty_cache()
+        k1, k2 = check_resident_kernels(data_dir, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt = check_checkpoint_round_trip(data_dir, root, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"[cli] phase done in {secs:.1f} s")
+    return {"launches": {name: r["stats"]["kernel_launches"] for name, r in runs.items()},
+            "gather_rows": k1, "binned_sgd": k2, "checkpoint": ckpt, "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -1197,17 +1522,19 @@ def run_phases(procs: dict) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_bare_module(device)
+    cli = phase_cli(device)
+    kernels[0]["on_resident_table"] = cli["gather_rows"]
+    kernels[1]["on_resident_table"] = cli["binned_sgd"]
 
+    paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **cli["launches"]}
     for k in kernels:
         name = k["name"]
         entries = KERNEL_ENTRIES.get(name, (name,))
-        by_path = {path: sum(counts[e] for e in entries)
-                   for path, counts in (("bf16 slice", launches_bf16), ("fp8 slice", launches_fp8))}
+        by_path = {path: sum(counts[e] for e in entries) for path, counts in paths.items()}
         k["launches"] = by_path["bf16 slice" if name in BF16_KERNELS else "fp8 slice"]
         k["launches_by_path"] = by_path
         if len(entries) > 1:
-            k["launches_by_entry"] = {e: {"bf16 slice": launches_bf16[e], "fp8 slice": launches_fp8[e]}
-                                      for e in entries}
+            k["launches_by_entry"] = {e: {path: counts[e] for path, counts in paths.items()} for e in entries}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -183,8 +183,6 @@ def test_refuses_outside_the_slice():
     for kw, cache_kw in [
         ({"embedding_optimizer": "rowwise_adagrad"}, {}),
         ({"dense_input_dtype": "int8"}, {}),
-        ({"model": "deepfm"}, {}),
-        ({}, {"ship_sort_perm": False}),
         ({}, {"cache_dtype": "float8_e4m3fn", "stochastic_rounding": "off"}),
         ({}, {"cache_dtype": "float8_e5m2"}),
         ({}, {"transfer_dtype": "int4"}),
@@ -192,6 +190,10 @@ def test_refuses_outside_the_slice():
         cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, **cache_kw}))
         with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item \d+"):
             port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
+    # DeepFM and the JAX CLI's default ship_sort_perm=False are in the port
+    for kw, cache_kw in [({"model": "deepfm"}, {}), ({}, {"ship_sort_perm": False})]:
+        cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, "cache_ratio": 0.5, **cache_kw}))
+        port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu").close()
     # fp8 rows with rounding on ("auto" or "on") are in the slice
     for sr in ("auto", "on"):
         cfg = DLRMConfig(**base, cache=CacheConfig(
