@@ -11,7 +11,9 @@ cache (the cache is transparent).
 
 The table is initialized on the device by ``ops/synth_rows.py``, bit-equal to
 the canonical fill of the cached path's host table (``default_table_init``),
-so no host copy of the table is made.
+so no host copy of the table is made. With ``optimizer="rowwise_adagrad"`` its
+accumulators are an (N,) f32 array on the device (``cache_accum``, 135 MB for
+Criteo-Kaggle), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from cachedembedding_tpu_torch import resolve_device
 from cachedembedding_tpu_torch.cache.host_table import row_bounds_of, table_bounds
-from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, CacheStats, host_to_device
+from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, OPTIMIZERS, CacheStats, host_to_device
 from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
 from cachedembedding_tpu_torch.ops.rounding import astype_storage
@@ -51,11 +53,15 @@ class FullyResidentEmbeddingBag:
         seed: int = 1024,
         weight_init: str = "uniform",
         device=None,
+        optimizer: str = "sgd",
+        adagrad_initial: float = 0.0,
     ):
         self.device = resolve_device(device)
         dtype = CACHE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
         if dtype not in CACHE_DTYPES.values():
-            raise NotImplementedError(f"resident rows of {dtype}: float32, bfloat16 and float8_e4m3fn only")
+            raise ValueError(f"resident rows of {dtype}: {', '.join(CACHE_DTYPES)} only")
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {optimizer!r}")
         if mode not in ("sum", "mean"):
             raise ValueError(f"unsupported mode {mode!r}")
         self.num_embeddings = int(num_embeddings)
@@ -83,6 +89,11 @@ class FullyResidentEmbeddingBag:
                                             device=self.device)
         else:
             raise ValueError(f"unknown weight_init {weight_init!r} for the resident table")
+        self.optimizer = optimizer
+        self.adagrad_initial = float(adagrad_initial)
+        self.cache_accum = (torch.full((self.num_embeddings,), self.adagrad_initial, dtype=torch.float32,
+                                       device=self.device)
+                            if optimizer == "rowwise_adagrad" else None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.table_init_s = time.perf_counter() - t0  # the device fill
@@ -115,6 +126,12 @@ class FullyResidentEmbeddingBag:
 
     def print_comm_stats(self) -> None:
         print("FullyResidentEmbeddingBag: no host<->HBM traffic")
+
+    def set_accum(self, cache_accum: torch.Tensor) -> None:
+        """Rebind the device accumulators (the JAX package's ``set_accum``)."""
+        if self.cache_accum is None or cache_accum.shape != self.cache_accum.shape:
+            raise ValueError("set_accum: the table keeps no accumulators of that shape")
+        self.cache_accum = cache_accum.to(device=self.device, dtype=torch.float32)
 
     # -- bare-module API ------------------------------------------------------
     def prepare_ids(self, ids) -> torch.Tensor:

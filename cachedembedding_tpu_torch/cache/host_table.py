@@ -11,6 +11,11 @@ lazy-device-init hooks written_mask/row_bounds/seed):
   * ``VirtualHostTable`` — rows are generated procedurally (same canonical
     generator) until first written back, after which they live in a native
     hash-table overlay. Host memory is the touched working set only.
+
+Beside them, the host master of row-wise Adagrad's per-row accumulators
+(4 bytes a row), which tiers with the cache as the rows do:
+``DenseAccumStore`` for a dense table, ``OverlayAccumStore`` (a dim-1
+overlay) for a virtual one.
 """
 
 from __future__ import annotations
@@ -88,6 +93,74 @@ class DenseHostTable:
         assumed to still hold its canonical init."""
         if self._written is not None:
             self._written[:] = True
+
+
+class DenseAccumStore:
+    """Host master of the row-wise Adagrad accumulators of a dense table: an
+    (N,) float32 array, every row ``initial`` until written back."""
+
+    def __init__(self, num_rows: int, initial: float = 0.0):
+        self.arr = np.full((int(num_rows),), initial, np.float32)
+        self.initial = float(initial)
+
+    def gather(self, idx: np.ndarray) -> np.ndarray:
+        return self.arr[np.asarray(idx, np.int64)]
+
+    def scatter(self, idx: np.ndarray, vals: np.ndarray) -> None:
+        self.arr[np.asarray(idx, np.int64)] = np.asarray(vals, np.float32).reshape(-1)
+
+    def save_state(self) -> dict:
+        return {"kind": "dense", "arr": self.arr}
+
+
+class OverlayAccumStore:
+    """Host master of the row-wise Adagrad accumulators of a virtual table:
+    written rows live in a dim-1 native overlay; a row never written back
+    reads as ``initial``."""
+
+    def __init__(self, initial: float = 0.0, capacity_hint: int = 1 << 16):
+        self._lib = hostops.load_lib()
+        self._h = self._lib.overlay_create(1, 0, capacity_hint)
+        self.initial = float(initial)
+
+    def written_mask(self, idx: np.ndarray) -> np.ndarray:
+        idx = np.ascontiguousarray(idx, np.int64)
+        out = np.empty((idx.shape[0],), np.uint8)
+        self._lib.overlay_contains(self._h, idx.ctypes.data, out.ctypes.data, idx.shape[0])
+        return out.astype(np.bool_)
+
+    def gather(self, idx: np.ndarray) -> np.ndarray:
+        idx = np.ascontiguousarray(idx, np.int64)
+        out = np.empty((idx.shape[0], 1), np.float32)
+        bounds = np.zeros((idx.shape[0],), np.float32)  # unwritten rows: overwritten below
+        self._lib.overlay_gather_f32(self._h, idx.ctypes.data, bounds.ctypes.data, out.ctypes.data, idx.shape[0])
+        out = out.reshape(-1)
+        out[~self.written_mask(idx)] = self.initial
+        return out
+
+    def scatter(self, idx: np.ndarray, vals: np.ndarray) -> None:
+        idx = np.ascontiguousarray(idx, np.int64)
+        vals = np.ascontiguousarray(vals, np.float32).reshape(-1, 1)
+        if vals.shape[0] != idx.shape[0]:
+            raise ValueError(f"{vals.shape[0]} accumulators for {idx.shape[0]} rows")
+        self._lib.overlay_scatter_f32(self._h, idx.ctypes.data, vals.ctypes.data, idx.shape[0])
+
+    def written_rows(self) -> np.ndarray:
+        n = int(self._lib.overlay_used(self._h))
+        out = np.empty((n,), np.int64)
+        if n:
+            self._lib.overlay_keys(self._h, out.ctypes.data)
+        return out
+
+    def save_state(self) -> dict:
+        rows = self.written_rows()
+        return {"kind": "overlay", "rows": rows, "vals": self.gather(rows)}
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.overlay_free(h)
+            self._h = None
 
 
 class VirtualHostTable:

@@ -13,6 +13,15 @@ Split of responsibilities:
     and written to the host table by a drain thread;
   * device: admit scatters, writeback gathers, lookups, and the update.
 
+With ``optimizer="rowwise_adagrad"`` each device row has an f32 accumulator
+(``cache_accum``, (capacity + resident_total,)) whose master lives in a host
+store (``host_table.DenseAccumStore``, or ``OverlayAccumStore`` for a
+virtual table). It moves with its row: synthesized admits start at
+``adagrad_initial``, fetched admits carry the host value, and evictions,
+flushes and checkpoints write it back in the same stream order as the rows.
+As in the JAX package this needs the host planner, the only planner the
+port has.
+
 Ordering on the device comes from stream order, never from thread timing:
 a window's writeback gathers are enqueued after the previous window's steps
 and before this window's admits, and copy into pinned host buffers behind a
@@ -34,7 +43,12 @@ import torch
 from cachedembedding_tpu_torch import resolve_device
 from cachedembedding_tpu_torch._native import hostops
 from cachedembedding_tpu_torch.cache.host_directory import make_directory
-from cachedembedding_tpu_torch.cache.host_table import DenseHostTable, VirtualHostTable
+from cachedembedding_tpu_torch.cache.host_table import (
+    DenseAccumStore,
+    DenseHostTable,
+    OverlayAccumStore,
+    VirtualHostTable,
+)
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy, gather_slots, scatter_admits
 from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
@@ -42,7 +56,9 @@ from cachedembedding_tpu_torch.ops.synth_rows import scatter_synth_admits
 
 CACHE_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
 }
+OPTIMIZERS = ("sgd", "rowwise_adagrad")
 _TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -92,6 +108,7 @@ class WindowStaging(NamedTuple):
     synth_bounds: np.ndarray   # (ns,) float32
     fetch_slots: np.ndarray    # (nf,) int32
     fetch_payload: torch.Tensor  # (nf, D) transfer dtype, pinned on CUDA
+    fetch_accum: np.ndarray    # (nf,) f32 Adagrad accumulators of the fetched rows, or (0,)
     admit_slots: np.ndarray    # (n_miss,) full plan arrays for the writebacks
     evict_rows: np.ndarray     # (n_miss,)
 
@@ -125,9 +142,12 @@ def default_table_init(table_sizes: Sequence[int], seed: int):
 class CachedEmbeddingBag:
     """Frequency-aware software-cached EmbeddingBag (single device, host planner).
 
-    Cache rows are stored in ``dtype`` (f32, bf16 or float8_e4m3fn) over the
-    f32 host master; admits round into it as ``jnp.astype`` does, and
-    writebacks and flushes widen exactly to the transfer dtype (>= bf16).
+    Cache rows are stored in ``dtype`` (f32, bf16, float8_e4m3fn or
+    float8_e5m2) over the f32 host master; admits round into it as
+    ``jnp.astype`` does, and writebacks and flushes widen exactly to the
+    transfer dtype (>= bf16). ``optimizer`` is "sgd" or "rowwise_adagrad"
+    (per-row accumulators that tier with the cache, starting at
+    ``adagrad_initial``).
     Runs on ``device`` (default: the current CUDA device; with no GPU and no
     explicit ``device="cpu"`` this raises)."""
 
@@ -149,8 +169,12 @@ class CachedEmbeddingBag:
         transfer_dtype: str = "float32",
         device=None,
         resident_tables: Optional[Sequence[int]] = None,
+        optimizer: str = "sgd",
+        adagrad_initial: float = 0.0,
     ):
         self.device = resolve_device(device)
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {optimizer!r}")
         if transfer_dtype not in _TRANSFER_DTYPES:
             raise NotImplementedError(
                 f"transfer_dtype={transfer_dtype!r}: int8/int4 admit payloads are "
@@ -158,10 +182,7 @@ class CachedEmbeddingBag:
             )
         dtype = CACHE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
         if dtype not in CACHE_DTYPES.values():
-            raise NotImplementedError(
-                f"cache dtype {dtype}: the port stores float32, bfloat16 and float8_e4m3fn "
-                "rows; other storage dtypes are ROADMAP Queue 1 item 7"
-            )
+            raise ValueError(f"cache dtype {dtype}: the cache stores {', '.join(CACHE_DTYPES)} rows")
         if mode not in ("sum", "mean"):
             raise ValueError(f"unsupported mode {mode!r}")
         self.num_embeddings = int(num_embeddings)
@@ -221,6 +242,18 @@ class CachedEmbeddingBag:
         self.cache_weight = torch.zeros(
             (self.capacity + self.resident_total, self.embedding_dim), dtype=dtype, device=self.device
         )
+        # --- row-wise Adagrad state: tiers with the cache ---
+        self.optimizer = optimizer
+        self.adagrad_initial = float(adagrad_initial)
+        if optimizer == "rowwise_adagrad":
+            self.cache_accum = torch.full((self.device_rows,), self.adagrad_initial, dtype=torch.float32,
+                                          device=self.device)
+            self.host_accum = (OverlayAccumStore(self.adagrad_initial)
+                               if isinstance(self.host_table, VirtualHostTable)
+                               else DenseAccumStore(self.num_embeddings, self.adagrad_initial))
+        else:
+            self.cache_accum = None
+            self.host_accum = None
 
         if ids_freq_mapping is not None:
             freq = np.ascontiguousarray(ids_freq_mapping, dtype=np.int64)
@@ -309,11 +342,10 @@ class CachedEmbeddingBag:
             self.stats.synth_rows += n_fresh
         if n_fresh < k:
             rows = self.host_table.gather(top[written])
-            scatter_admits(
-                self.cache_weight,
-                self.to_device(slots[written].astype(np.int64)),
-                self.to_device(torch.from_numpy(rows).to(self.transfer_dtype)),
-            )
+            slots_dev = self.to_device(slots[written].astype(np.int64))
+            scatter_admits(self.cache_weight, slots_dev, self.to_device(torch.from_numpy(rows).to(self.transfer_dtype)))
+            # trained warm rows resume with their accumulators (a restored checkpoint)
+            self._land_accum(slots_dev, top[written])
             self.stats.swap_in_bytes += rows.nbytes
         self.stats.swap_in_time += time.perf_counter() - t0
 
@@ -336,12 +368,15 @@ class CachedEmbeddingBag:
             )
         if written.any():
             vals = self.host_table.gather(rows[written])
-            scatter_admits(
-                self.cache_weight,
-                self.to_device(addrs[written]),
-                self.to_device(torch.from_numpy(vals).to(self.transfer_dtype)),
-            )
+            addrs_dev = self.to_device(addrs[written])
+            scatter_admits(self.cache_weight, addrs_dev, self.to_device(torch.from_numpy(vals).to(self.transfer_dtype)))
+            self._land_accum(addrs_dev, rows[written])
             self.stats.swap_in_bytes += vals.nbytes
+
+    def _land_accum(self, addrs_dev: torch.Tensor, rows: np.ndarray) -> None:
+        """Adagrad: the host accumulators of ``rows`` into device ``addrs_dev``."""
+        if self.cache_accum is not None:
+            self.cache_accum.index_copy_(0, addrs_dev, self.to_device(self.host_accum.gather(rows)))
 
     def _check_range(self, ids_np: np.ndarray) -> None:
         if ids_np.size:
@@ -409,12 +444,13 @@ class CachedEmbeddingBag:
         self.stats.num_miss_history.append(n_miss)
         D = self.embedding_dim
         empty_i = np.zeros((0,), np.int32)
+        empty_f = np.zeros((0,), np.float32)
         if n_miss == 0:
             return WindowStaging(
                 slot_ids=slot_full.reshape(out_shape),
                 synth_slots=empty_i, synth_rows=np.zeros((0,), np.int64),
-                synth_bounds=np.zeros((0,), np.float32), fetch_slots=empty_i,
-                fetch_payload=torch.zeros((0, D), dtype=self.transfer_dtype),
+                synth_bounds=empty_f, fetch_slots=empty_i,
+                fetch_payload=torch.zeros((0, D), dtype=self.transfer_dtype), fetch_accum=empty_f,
                 admit_slots=hp.admit_slots, evict_rows=hp.evict_rows,
             )
         # Every in-flight writeback must land before the written-mask check:
@@ -432,10 +468,13 @@ class CachedEmbeddingBag:
         self.stats.synth_rows += int(synth_rows.shape[0])
         w_rows = hp.admit_rows[written]
         payload = self._pinned((w_rows.shape[0], D), self.transfer_dtype)
+        fetch_accum = empty_f
         if w_rows.shape[0]:
             t0 = time.perf_counter()
             with self._host_lock:
                 vals = self.host_table.gather(w_rows)
+                if self.host_accum is not None:
+                    fetch_accum = self.host_accum.gather(w_rows)
             payload.copy_(torch.from_numpy(vals))
             self.stats.swap_in_bytes += w_rows.shape[0] * D * 4
             self.stats.swap_in_time += time.perf_counter() - t0
@@ -443,27 +482,27 @@ class CachedEmbeddingBag:
             slot_ids=slot_full.reshape(out_shape),
             synth_slots=hp.admit_slots[fresh], synth_rows=synth_rows,
             synth_bounds=self.host_table.row_bounds(synth_rows).astype(np.float32),
-            fetch_slots=hp.admit_slots[written], fetch_payload=payload,
+            fetch_slots=hp.admit_slots[written], fetch_payload=payload, fetch_accum=fetch_accum,
             admit_slots=hp.admit_slots, evict_rows=hp.evict_rows,
         )
 
     def apply_admits(self, ws: WindowStaging) -> None:
         """Land a staged window's admits on the device: synthesized rows
-        first, then fetched rows (the order of the JAX window program)."""
+        first, then fetched rows (the order of the JAX window program), each
+        with its Adagrad accumulator (``adagrad_initial`` for a synthesized
+        row, the host value for a fetched one)."""
         if ws.synth_slots.shape[0]:
+            slots = self.to_device(ws.synth_slots.astype(np.int64))
             scatter_synth_admits(
-                self.cache_weight,
-                self.to_device(ws.synth_slots.astype(np.int64)),
-                self.to_device(ws.synth_rows),
-                self.to_device(ws.synth_bounds),
-                self._seed,
+                self.cache_weight, slots, self.to_device(ws.synth_rows), self.to_device(ws.synth_bounds), self._seed,
             )
+            if self.cache_accum is not None:
+                self.cache_accum.index_fill_(0, slots, self.adagrad_initial)
         if ws.fetch_slots.shape[0]:
-            scatter_admits(
-                self.cache_weight,
-                self.to_device(ws.fetch_slots.astype(np.int64)),
-                self.to_device(ws.fetch_payload),
-            )
+            slots = self.to_device(ws.fetch_slots.astype(np.int64))
+            scatter_admits(self.cache_weight, slots, self.to_device(ws.fetch_payload))
+            if self.cache_accum is not None:
+                self.cache_accum.index_copy_(0, slots, self.to_device(ws.fetch_accum))
 
     def enqueue_writebacks(self, ws: WindowStaging) -> None:
         """Enqueue the device gathers of this window's evicted occupants and
@@ -481,11 +520,16 @@ class CachedEmbeddingBag:
         vals_dev = gather_slots(self.cache_weight, slots, out_dtype=self.transfer_dtype)
         host = self._pinned(vals_dev.shape, vals_dev.dtype)
         host.copy_(vals_dev, non_blocking=self._on_cuda)
+        host_acc = None
+        if self.cache_accum is not None:  # the accumulators ride behind the same event
+            acc_dev = self.cache_accum.index_select(0, slots)
+            host_acc = self._pinned(acc_dev.shape, torch.float32)
+            host_acc.copy_(acc_dev, non_blocking=self._on_cuda)
         event = None
         if self._on_cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        self._pending_wb.append((ws.evict_rows[mask], host, event))
+        self._pending_wb.append((ws.evict_rows[mask], host, host_acc, event))
         self._submit_writebacks()
 
     def _submit_writebacks(self) -> None:
@@ -497,12 +541,14 @@ class CachedEmbeddingBag:
 
     def _do_drain(self, items) -> None:
         t0 = time.perf_counter()
-        for ev_rows, host, event in items:
+        for ev_rows, host, host_acc, event in items:
             if event is not None:
-                event.synchronize()  # the device gather and copy have run
+                event.synchronize()  # the device gathers and copies have run
             vals = host.float().numpy()
             with self._host_lock:
                 self.host_table.scatter(ev_rows, vals)
+                if host_acc is not None:
+                    self.host_accum.scatter(ev_rows, host_acc.numpy())
             self.stats.swap_out_bytes += ev_rows.shape[0] * self.embedding_dim * 4
         self.stats.swap_out_time += time.perf_counter() - t0
 
@@ -549,6 +595,8 @@ class CachedEmbeddingBag:
             e = min(s + chunk, R)
             vals = self.cache_weight[self.capacity + s : self.capacity + e].float().cpu().numpy()
             self.host_table.scatter(self._res_rows[s:e], vals)
+            if self.cache_accum is not None:
+                self.host_accum.scatter(self._res_rows[s:e], self.cache_accum[self.capacity + s : self.capacity + e].cpu().numpy())
         self.stats.swap_out_bytes += R * self.embedding_dim * 4
 
     def flush(self) -> None:
@@ -559,8 +607,11 @@ class CachedEmbeddingBag:
         if slots.size == 0:
             return
         t0 = time.perf_counter()
-        vals = gather_slots(self.cache_weight, self.to_device(slots.astype(np.int64)))
+        slots_dev = self.to_device(slots.astype(np.int64))
+        vals = gather_slots(self.cache_weight, slots_dev)
         self.host_table.scatter(rows, vals.float().cpu().numpy())
+        if self.cache_accum is not None:
+            self.host_accum.scatter(rows, self.cache_accum.index_select(0, slots_dev).cpu().numpy())
         self.stats.swap_out_bytes += slots.size * self.embedding_dim * 4
         self.stats.swap_out_time += time.perf_counter() - t0
 
@@ -577,6 +628,12 @@ class CachedEmbeddingBag:
     def print_comm_stats(self) -> None:
         print(self.stats.summary())
 
+    def set_accum(self, cache_accum: torch.Tensor) -> None:
+        """Rebind the device accumulators (the JAX package's ``set_accum``)."""
+        if self.cache_accum is None or cache_accum.shape != self.cache_accum.shape:
+            raise ValueError("set_accum: the bag keeps no accumulators of that shape")
+        self.cache_accum = cache_accum.to(device=self.device, dtype=torch.float32)
+
     def reset_cache(self) -> None:
         """Drop the cache's contents and directory and warm it again from the
         id-frequency map (cache contents are derived state: used after a
@@ -586,6 +643,8 @@ class CachedEmbeddingBag:
         if self._host_freq is not None and self.evict_strategy == EvictionStrategy.DATASET:
             self._dir.set_dataset_freq(self._host_freq)
         self.cache_weight.zero_()
+        if self.cache_accum is not None:
+            self.cache_accum.fill_(self.adagrad_initial)
         if self.resident_total:
             self._init_resident_region()
         if self._host_freq is not None and self.warmup_ratio > 0:

@@ -28,9 +28,9 @@ class CacheConfig:
     weight_init: str = "uniform"       # host table init: "uniform" | "zeros" | "virtual"
     transfer_dtype: str = "float32"    # host<->device admit payload dtype
     cache_dtype: str = "bfloat16"      # device cache-row storage dtype:
-    # "float32" | "bfloat16" | "float8_e4m3fn"
-    ship_sort_perm: bool = False       # host-planned bin grouping for the
-    # embedding update (ops/binned_scatter.py); the port requires it
+    # "float32" | "bfloat16" | "float8_e4m3fn" | "float8_e5m2"
+    ship_sort_perm: bool = False       # the JAX trainer's plan branch of the
+    # update (train/trainer.py update_branch); the port plans every step
     stochastic_rounding: str = "auto"  # "auto" | "on" | "off": stochastic
     # rounding of the per-step f32 update back into the cache rows
     # (ops/rounding.py); "auto" is on for fp8 rows, where round-to-nearest
@@ -86,7 +86,7 @@ class DLRMConfig:
     compute_dtype: str = "float32"     # dense tower matmul operand dtype
     interaction_impl: str = "bmm"      # "bmm" | "gather"
     dense_input_dtype: str = "bfloat16"  # host->device dtype of dense features
-    use_sparse_embed_grad: bool = False
+    use_sparse_embed_grad: bool = False  # force the sparse-gradient update branch
 
     # embedding optimizer
     embedding_optimizer: str = "sgd"   # "sgd" | "rowwise_adagrad"

@@ -53,9 +53,9 @@ struct ScatterEpilogue {
   }
 
   template <int VEC>
-  __device__ __forceinline__ void apply(int row, int col, int D, const float* acc,
-                                        Nothing) const {
-    row_runs::store<VEC>(out + static_cast<int64_t>(row) * D + col, acc);
+  __device__ __forceinline__ void apply(int row, int col, int D, const float* acc, Nothing,
+                                        bool mine) const {
+    if (mine) row_runs::store<VEC>(out + static_cast<int64_t>(row) * D + col, acc);
   }
 };
 

@@ -1,5 +1,6 @@
 // Runs of one row, cut into fixed chunks: the reduction shared by
-// binned_sgd.cu (Kernel 2) and binned_scatter_add.cu (Kernel 3).
+// binned_sgd.cu (Kernel 2, with its SGD and row-wise Adagrad epilogues) and
+// binned_scatter_add.cu (Kernel 3).
 //
 // The host plan (sort_plan) sorts the step's id stream stably by id: perm and
 // ids = v[perm], so every row's contributors form one run of equal ids,
@@ -37,11 +38,20 @@
 //
 // The epilogue is the caller's (Epi): prefetch<VEC>(row, col, D) loads what
 // the epilogue needs of the row before the sum is done, apply<VEC>(row, col,
-// D, acc, pre) writes the row.
+// D, acc, pre, mine) writes the row. Every lane of the warp calls apply, so
+// that an epilogue may reduce over the row; lanes past D have mine false, and
+// their acc holds sums of column 0 (they load a valid address), which such a
+// reduction must leave out. An epilogue that needs the whole row at once
+// takes D <= 32 * VEC (vec4_path says which VEC a launch takes).
+//
+// Grads and rows may be f32, bf16, float8_e4m3fn or float8_e5m2 (Cvt): the
+// sums are f32 whatever the grads' type.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <cassert>
 #include <cstdint>
@@ -54,7 +64,7 @@ constexpr int kWarps = 4;            // warps (chunks) per block
 constexpr int kUnroll = 8;           // grad rows in flight per lane
 constexpr int kPartialsAhead = 16;   // partials in flight per lane
 
-// VEC elements of T, moved by one instruction.
+// VEC elements of T, moved by one instruction (raw bits for the narrow types).
 template <typename T, int VEC>
 struct Pack;
 template <>
@@ -64,35 +74,83 @@ struct Pack<float, 1> { using type = float; };
 template <>
 struct Pack<__nv_bfloat16, 4> { using type = uint2; };
 template <>
-struct Pack<__nv_bfloat16, 1> { using type = __nv_bfloat16; };
+struct Pack<__nv_bfloat16, 1> { using type = unsigned short; };
+template <>
+struct Pack<__nv_fp8_e4m3, 4> { using type = unsigned int; };
+template <>
+struct Pack<__nv_fp8_e4m3, 1> { using type = unsigned char; };
+template <>
+struct Pack<__nv_fp8_e5m2, 4> { using type = unsigned int; };
+template <>
+struct Pack<__nv_fp8_e5m2, 1> { using type = unsigned char; };
 
-__device__ __forceinline__ void unpack(float4 p, float* v) {
-  v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
-}
-__device__ __forceinline__ void unpack(float p, float* v) { v[0] = p; }
-// bf16 -> f32 is exact: the bf16 bits are the top half of the f32 bits
-__device__ __forceinline__ void unpack(uint2 p, float* v) {
-  v[0] = __uint_as_float(p.x << 16);
-  v[1] = __uint_as_float(p.x & 0xffff0000u);
-  v[2] = __uint_as_float(p.y << 16);
-  v[3] = __uint_as_float(p.y & 0xffff0000u);
-}
-__device__ __forceinline__ void unpack(__nv_bfloat16 p, float* v) { v[0] = __bfloat162float(p); }
-
-__device__ __forceinline__ void pack(const float* v, float4& p) {
-  p = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void pack(const float* v, float& p) { p = v[0]; }
-__device__ __forceinline__ unsigned bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ void pack(const float* v, uint2& p) {
-  p.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
-  p.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
-}
-__device__ __forceinline__ void pack(const float* v, __nv_bfloat16& p) {
-  p = __float2bfloat16_rn(v[0]);
-}
+// T <-> f32. Widening is exact. Narrowing rounds to nearest even as
+// jnp.astype does: bf16 by __float2bfloat16_rn; fp8 by the __NV_NOSAT
+// conversions, which give NaN (e4m3fn) or inf (e5m2) beyond the largest
+// finite value, as ml_dtypes does, where __NV_SATFINITE would clamp.
+template <typename T>
+struct Cvt;
+template <>
+struct Cvt<float> {
+  static __device__ __forceinline__ void widen(float4 p, float* v) {
+    v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+  }
+  static __device__ __forceinline__ void widen(float p, float* v) { v[0] = p; }
+  static __device__ __forceinline__ void narrow(const float* v, float4& p) {
+    p = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  static __device__ __forceinline__ void narrow(const float* v, float& p) { p = v[0]; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+template <>
+struct Cvt<__nv_bfloat16> {
+  // the bf16 bits are the top half of the f32 bits
+  static __device__ __forceinline__ void widen(uint2 p, float* v) {
+    v[0] = __uint_as_float(p.x << 16);
+    v[1] = __uint_as_float(p.x & 0xffff0000u);
+    v[2] = __uint_as_float(p.y << 16);
+    v[3] = __uint_as_float(p.y & 0xffff0000u);
+  }
+  static __device__ __forceinline__ void widen(unsigned short p, float* v) {
+    v[0] = __uint_as_float(static_cast<unsigned>(p) << 16);
+  }
+  static __device__ __forceinline__ unsigned bits(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ void narrow(const float* v, uint2& p) {
+    p.x = bits(v[0]) | (bits(v[1]) << 16);
+    p.y = bits(v[2]) | (bits(v[3]) << 16);
+  }
+  static __device__ __forceinline__ void narrow(const float* v, unsigned short& p) {
+    p = static_cast<unsigned short>(bits(v[0]));
+  }
+  static __device__ __forceinline__ float round(float x) { return __uint_as_float(bits(x) << 16); }
+};
+template <__nv_fp8_interpretation_t kKind>
+struct CvtFp8 {
+  static __device__ __forceinline__ float value(unsigned c) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(c), kKind)));
+  }
+  static __device__ __forceinline__ unsigned bits(float x) {
+    return __nv_cvt_float_to_fp8(x, __NV_NOSAT, kKind);
+  }
+  static __device__ __forceinline__ void widen(unsigned int p, float* v) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = value((p >> (8 * k)) & 0xffu);
+  }
+  static __device__ __forceinline__ void widen(unsigned char p, float* v) { v[0] = value(p); }
+  static __device__ __forceinline__ void narrow(const float* v, unsigned int& p) {
+    p = bits(v[0]) | (bits(v[1]) << 8) | (bits(v[2]) << 16) | (bits(v[3]) << 24);
+  }
+  static __device__ __forceinline__ void narrow(const float* v, unsigned char& p) {
+    p = static_cast<unsigned char>(bits(v[0]));
+  }
+  static __device__ __forceinline__ float round(float x) { return value(bits(x)); }
+};
+template <>
+struct Cvt<__nv_fp8_e4m3> : CvtFp8<__NV_E4M3> {};
+template <>
+struct Cvt<__nv_fp8_e5m2> : CvtFp8<__NV_E5M2> {};
 
 // g and, in the finishing launch, the partials are read through the
 // read-only path; the destination rows (cw) with plain loads.
@@ -104,10 +162,14 @@ template <int VEC, typename T>
 __device__ __forceinline__ typename Pack<T, VEC>::type load(const T* p) {
   return *reinterpret_cast<const typename Pack<T, VEC>::type*>(p);
 }
+template <typename T, typename P>
+__device__ __forceinline__ void unpack(P p, float* v) {
+  Cvt<T>::widen(p, v);
+}
 template <int VEC, typename T>
 __device__ __forceinline__ void store(T* p, const float* v) {
   typename Pack<T, VEC>::type x;
-  pack(v, x);
+  Cvt<T>::narrow(v, x);
   *reinterpret_cast<typename Pack<T, VEC>::type*>(p) = x;
 }
 
@@ -178,16 +240,14 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int u = 0; u < kUnroll; ++u) {
           if (r + u >= m) continue;
           float v[VEC];
-          unpack(gv[u], v);
+          unpack<G>(gv[u], v);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) acc[k] += v[k];
           if ((ends >> (r + u)) & 1) {
-            if (mine) {
-              if ((fins >> (r + u)) & 1)
-                epi.template apply<VEC>(row[u], col, D, acc, pre[u]);
-              else
-                store<VEC>(partials + slot_offset(c, 0, D) + col, acc);
-            }
+            if ((fins >> (r + u)) & 1)  // every lane: an epilogue may reduce over the warp
+              epi.template apply<VEC>(row[u], col, D, acc, pre[u], mine);
+            else if (mine)
+              store<VEC>(partials + slot_offset(c, 0, D) + col, acc);
 #pragma unroll
             for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
           }
@@ -261,7 +321,7 @@ __global__ void __launch_bounds__(kWarps * 32)
           for (int u = 0; u < kUnroll; ++u) {
             if (u0 + u >= m) continue;
             float x[VEC];
-            unpack(gv[u], x);
+            unpack<G>(gv[u], x);
 #pragma unroll
             for (int k = 0; k < VEC; ++k) acc[k] += x[k];
           }
@@ -280,13 +340,13 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int u = 0; u < kPartialsAhead; ++u) {
           if (base + u >= n_parts) continue;
           float x[VEC];
-          unpack(pv[u], x);
+          unpack<float>(pv[u], x);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) acc[k] += x[k];
         }
       }
     }
-    if (mine) epi.template apply<VEC>(v, col, D, acc, pre);
+    epi.template apply<VEC>(v, col, D, acc, pre, mine);
   }
 }
 
@@ -306,21 +366,25 @@ int launch_chunks(const Epi& epi, const G* g, const int32_t* perm, const int32_t
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether a launch moves 4 elements a lane: D a multiple of 4 and every
+// pointer 16-byte aligned (the destination's alignment is the caller's
+// aligned16).
+inline bool vec4_path(const void* g, const void* partials, int64_t D, bool aligned16) {
+  return D % 4 == 0 && aligned16 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(partials) % 16 == 0;
+}
+
 // The reduction of the sorted stream (L contributors, rows of D). Lanes move
-// 4 elements at a time where D is a multiple of 4 and every row is 16-byte
-// aligned, one element otherwise. partials: (2 * ceil(L / kChunk), D) f32
-// scratch.
+// 4 elements at a time where vec4_path allows, one element otherwise.
+// partials: (2 * ceil(L / kChunk), D) f32 scratch.
 template <typename G, class Epi>
 int launch(const Epi& epi, const void* g, const int32_t* perm, const int32_t* ids,
            void* partials, int64_t L, int64_t D, bool aligned16, cudaStream_t stream) {
   const G* gp = static_cast<const G*>(g);
   float* pp = static_cast<float*>(partials);
   const int l = static_cast<int>(L), d = static_cast<int>(D);
-  const bool vec = D % 4 == 0 && aligned16 &&
-                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(partials) % 16 == 0;
-  return vec ? launch_chunks<4>(epi, gp, perm, ids, pp, l, d, stream)
-             : launch_chunks<1>(epi, gp, perm, ids, pp, l, d, stream);
+  return vec4_path(g, partials, D, aligned16) ? launch_chunks<4>(epi, gp, perm, ids, pp, l, d, stream)
+                                              : launch_chunks<1>(epi, gp, perm, ids, pp, l, d, stream);
 }
 
 }  // namespace row_runs

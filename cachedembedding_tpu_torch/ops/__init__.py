@@ -1,18 +1,24 @@
-"""Device ops of the port: the CUDA kernels (gather_rows, binned_sgd,
-binned_scatter_add, stochastic_round) and the plain tensor ops around them."""
+"""Device ops of the port: the CUDA kernels (gather_rows, binned_sgd with its
+SGD and Adagrad entries, binned_scatter_add, stochastic_round,
+ordered_scatter_add) and the plain tensor ops around them."""
 
 
 def kernel_wrappers() -> dict:
     """Each CUDA kernel entry's wrapper, by name. A wrapper's ``launches``
     counts where it launches its kernel, never where it runs its plain
     version."""
-    from cachedembedding_tpu_torch.ops.binned_scatter import binned_scatter_add, binned_sgd_update
+    from cachedembedding_tpu_torch.ops.binned_scatter import (
+        binned_adagrad_update,
+        binned_scatter_add,
+        binned_sgd_update,
+    )
     from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+    from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_scatter_add_
     from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_sgd_round_
 
-    return {"gather_rows": gather_rows, "binned_sgd": binned_sgd_update,
+    return {"gather_rows": gather_rows, "binned_sgd": binned_sgd_update, "binned_adagrad": binned_adagrad_update,
             "binned_scatter_add": binned_scatter_add, "stochastic_round": stochastic_astype,
-            "stochastic_sgd_round": stochastic_sgd_round_}
+            "stochastic_sgd_round": stochastic_sgd_round_, "ordered_scatter_add": ordered_scatter_add_}
 
 
 def launch_counts() -> dict:

@@ -21,6 +21,7 @@ SOURCES = {
     "binned_sgd": _CSRC / "binned_sgd.cu",
     "binned_scatter_add": _CSRC / "binned_scatter_add.cu",
     "stochastic_round": _CSRC / "stochastic_round.cu",
+    "ordered_scatter_add": _CSRC / "ordered_scatter_add.cu",
 }
 HEADERS = [_CSRC / "row_runs.cuh"]  # part of every kernel's build hash
 
@@ -31,7 +32,7 @@ _PROTOTYPES = {
     "gather_rows": ("gather_rows", "gather_rows_launch", [_P, _P, _P, _I64, _I64, _I64, _P]),
     "binned_sgd": (
         "binned_sgd", "binned_sgd_launch",
-        [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
+        [_P, _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
     ),
     "binned_scatter_add": (
         "binned_scatter_add", "binned_scatter_add_launch",
@@ -44,6 +45,10 @@ _PROTOTYPES = {
     "stochastic_sgd_round": (
         "stochastic_round", "stochastic_sgd_round_launch",
         [_P, _P, _I64, ctypes.c_float, ctypes.c_uint32, ctypes.c_int, _P],
+    ),
+    "ordered_scatter_add": (
+        "ordered_scatter_add", "ordered_scatter_add_launch",
+        [_P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
     ),
 }
 

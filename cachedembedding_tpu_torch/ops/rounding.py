@@ -20,11 +20,15 @@ uniforms with threefry (CPU) or the TPU's generator, so the random bits are
 not JAX's: the tests hand JAX's uniforms to ``sr_from_uniform``.
 
 ``astype_storage`` is ``jnp.astype`` bit for bit (NaN inputs stay NaN, in
-whatever encoding). torch's own cast to float8_e4m3fn saturates values that
-round beyond +-448 (and +-inf) to +-448; JAX (ml_dtypes) gives NaN, and so
-does ``astype_storage``. ``index_copy_storage_`` writes rows through it; fp8
-rows go through a ``torch.uint8`` view, because ``index_copy_`` on fp8
-tensors is missing on the CPU.
+whatever encoding): round to nearest even, and beyond the largest finite
+value what ml_dtypes gives. torch's own cast to float8_e4m3fn saturates
+values that round beyond +-448 (and +-inf) to +-448; JAX gives NaN, and so
+does ``astype_storage``. For float8_e5m2, |x| >= 61,440 (the midpoint above
+57,344, which ties to even onto inf) gives +-inf, as in JAX; torch's CPU
+cast agrees there, and ``astype_storage`` sets those codes itself so that no
+device's cast can saturate them. ``index_copy_storage_`` writes rows through
+it; fp8 rows go through a ``torch.uint8`` view, because ``index_copy_`` on
+fp8 tensors is missing on the CPU.
 
 On a CPU tensor ``stochastic_astype`` runs the plain PyTorch version; on a
 CUDA tensor it launches the kernel or raises. torch has no uint32
@@ -52,6 +56,7 @@ _BITS = {
     torch.float8_e5m2: (torch.uint8, 1 << 7, 0xFF),
 }
 _E4M3_NAN_ABOVE = 464.0  # |x| > 464 rounds past 448 (0x7E) onto NaN (0x7F)
+_E5M2_INF_FROM = 61440.0  # |x| >= 61440 rounds past 57344 (0x7B) onto inf (0x7C)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 
@@ -235,14 +240,26 @@ stochastic_sgd_round_.launches = 0
 
 def astype_storage(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """``x.astype(dt)`` as JAX computes it, bit for bit for every input but
-    NaN (which stays a NaN): round to nearest even, and for float8_e4m3fn
-    NaN (0x7F, signed) where x rounds past +-448 (|x| > 464, +-inf)."""
+    NaN (which stays a NaN): round to nearest even; for float8_e4m3fn NaN
+    (0x7F, signed) where x rounds past +-448 (|x| > 464, +-inf), for
+    float8_e5m2 inf (0x7C, signed) where it rounds past +-57344."""
     y = x.to(dt)
-    if dt != torch.float8_e4m3fn:
+    if dt == torch.float8_e4m3fn:
+        over, code = x.float().abs() > _E4M3_NAN_ABOVE, 0x7F
+    elif dt == torch.float8_e5m2:
+        over, code = x.float().abs() >= _E5M2_INF_FROM, 0x7C
+    else:
         return y
-    over = x.float().abs() > _E4M3_NAN_ABOVE
-    nan_code = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.int32)
-    return _from_bits(torch.where(over, nan_code, _bits_of(y)), dt)
+    signed = torch.where(torch.signbit(x), 0x80 | code, code).to(torch.int32)
+    return _from_bits(torch.where(over, signed, _bits_of(y)), dt)
+
+
+def index_select_f32(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``src[index]`` widened to f32 (exactly); 1-byte rows are selected
+    through a uint8 view, as ``index_copy_storage_`` writes them."""
+    if src.element_size() == 1:
+        return src.view(torch.uint8).index_select(0, index).view(src.dtype).float()
+    return src.index_select(0, index).float()
 
 
 def index_copy_storage_(dst: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

@@ -8,17 +8,23 @@ the same defaults.
 It runs on the current CUDA device; ``--platform cpu`` runs it on the CPU
 (without it and with no GPU it raises). With no ``--dataset_dir`` it trains on
 procedural long-tail batches. Without ``--use_cache`` the whole table lives on
-the device (``baselines/full_resident.py``, f32 rows). Flags that name a
-multi-device layout, and options the port does not run yet, raise
-``NotImplementedError`` naming their ROADMAP item. ``--profile_dir`` writes a
-``torch.profiler`` trace there; ``--memory_fraction`` caps this process's
-share of device memory; ``--pin_memory`` and ``--use_overlap`` are accepted
-(host payloads are pinned, and staging overlaps the device's steps, always).
+the device (``baselines/full_resident.py``, f32 rows), with its row-wise
+Adagrad accumulators under ``--embedding_optimizer rowwise_adagrad`` (the
+JAX CLI builds its resident table without them, so there it trains with
+SGD). ``--cache_dtype`` also takes ``float8_e5m2``, which the JAX trainer
+stores but the JAX CLI does not offer. Flags that name a multi-device layout,
+and options the port does not run yet, raise ``NotImplementedError`` naming
+their ROADMAP item; with ``--world_size`` unset and several GPUs visible, it
+says on stderr that it trains on one (the JAX CLI would use them all).
+``--profile_dir`` writes a ``torch.profiler`` trace there;
+``--memory_fraction`` caps this process's share of device memory;
+``--pin_memory`` and ``--use_overlap`` are accepted (host payloads are
+pinned, and staging overlaps the device's steps, always).
 
 Besides the JAX CLI's lines it prints, on stderr, ``run stats: {json}``: the
 kernel launches, the table's fill seconds, the frequency map's seconds, host
-and device seconds a window, the update plans' host ms a step, and the peak
-device memory.
+and device seconds a window, the update plans' host ms a step, the peak
+device memory, and under row-wise Adagrad the rows whose accumulator grew.
 """
 
 from __future__ import annotations
@@ -73,8 +79,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--prefetch_num", type=int, default=8, help="far-sighted prefetch window depth")
     p.add_argument("--transfer_dtype", choices=["float32", "bfloat16", "int8", "int4"], default="float32",
                    help="host<->device row payload dtype (int8/int4: ROADMAP Queue 1 item 4)")
-    p.add_argument("--cache_dtype", choices=["float32", "bfloat16", "float8_e4m3fn"], default="bfloat16",
-                   help="device cache-row storage dtype")
+    p.add_argument("--cache_dtype", choices=["float32", "bfloat16", "float8_e4m3fn", "float8_e5m2"],
+                   default="bfloat16", help="device cache-row storage dtype")
     p.add_argument("--stochastic_rounding", choices=["auto", "on", "off"], default="auto",
                    help="stochastic rounding of cache-row updates (auto = on for fp8 rows)")
     p.add_argument("--planner", choices=["auto", "host", "device"], default="auto",
@@ -101,10 +107,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torch device type to run on: cuda (default) or cpu")
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--embedding_optimizer", choices=["sgd", "rowwise_adagrad"], default="sgd",
-                   help="embedding-table optimizer (rowwise_adagrad: ROADMAP Queue 1 item 7)")
+                   help="embedding-table optimizer; rowwise_adagrad state tiers with the cache")
     p.add_argument("--adagrad_eps", type=float, default=1e-10)
     p.add_argument("--use_sparse_embed_grad", action="store_true",
-                   help="scatter-add sparse embedding gradient (ROADMAP Queue 1 item 7)")
+                   help="force the sparse-gradient update (the ordered scatter-add in the rows' dtype); "
+                        "otherwise taken where the device rows exceed 4x a step's ids")
     return p.parse_args(argv)
 
 
@@ -120,14 +127,22 @@ def refuse_outside_port(args) -> None:
     for bad, flag in refusals:
         if bad:
             raise NotImplementedError(f"{flag}: multi-device training is ROADMAP Queue 1 item 9")
-    if args.embedding_optimizer != "sgd":
-        raise NotImplementedError(f"--embedding_optimizer {args.embedding_optimizer} is ROADMAP Queue 1 item 7")
-    if args.use_sparse_embed_grad:
-        raise NotImplementedError("--use_sparse_embed_grad is ROADMAP Queue 1 item 7")
     if args.transfer_dtype in ("int8", "int4"):
         raise NotImplementedError(f"--transfer_dtype {args.transfer_dtype} is ROADMAP Queue 1 item 4")
     if args.planner == "device":
         raise NotImplementedError("--planner device is ROADMAP Queue 1 item 11")
+
+
+def note_single_card(args) -> None:
+    """With ``--world_size`` unset the JAX CLI trains on every visible
+    device; this port trains on one: say so, in one line on stderr."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if args.world_size is None and n > 1:
+        print(f"note: {n} CUDA devices are visible and --world_size is unset: this port trains on one card, "
+              "where the JAX CLI would use every visible device (multi-device training is ROADMAP Queue 1 "
+              "item 9)", file=sys.stderr)
 
 
 def build_config(args):
@@ -251,6 +266,7 @@ def build_trainer(args, cfg, freq, device):
     embed = FullyResidentEmbeddingBag(
         cfg.total_num_embeddings, cfg.embedding_dim,
         table_sizes=cfg.num_embeddings_per_feature, seed=cfg.seed, device=device,
+        optimizer=cfg.embedding_optimizer, adagrad_initial=cfg.adagrad_initial,
     )
     return CachedDLRMTrainer(cfg, embed_override=embed)
 
@@ -267,6 +283,7 @@ def main(argv=None) -> None:
 
     args = parse_args(argv)
     refuse_outside_port(args)
+    note_single_card(args)
     device = resolve_platform(args)
     if device.type == "cuda":
         if args.memory_fraction is not None:
@@ -377,6 +394,14 @@ def main(argv=None) -> None:
         "plan_host_ms_per_step": 1e3 * sum(x for r in reports for x in r.window_plan_s) / max(steps, 1),
         "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
     }
+    if trainer.embed.cache_accum is not None:
+        # row-wise Adagrad: rows whose accumulator grew, on the device and,
+        # written back on eviction, in the host store
+        stats["accum_positive_device_rows"] = int((trainer.embed.cache_accum > 0).sum())
+        host = getattr(trainer.embed, "host_accum", None)
+        if host is not None:
+            st = host.save_state()
+            stats["accum_positive_host_rows"] = int((st["arr" if st["kind"] == "dense" else "vals"] > 0).sum())
     print(f"run stats: {json.dumps(stats)}", file=sys.stderr)
 
 

@@ -13,31 +13,43 @@ are planned once by the host directory. Per window, in order:
      the (B, F, D) layout, in the cache's storage dtype;
   4. the dense forward and backward run, with the gradient taken with respect
      to the gathered rows;
-  5. the row gradients are cast to the cache dtype;
-  6. Kernel 2 (``ops/binned_scatter.py``) applies the update in place, from a
-     bin-grouping plan the host computed for the step;
-  7. dense SGD follows.
+  5. the update runs in place on the cache rows, from a row-sorted plan the
+     host computed for the step (``ops/binned_scatter.sort_plan_np``);
+  6. dense SGD follows.
 
-DLRM trains on logits (BCE with logits), DeepFM on its probabilities (BCE
-on probabilities); ``evaluate`` scores the sigmoid of DLRM's logits and
-DeepFM's probabilities as they are. ``embed_override`` swaps the cache for any
-embedding that speaks the same staging protocol, such as the fully resident
-table of ``baselines/full_resident.py``.
+The update follows the branch that the JAX trainer's ``_scan_window`` takes
+for the window (``update_branch``, JAX's dispatch rule):
 
-The JAX package's ``ship_sort_perm`` picks between its update paths; all of
-them compute ``cw.at[ids].add(-slr * g)`` with f32 duplicate sums and one
-rounding, which is Kernel 2, so the port takes Kernel 2 whichever way the
-flag is set. With ``ship_sort_perm=False`` JAX differentiates w.r.t. the rows
-in the storage dtype (bf16 grads) and upcasts each addend to f32 inside its
-scatter-add; the port casts the grads to the storage dtype and sums them in
-f32 in Kernel 2: the same addends, summed in another order.
+  * **plan** (``ship_sort_perm``): the grads w.r.t. the rows in their storage
+    dtype, cast to it; SGD sums them in f32 and rounds each row once
+    (Kernel 2, ``binned_sgd_update``);
+  * **sparse** (no Adagrad, no stochastic rounding, and
+    ``use_sparse_embed_grad`` or more device rows than 4x the step's ids):
+    JAX computes ``cw.at[v].add((-slr * g).astype(cw.dtype))``, which adds
+    **in the storage dtype**, one rounding per addend, in stream order, with
+    the grads w.r.t. the storage-dtype rows. For bf16 and fp8 rows the port
+    runs that function, bit for bit (Kernel 5, ``ops/ordered_scatter.py``);
+    for f32 rows, where it equals Kernel 2's up to the order of the f32 sums,
+    Kernel 2 (so the fully resident table, f32 rows and 4x its step's ids
+    many times over, keeps Kernel 2). Criteo-1TB at ``--cache_ratio 0.01``
+    takes this branch on bf16 rows;
+  * **dense** (otherwise): the grads in f32 where JAX upcasts the rows before
+    differentiating (fp8 rows, pooling > 1), else in the storage dtype,
+    summed in f32, one rounding per row (Kernel 2).
+
+Row-wise Adagrad (``embedding_optimizer="rowwise_adagrad"``, never the
+sparse branch) runs Kernel 2's Adagrad epilogue (``binned_adagrad_update``):
+each touched row's accumulator grows by the mean square of its f32 sum, and
+the row moves by ``slr * s / (sqrt(acc) + eps)``, one rounding; the (C, D)
+grad that JAX builds is never made. The accumulators tier with the cache
+(``cache/manager.py``).
 
 With stochastic rounding on (fp8 rows by default, ``CacheConfig.
-rounds_stochastically``) and rows narrower than f32, steps 3-6 take the JAX
-package's rounding branch
-(``_scan_window``): the rows are upcast to f32 before the gradient is taken,
-the row gradients go to bf16 (or the storage dtype, if wider), Kernel 3
-builds the (C, D) f32 grad from the same plan, and Kernel 4's fused entry
+rounds_stochastically``) and rows narrower than f32, the update is the JAX
+package's rounding branch: the rows are upcast to f32 before the gradient is
+taken, Kernel 3 builds the (C, D) f32 grad from the same plan (from bf16
+grads for fp8 rows on the plan branch, as JAX casts them, else f32),
+Adagrad (if on) scales it in place, and Kernel 4's fused entry
 (``ops/rounding.stochastic_sgd_round_``) forms ``cw - slr * g`` in f32
 registers and rounds it stochastically back into the cache with a per-step
 seed. For f32 rows that branch reduces to ``cw - slr * g`` (rounding to f32
@@ -60,20 +72,22 @@ import numpy as np
 import torch
 
 from cachedembedding_tpu_torch import resolve_device
-from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, CachedEmbeddingBag, WindowStaging
+from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, OPTIMIZERS, CachedEmbeddingBag, WindowStaging
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
 from cachedembedding_tpu_torch.jagged import Batch, concat_uniform_values
 from cachedembedding_tpu_torch.models.deepfm import DeepFM, bce_probs
 from cachedembedding_tpu_torch.models.dlrm import DLRM, bce_with_logits
 from cachedembedding_tpu_torch.ops.binned_scatter import (
+    binned_adagrad_update,
     binned_scatter_add,
     binned_sgd_update,
     sort_plan_np,
 )
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-from cachedembedding_tpu_torch.ops.rounding import stochastic_sgd_round_
+from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_scatter_add_
+from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sgd_round_
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
 _EVAL_READBACK_STEPS = 32  # eval scores stay on the device this many steps
@@ -87,31 +101,40 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
     the port does not run yet (the cache's storage options only where the
     cache is used)."""
     c = cfg.cache
-    fp8 = cached and c.cache_dtype.startswith("float8")
     if cfg.model not in ("dlrm", "deepfm"):
         raise ValueError(f"unknown model {cfg.model!r}")
+    if cfg.embedding_optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown embedding_optimizer {cfg.embedding_optimizer!r}")
+    if cached and c.cache_dtype not in CACHE_DTYPES:
+        raise ValueError(f"cache_dtype={c.cache_dtype!r}: the cache stores {', '.join(CACHE_DTYPES)} rows")
     refusals = [
         (cfg.interaction_impl != "bmm", "interaction_impl='gather' is ROADMAP Queue 1 item 3"),
         (tuple(cfg.mesh_shape) != (1,) or cfg.use_tablewise,
          "the mesh (data/model parallel) is ROADMAP Queue 1 item 9"),
-        (cfg.embedding_optimizer != "sgd", "rowwise_adagrad is ROADMAP Queue 1 item 7"),
-        (cfg.use_sparse_embed_grad, "use_sparse_embed_grad is ROADMAP Queue 1 item 7"),
         (cfg.compute_dtype not in _FLOAT_DTYPES, f"compute_dtype={cfg.compute_dtype!r} is not supported"),
         (cfg.dense_input_dtype not in _FLOAT_DTYPES,
          f"dense_input_dtype={cfg.dense_input_dtype!r}: int8/int4 dense inputs are ROADMAP Queue 1 item 8"),
         (c.transfer_dtype not in _FLOAT_DTYPES,
          f"transfer_dtype={c.transfer_dtype!r}: int8/int4 transfers are ROADMAP Queue 1 item 4"),
-        (cached and c.cache_dtype not in CACHE_DTYPES,
-         f"cache_dtype={c.cache_dtype!r}: storage dtypes other than float32, bfloat16 and "
-         "float8_e4m3fn are ROADMAP Queue 1 item 7"),
-        (fp8 and not c.rounds_stochastically,
-         "fp8 cache rows with stochastic_rounding='off' (the fused update on fp8 grads) "
-         "are ROADMAP Queue 1 item 7"),
         (c.planner == "device", "the device planner is ROADMAP Queue 1 item 11"),
     ]
     for bad, msg in refusals:
         if bad:
             raise NotImplementedError(msg)
+
+
+def update_branch(cfg: DLRMConfig, adagrad: bool, device_rows: int, ids_per_step: int) -> str:
+    """The JAX trainer's update branch for a uniform window ("plan", "sparse"
+    or "dense"): the plan branch where the host ships sort plans, else the
+    sparse-gradient branch where ``accum is None and (use_sparse_embed_grad
+    or device_rows > 4 * L) and not sr`` (its ``_dispatch_window``), else the
+    dense branch."""
+    if cfg.cache.ship_sort_perm:
+        return "plan"
+    if (not adagrad and (cfg.use_sparse_embed_grad or device_rows > 4 * ids_per_step)
+            and not cfg.cache.rounds_stochastically):
+        return "sparse"
+    return "dense"
 
 
 @dataclasses.dataclass
@@ -179,9 +202,14 @@ class CachedDLRMTrainer:
             transfer_dtype=c.transfer_dtype,
             device=self.device,
             resident_tables=resident,
+            optimizer=cfg.embedding_optimizer,
+            adagrad_initial=cfg.adagrad_initial,
         )
         if self.embed.device != self.device:
             raise ValueError(f"embed_override lives on {self.embed.device}, the trainer on {self.device}")
+        if self.embed.optimizer != cfg.embedding_optimizer:
+            raise ValueError(f"the embedding trains with {self.embed.optimizer!r}, the config "
+                             f"asks for {cfg.embedding_optimizer!r}")
         compute_dtype = _FLOAT_DTYPES[cfg.compute_dtype]
         if cfg.model == "deepfm":
             self.model = DeepFM(
@@ -272,20 +300,59 @@ class CachedDLRMTrainer:
         """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype."""
         return gather_rows(self.embed.cache_weight, win.slot_ids[p], self.cfg.num_sparse_features)
 
-    def _sr_update(self, cw, g_rows, perm, grouped, bins, slr: float, seed: int) -> None:
+    def branch_of(self, win: _Window) -> str:
+        """The JAX trainer's update branch for ``win`` (``update_branch``)."""
+        return update_branch(self.cfg, self.embed.cache_accum is not None, self._device_rows(),
+                             win.slot_ids.shape[1])
+
+    def _upcasts(self, branch: str, cw: torch.Tensor, pooling: int) -> bool:
+        """Whether the gradient is taken w.r.t. the f32 upcast of the rows:
+        under stochastic rounding, on the dense branch where JAX upcasts
+        (fp8 rows, pooling > 1), and for fp8 rows always (torch takes no
+        grad w.r.t. an fp8 leaf; the plan and sparse branches cast it to the
+        rows' dtype as JAX's grad w.r.t. the storage-dtype rows is)."""
+        return self._sr or cw.element_size() == 1 or (branch == "dense" and pooling > 1)
+
+    def _sr_update(self, cw, g_rows, perm, grouped, bins, slr: float, seed: int, branch: str = "plan") -> None:
         """The rounding branch's update of one step, in place on ``cw``:
-        Kernel 3 builds the (C, D) f32 grad, and Kernel 4's fused entry forms
-        ``cw - slr * g`` in registers and rounds it stochastically into
-        ``cw`` (bf16 and fp8 rows), with no f32 copy of ``cw``. f32 rows take
-        ``cw - slr * g`` as it is."""
-        # fp8 grads would flush the sub-ulp updates the rounding preserves;
-        # bf16 keeps f32's exponent range at half the bytes
-        gdt = torch.bfloat16 if cw.element_size() == 1 else cw.dtype
+        Kernel 3 builds the (C, D) f32 grad (from bf16 grads for fp8 rows on
+        the plan branch, as JAX casts them there, else from the f32 grads),
+        row-wise Adagrad scales it in place (torch ops, JAX's formula), and
+        Kernel 4's fused entry forms ``cw - slr * g`` in registers and rounds
+        it stochastically into ``cw`` (bf16 and fp8 rows), with no f32 copy
+        of ``cw``. f32 rows take ``cw - slr * g`` as it is."""
+        if branch == "plan":
+            # fp8 grads would flush the sub-ulp updates the rounding preserves;
+            # bf16 keeps f32's exponent range at half the bytes
+            gdt = torch.bfloat16 if cw.element_size() == 1 else cw.dtype
+        else:
+            gdt = torch.float32
         g32 = binned_scatter_add(g_rows.to(gdt), perm, grouped, bins, cw.shape[0])
+        acc = self.embed.cache_accum
+        if acc is not None:
+            acc.add_(torch.mean(g32 * g32, dim=1))
+            g32.div_((torch.sqrt(acc) + self.cfg.adagrad_eps)[:, None])
         if cw.dtype == torch.float32:
             cw.sub_(g32, alpha=slr)
         else:
             stochastic_sgd_round_(cw, g32, slr, seed)
+
+    def _update(self, cw, g_rows, perm, grouped, bins, slr: float, branch: str) -> None:
+        """The update of one step without stochastic rounding, in place on
+        ``cw`` (and the accumulators): the branch's grads, then Kernel 5 on
+        the sparse branch's bf16 and fp8 rows, Kernel 2's Adagrad epilogue
+        under row-wise Adagrad, else Kernel 2's SGD epilogue."""
+        if branch == "dense" and g_rows.dtype == torch.float32:
+            g = g_rows  # JAX sums the f32 grads of the upcast rows
+        else:  # the grads w.r.t. the storage-dtype rows, as JAX rounds them
+            g = g_rows if g_rows.dtype == cw.dtype else astype_storage(g_rows, cw.dtype)
+        acc = self.embed.cache_accum
+        if branch == "sparse" and cw.dtype != torch.float32:
+            ordered_scatter_add_(cw, g, perm, grouped, slr)
+        elif acc is not None:
+            binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, self.cfg.adagrad_eps)
+        else:
+            binned_sgd_update(cw, g, perm, grouped, bins, slr)
 
     def _dispatch_window(self, win: _Window, progresses: List[float]) -> torch.Tensor:
         """Land the admits and enqueue every step of the window. Returns the
@@ -294,14 +361,14 @@ class CachedDLRMTrainer:
         cw = self.embed.cache_weight
         perms, groupeds, bins = win.plan
         B = win.labels.shape[1]
+        branch = self.branch_of(win)
+        upcast = self._upcasts(branch, cw, win.slot_ids.shape[1] // (B * self.cfg.num_sparse_features))
         params = list(self.model.parameters())
         losses = []
         for p, progress in enumerate(progresses):
             slr, dlr = self._lrs(progress)
             rows = self._gathered_rows(win, p)
-            if self._sr:
-                # differentiate w.r.t. the f32 upcast: a grad taken w.r.t.
-                # fp8 rows would be rounded through fp8
+            if upcast:
                 rows = rows.float()
             rows.requires_grad_(True)
             sparse = pool_uniform(rows, B, self.cfg.reduction_mode)
@@ -310,9 +377,9 @@ class CachedDLRMTrainer:
             g_rows = rows.grad.reshape(-1, cw.shape[1])
             if self._sr:
                 seed = (self._step_idx * _SEED_MUL + p) & _M32
-                self._sr_update(cw, g_rows, perms[p], groupeds[p], bins[p], slr, seed)
+                self._sr_update(cw, g_rows, perms[p], groupeds[p], bins[p], slr, seed, branch)
             else:
-                binned_sgd_update(cw, g_rows.to(cw.dtype), perms[p], groupeds[p], bins[p], slr)
+                self._update(cw, g_rows, perms[p], groupeds[p], bins[p], slr, branch)
             with torch.no_grad():
                 for prm in params:
                     prm.sub_(prm.grad * dlr)

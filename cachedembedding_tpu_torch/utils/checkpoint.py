@@ -9,10 +9,19 @@ either package reads the other's checkpoints:
                      the fully resident table read off the device), or
   overlay.npz        for a virtual host table, only its written rows
                      (``rows``, ``vals``)
+  accum.npy          row-wise Adagrad: the (N,) f32 accumulators (a dense
+                     host table, or the fully resident table's, read off the
+                     device), or
+  accum.npz          for a virtual host table, the written rows' (``rows``,
+                     ``vals``)
 
-Saving flushes the cache first. Loading restores the dense weights and the
-table; the cache is derived state and warms again from the id-frequency map
-as at a cold start (``CachedEmbeddingBag.reset_cache``).
+Saving flushes the cache first. Loading restores the dense weights, the table
+and the accumulators; the cache is derived state and warms again from the
+id-frequency map as at a cold start (``CachedEmbeddingBag.reset_cache``),
+its warm rows carrying their restored accumulators. As in the JAX package, a
+checkpoint's accumulators are read only by an Adagrad trainer, and an
+Adagrad trainer that loads a checkpoint without them starts them at
+``adagrad_initial``.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import numpy as np
 import torch
 
 from cachedembedding_tpu_torch.baselines.full_resident import FullyResidentEmbeddingBag
-from cachedembedding_tpu_torch.cache.host_table import DenseHostTable, VirtualHostTable
+from cachedembedding_tpu_torch.cache.host_table import DenseAccumStore, DenseHostTable, VirtualHostTable
 from cachedembedding_tpu_torch.models import deepfm, dlrm
 from cachedembedding_tpu_torch.ops.rounding import astype_storage
 
@@ -78,6 +87,8 @@ def save_checkpoint(path: str, trainer, extra: Optional[Dict[str, Any]] = None) 
         out.flush()
         del out
         table_kind = "dense"
+        if embed.cache_accum is not None:
+            np.save(os.path.join(path, "accum.npy"), embed.cache_accum.cpu().numpy())
     elif isinstance(embed.host_table, DenseHostTable):
         np.save(os.path.join(path, "host_table.npy"), embed.host_table.array)
         table_kind = "dense"
@@ -88,10 +99,16 @@ def save_checkpoint(path: str, trainer, extra: Optional[Dict[str, Any]] = None) 
         table_kind = "virtual"
     else:
         raise TypeError(f"unknown host table {type(embed.host_table)}")
+    if getattr(embed, "host_accum", None) is not None:
+        st = embed.host_accum.save_state()
+        if st["kind"] == "dense":
+            np.save(os.path.join(path, "accum.npy"), st["arr"])
+        else:
+            np.savez(os.path.join(path, "accum.npz"), rows=st["rows"], vals=st["vals"])
     meta = {
         "format_version": FORMAT_VERSION,
         "step": trainer._step_idx,
-        "optimizer": trainer.cfg.embedding_optimizer,
+        "optimizer": embed.optimizer,
         "table_kind": table_kind,
         "num_embeddings": embed.num_embeddings,
         "embedding_dim": embed.embedding_dim,
@@ -112,8 +129,6 @@ def load_checkpoint(path: str, trainer) -> int:
     if (meta["num_embeddings"], meta["embedding_dim"]) != (embed.num_embeddings, embed.embedding_dim):
         raise ValueError(f"checkpoint table {meta['num_embeddings']} x {meta['embedding_dim']}, trainer "
                          f"{embed.num_embeddings} x {embed.embedding_dim}")
-    if meta.get("optimizer", "sgd") != "sgd":
-        raise NotImplementedError(f"optimizer {meta['optimizer']!r}: rowwise_adagrad state is ROADMAP Queue 1 item 7")
 
     module = _model_module(trainer)
     flat = dict(np.load(os.path.join(path, "dense_params.npz")))
@@ -129,20 +144,48 @@ def load_checkpoint(path: str, trainer) -> int:
         for s in range(0, arr.shape[0], _ROWS_PER_COPY):
             rows = embed.to_device(np.array(arr[s : s + _ROWS_PER_COPY]))  # a writable copy
             embed.cache_weight[s : s + rows.shape[0]] = astype_storage(rows, embed.dtype)
-    elif kind == "dense":
-        ht = embed.host_table
-        if not isinstance(ht, DenseHostTable):
-            raise ValueError("a dense checkpoint table into a virtual host table")
-        np.copyto(ht.array, np.load(os.path.join(path, "host_table.npy"), mmap_mode="r"))
-        ht.mark_all_written()  # restored values are arbitrary: no row holds its init
-        embed.reset_cache()
+        _load_accum(path, embed)
     else:
         ht = embed.host_table
-        if not isinstance(ht, VirtualHostTable):
-            raise ValueError("a virtual checkpoint table into a dense host table")
-        ov = np.load(os.path.join(path, "overlay.npz"))
-        if ov["rows"].size:
-            ht.scatter(ov["rows"], ov["vals"])
+        if kind == "dense":
+            if not isinstance(ht, DenseHostTable):
+                raise ValueError("a dense checkpoint table into a virtual host table")
+            np.copyto(ht.array, np.load(os.path.join(path, "host_table.npy"), mmap_mode="r"))
+            ht.mark_all_written()  # restored values are arbitrary: no row holds its init
+        else:
+            if not isinstance(ht, VirtualHostTable):
+                raise ValueError("a virtual checkpoint table into a dense host table")
+            ov = np.load(os.path.join(path, "overlay.npz"))
+            if ov["rows"].size:
+                ht.scatter(ov["rows"], ov["vals"])
+        _load_accum(path, embed)  # before the cache warms, so that warm rows carry theirs
         embed.reset_cache()
     trainer._step_idx = meta["step"]
     return meta["step"]
+
+
+def _load_accum(path: str, embed) -> None:
+    """Row-wise Adagrad accumulators from ``accum.npy`` or ``accum.npz`` into
+    an Adagrad embedding (its host store, or the resident table's device
+    array); nothing for an SGD embedding."""
+    if embed.cache_accum is None:
+        return
+    npy, npz = os.path.join(path, "accum.npy"), os.path.join(path, "accum.npz")
+    if os.path.exists(npy):
+        arr = np.load(npy, mmap_mode="r")
+        if arr.shape != (embed.num_embeddings,):
+            raise ValueError(f"checkpoint accumulators of shape {arr.shape}, table of {embed.num_embeddings} rows")
+        if isinstance(embed, FullyResidentEmbeddingBag):
+            embed.cache_accum.copy_(torch.from_numpy(np.array(arr)))
+        elif isinstance(embed.host_accum, DenseAccumStore):
+            np.copyto(embed.host_accum.arr, arr)
+        else:
+            raise ValueError("dense accumulators (accum.npy) into a virtual table's store")
+    elif os.path.exists(npz):
+        z = np.load(npz)
+        if z["rows"].size:
+            if isinstance(embed, FullyResidentEmbeddingBag):
+                embed.cache_accum[torch.from_numpy(z["rows"]).to(embed.device)] = torch.from_numpy(
+                    np.asarray(z["vals"], np.float32).reshape(-1)).to(embed.device)
+            else:
+                embed.host_accum.scatter(z["rows"], z["vals"])

@@ -9,18 +9,30 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
   1. Build: the host C++ library (g++) and each CUDA kernel (nvcc, sm_90a),
      all started together, from the sources in the checkout into
      ``cachedembedding_tpu_torch/build/``.
-  2. Reference: two small slices, each trained 6 windows and evaluated on the
-     card and on the CPU (the kernels' plain versions) from the same seed,
-     through a cache of 480 slots that evicts trained rows and admits them
-     again (which holds the writeback ordering to account):
-       a. f32 rows and compute (Kernels 1, 2): cache counts equal; losses,
-          AUROC and dense weights within f32 order; the flushed rows of every
-          id the training stream touched within 1e-5;
-       b. float8_e4m3fn rows with stochastic rounding, f32 compute (Kernels 1,
-          3, 4; kernel and plain version draw the same Philox bits): counts
-          equal; losses within rtol 1e-3; at least 99.9% of the flushed
-          elements equal and every one within 2 e4m3 steps (the f32 GEMMs
-          sum in another order on the card, which can flip a rounding).
+  2. Reference: six small slices (REFERENCE_SLICES), each trained 6
+     windows and evaluated on the card and on the CPU (the kernels' plain
+     versions) from the same seed, through a cache of 480 slots that evicts
+     trained rows and admits them again (which holds the writeback ordering
+     to account), f32 compute; the card's run must launch its update
+     kernels once a step and no other:
+       a. f32 rows (Kernels 1, 2): cache counts equal; losses, AUROC and
+          dense weights within f32 order; the flushed rows of every id the
+          training stream touched within 1e-5;
+       b. float8_e4m3fn rows with stochastic rounding (Kernels 1, 3, 4;
+          kernel and plain version draw the same Philox bits): counts equal;
+          losses within rtol 1e-3; at least 99.9% of the flushed elements
+          equal and every one within 2 e4m3 steps (the f32 GEMMs sum in
+          another order on the card, which can flip a rounding);
+       c. row-wise Adagrad on f32 rows (Kernel 2's Adagrad epilogue), at
+          learning rate 0.1: the gates of (a), and the flushed accumulators
+          within rtol 1e-4;
+       d. the sparse-gradient branch on bf16 rows (use_sparse_embed_grad,
+          no sort plans shipped; the ordered scatter): the gates of (b) in
+          bf16 steps (both devices add the same addends in the same order;
+          an f32 GEMM difference can flip a grad's bf16 rounding);
+       e. float8_e4m3fn rows with rounding off (Kernel 2 on fp8 grads) and
+       f. float8_e5m2 rows with rounding on (Kernels 3, 4): the gates of (b)
+          in steps of the rows' dtype.
   3. The bf16 slice: bench.py's headline configuration (Criteo-Kaggle
      tables, D=128, batch 16,384, 1% cache, prefetch 8, bf16 rows and
      compute, resident tables <= 500k rows) with ship_sort_perm and the
@@ -43,7 +55,7 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      checked as in phase 3; its own launch counts; the device memory peak
      also read just before and after the first step's update (its inputs,
      which phase 6 reads, are kept in pinned host memory).
-  6. Kernels 1, 3 and 4 on the fp8 slice's first training step (its ids,
+  6. Kernels 1, 2, 3 and 4 on the fp8 slice's first training step (its ids,
      plan and row grads, and the cache rows before its update): the gather
      of 128-byte fp8 rows equal to index_select bit for bit (uint8 view);
      the binned scatter-add, and its plain version, each within 1e-5 of the
@@ -64,14 +76,26 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      and bf16 rows, at the step's slr and at 0.37, and on the ragged,
      misaligned case; the gate shown to reject two planted faults (u <= p in
      place of u < p, the Philox stream shifted by one word) on an input that
-     puts p on u for one element in 16.
+     puts p on u for one element in 16; Kernel 2 on float8_e4m3fn and
+     float8_e5m2 rows, with f32 grads and with grads in the rows' dtype
+     (``check_kernel2_fp8_rows``). Then one training window each of
+     float8_e4m3fn rows with rounding off and float8_e5m2 rows with
+     rounding on, at the slice's width, with their own launch counts
+     (``phase_fp8_windows``).
   7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
      prepare_ids then lookup over seeded ids that together exceed its
      capacity, equal to the host rows through the storage cast, pooled.
   8. Kernels 2 and 3 refuse a plan grouped by bin but not sorted by id (the
      JAX package's layout): each, in a child process started after the
      build, must stop with a device-side assert.
-  9. The command line (``cli``): a Criteo-Kaggle-format dataset written
+  9. The sparse-gradient branch at Criteo-1TB width (``1tb sparse``,
+     ``phase_terabyte``): terabyte.sh's configuration (26 tables,
+     177,944,275 rows, a 1% cache of 1,779,442 bf16 rows, more than 4x a
+     step's 425,984 ids) on a virtual host table, 24 steps, one evaluation
+     window and a flush; the ordered scatter launched once a step and no
+     other update kernel; then the ordered scatter on the first step
+     (``check_ordered_scatter``).
+  10. The command line (``cli``): a Criteo-Kaggle-format dataset written
      under ``cachedembedding_tpu_torch/build/`` (24 training and 4 val/test
      batches of 16,384 rows; long-tail raw values that ``% hash`` spreads
      over the Kaggle tables; learnable labels), then the users' command,
@@ -80,14 +104,20 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      D=128) with ``scripts/kaggle.sh``'s flags, 24 steps and 2 + 2
      evaluation batches: ``cli cached`` (bf16 cache rows), ``cli
      resident`` (no --use_cache: the 17.29 GB f32 table on the card) and
-     ``cli deepfm`` (at --learning_rate 0.1). Each must give finite
-     losses, val/test AUROC above 0.5 over 32,768 examples, a hit rate in
-     (0, 1] where it caches, Kernel 1 and 2 launches (one Kernel 2 launch a
-     step) and no others; the first
-     computes id_freq_map.npy and the others read it. Then Kernels 1 and 2
-     on the resident table's first training step, in this process (gates in
-     ``check_resident_kernels``), and a checkpoint round trip on small
-     tables (``check_checkpoint_round_trip``).
+     ``cli deepfm`` (at --learning_rate 0.1), ``cli adagrad`` and ``cli
+     adagrad resident`` (``--embedding_optimizer rowwise_adagrad
+     --learning_rate 0.1``, cached bf16 rows and the resident table with
+     its 135 MB of accumulators). Each must give finite losses, val/test
+     AUROC above 0.5 over 32,768 examples, a hit rate in (0, 1] where it
+     caches, Kernel 1 launches and one Kernel 2 launch a step (its Adagrad
+     epilogue under Adagrad) and no other; the Adagrad runs accumulators
+     above 0 on the card and, cached, written back to the host store on
+     eviction, with a hit rate below 1; the first computes id_freq_map.npy
+     and the others read it. Then Kernel 1, Kernel 2 and its Adagrad
+     epilogue on the resident table's first training step, in this process
+     (gates in ``check_resident_kernels`` and ``check_resident_adagrad``),
+     and checkpoint round trips on small tables, SGD and Adagrad
+     (``check_checkpoint_round_trip``).
 
 Phases 4 and 6 time each kernel beside its bound, its plain version and a
 PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
@@ -101,10 +131,15 @@ row, its runs that cross chunks, and the host time of its plan
 their own bound and the device time of the unfused chain it replaced.
 Phase 5 counts both of Kernel 4's entries: the fused one 24 times on the
 fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
-each kernel's launches on every path (the two slices and the three CLI
-runs, whose processes report their counts in their ``run stats`` line).
-Phase 9 adds Kernels 1 and 2's times on the resident table
-(``on_resident_table``).
+each kernel's launches on every path (the two slices, the two fp8 windows,
+the 1TB run and the five CLI runs, whose processes report their counts in
+their ``run stats`` line).
+Phase 10 adds Kernels 1 and 2's times on the resident table
+(``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 6
+Kernel 2's on fp8 rows (``on_fp8_rows``), and phase 9 the ordered scatter's
+(Kernel 5) with its heaviest run alone. Each kernel's ``launches`` are its
+main path's (MAIN_PATH), Kernel 2's summed over its two epilogues
+(``launches_by_entry``).
 Prints per-phase results, then the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
@@ -124,9 +159,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 ITERS = 10
 SLEEP_CYCLES_PER_MS = 2.0e6  # the SM clock is at most 1.98 GHz: this lasts at least 1 ms
 FP8 = "float8_e4m3fn"
-BF16_KERNELS = ("gather_rows", "binned_sgd")  # timed on the bf16 slice, the others on the fp8 one
+E5M2 = "float8_e5m2"
+# each kernel's main path: its launches in the kernels line are that path's
+MAIN_PATH = {"gather_rows": "bf16 slice", "binned_sgd": "bf16 slice", "binned_scatter_add": "fp8 slice",
+             "stochastic_round": "fp8 slice", "ordered_scatter_add": "1tb sparse"}
 # a kernel whose CUDA kernel two wrappers launch: its launches are both wrappers' counts
-KERNEL_ENTRIES = {"stochastic_round": ("stochastic_round", "stochastic_sgd_round")}
+KERNEL_ENTRIES = {"stochastic_round": ("stochastic_round", "stochastic_sgd_round"),
+                  "binned_sgd": ("binned_sgd", "binned_adagrad")}  # Kernel 2's SGD and Adagrad epilogues
+# the wrappers that update rows: a path must launch the ones it names and no other
+UPDATE_ENTRIES = ("binned_sgd", "binned_adagrad", "binned_scatter_add", "stochastic_round",
+                  "stochastic_sgd_round", "ordered_scatter_add")
 
 
 def log(msg: str) -> None:
@@ -207,6 +249,39 @@ def zero_launch_counts() -> None:
 
     for w in kernel_wrappers().values():
         w.launches = 0
+
+
+def check_update_launches(tag: str, launches: dict, steps: int, *entries: str) -> None:
+    """The path launched each update wrapper of ``entries`` once a training
+    step and no other (UPDATE_ENTRIES)."""
+    for e in UPDATE_ENTRIES:
+        want = steps if e in entries else 0
+        if launches[e] != want:
+            raise AssertionError(f"{tag} kernel {e} launched {launches[e]} times, expected {want}: {launches}")
+
+
+def check_flush(tr, tag: str) -> int:
+    """Flush the trainer's cache: sampled host rows (cache slots and the
+    resident region) must equal the cache rows they came from, and, under
+    row-wise Adagrad, their accumulators too. Returns the rows checked."""
+    import numpy as np
+    import torch
+
+    emb = tr.embed
+    emb.flush()
+    slots, rows = emb._dir.resident()
+    pick = np.random.default_rng(0).choice(slots.shape[0], min(4096, slots.shape[0]), replace=False)
+    res_pick = np.random.default_rng(1).choice(emb.resident_total, min(4096, emb.resident_total), replace=False)
+    addrs = np.concatenate([slots[pick].astype(np.int64), emb.capacity + res_pick])
+    host_rows = np.concatenate([rows[pick], emb._res_rows[res_pick]])
+    addrs_dev = torch.from_numpy(addrs).to(emb.device)
+    if not np.array_equal(emb.host_table.gather(host_rows), emb.cache_weight[addrs_dev].float().cpu().numpy()):
+        raise AssertionError(f"{tag} flushed host rows differ from their cache rows")
+    if emb.cache_accum is not None and not np.array_equal(emb.host_accum.gather(host_rows),
+                                                          emb.cache_accum[addrs_dev].cpu().numpy()):
+        raise AssertionError(f"{tag} flushed accumulators differ from their cache accumulators")
+    log(f"{tag} flush: {addrs.shape[0]} sampled rows equal their cache rows")
+    return addrs.shape[0]
 
 
 def phase_build() -> None:
@@ -856,6 +931,130 @@ def check_scalar_path(perm, grouped, bins, ids_nf, touched, slr) -> dict:
     return out
 
 
+def light_row_chunk(grouped, chunk: int):
+    """Stream positions of one whole chunk of ``chunk`` contributors inside
+    the lightest run of the sorted stream that holds one (at most 2 * chunk
+    - 1 contributors, so the chunk is at least half its sum)."""
+    import torch
+
+    _, counts = torch.unique_consecutive(grouped, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    s0 = (starts + chunk - 1) // chunk * chunk
+    whole = s0 + chunk <= starts + counts
+    if not bool(whole.any()):
+        raise AssertionError(f"no run of the stream holds a whole chunk of {chunk}")
+    r = int(torch.argmin(torch.where(whole, counts, torch.iinfo(counts.dtype).max)))
+    return slice(int(s0[r]), int(s0[r]) + chunk)
+
+
+def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
+    """Kernel 2 on the fp8 slice's first step (its rows before the update,
+    its ids and plan) with float8_e4m3fn and float8_e5m2 rows, each with f32
+    grads and with grads in the rows' dtype (1e-2 x |N(0, 1)|, seeded, so
+    that the sums do not cancel): untouched rows bit-equal, touched rows
+    within one step of the storage dtype of the plain version, two launches
+    bit-identical, and the gate shown to reject a planted fault (the lightest
+    run holding a whole chunk of ROW_CHUNK addends without it: at least half
+    its sum). Returns each case's times beside its bound."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import ROW_CHUNK, binned_sgd_update, binned_sgd_update_plain
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage, storage_steps
+
+    ids = win.slot_ids[0]
+    perm, grouped, bins = (a[0] for a in win.plan)
+    (C, D), L, device = cw0.shape, ids.shape[0], cw0.device
+    touched = torch.zeros(C, dtype=torch.bool, device=device)
+    touched[ids.long()] = True
+    n_touched = int(touched.sum())
+    gen = torch.Generator(device=device).manual_seed(2)
+    g32 = 1e-2 * torch.randn((L, D), generator=gen, device=device).abs()
+    fault = light_row_chunk(grouped, ROW_CHUNK)
+    out = {}
+    for name in (FP8, E5M2):
+        dt = getattr(torch, name)
+        cw = cw0 if cw0.dtype == dt else astype_storage(cw0.float(), dt)
+        u8 = cw.view(torch.uint8)
+        for gname, g in (("f32 grads", g32), (f"{name} grads", astype_storage(g32, dt))):
+            case = f"{name} rows, {gname}"
+            a = binned_sgd_update(cw.clone(), g, perm, grouped, bins, slr)
+            b = binned_sgd_update(cw.clone(), g, perm, grouped, bins, slr)
+            ref = binned_sgd_update_plain(cw.clone(), g, perm, grouped, bins, slr)
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"binned_sgd ({case}) is not deterministic across launches")
+            if not torch.equal(a.view(torch.uint8)[~touched], u8[~touched]):
+                raise AssertionError(f"binned_sgd ({case}) changed untouched rows")
+
+            def steps_off(x):
+                return storage_steps(x[touched].float(), ref[touched].float(), dt)
+
+            off = steps_off(a)
+            if int(off.max()) > 1:
+                raise AssertionError(f"binned_sgd ({case}): {int((off > 1).sum())} elements more than one "
+                                     f"{name} step off the plain version")
+            g_drop = g.clone()
+            g_drop[perm[fault].long()] = 0
+            if int(steps_off(binned_sgd_update_plain(cw.clone(), g_drop, perm, grouped, bins, slr)).max()) <= 1:
+                raise AssertionError(f"binned_sgd gate ({case}) passed a planted fault (a run without one chunk)")
+            cw_t = cw.clone()
+            out[case] = dict(
+                elements_one_step_off=int((off > 0).sum()), touched_rows=n_touched,
+                ms=median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
+                device_ms=device_median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
+                bound_ms=(L * D * g.element_size() + 2 * L * 4 + bins.numel() * 4
+                          + 2 * n_touched * D * cw.element_size()) / HBM_BYTES_PER_S * 1e3,
+            )
+            del a, b, ref, g_drop, cw_t
+    log(f"[kernel] binned_sgd on fp8 rows (e4m3fn, e5m2; f32 and storage-dtype grads): untouched rows "
+        f"bit-equal, touched within one step of the plain version, two launches bit-identical, the gate "
+        f"rejects the planted fault; {json.dumps(out)}")
+    return out
+
+
+def phase_fp8_windows(device) -> dict:
+    """One training window (prefetch_num steps) at the slices' full width
+    with float8_e4m3fn rows and stochastic rounding off (Kernel 2 on fp8
+    grads), and with float8_e5m2 rows and rounding on (auto; Kernels 3 and
+    4), each with the launch counts zeroed just before; then a flush.
+    Returns each path's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+
+    paths = {}
+    for path, dtype, sr, entries in (
+        ("e4m3fn rounding off", FP8, "off", ("binned_sgd",)),
+        ("e5m2 rounding on", E5M2, "auto", ("binned_scatter_add", "stochastic_sgd_round")),
+    ):
+        cfg = slice_config(dtype)
+        cfg.cache = dataclasses.replace(cfg.cache, stochastic_rounding=sr)
+        P, tag = cfg.cache.prefetch_num, f"[{path}]"
+        train = SyntheticLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, P, skew=0.5, seed=7)
+        tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
+        zero_launch_counts()
+        rep = tr.train(train, num_iters=P)
+        torch.cuda.synchronize()
+        paths[path] = launches = ops.launch_counts()
+        if len(rep.losses) != P or not np.isfinite(rep.losses).all():
+            raise AssertionError(f"{tag} losses not finite: {rep.losses}")
+        check_update_launches(tag, launches, P, *entries)
+        if launches["gather_rows"] != P:
+            raise AssertionError(f"{tag} kernel launches {launches}")
+        check_flush(tr, tag)
+        log(f"{tag} one window of {P} steps, losses {[round(x, 5) for x in rep.losses]}; host s "
+            f"{rep.window_host_s}, device s {rep.window_device_s}; kernel launches {launches}")
+        tr.close()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 UNSORTED_PLAN_KERNELS = ("binned_sgd", "binned_scatter_add")
 
 
@@ -910,42 +1109,62 @@ def finish_unsorted_plan_checks(procs: dict) -> None:
             f"with a device-side assert")
 
 
-def phase_reference(device, cache_dtype: str) -> None:
-    """The slice at a small width with f32 compute and ``cache_dtype`` rows,
-    once on the card (through the kernels) and once on the CPU (through their
-    plain versions), on the same seeded stream; the gates are in the module
-    docstring (phase 2). Six windows through a cache of 480 slots evict
-    trained rows and admit them again, so a writeback that read a slot out of
-    order (before the previous window's update, or after this window's
-    admits) would show."""
+# phase 2's small slices: name -> (cache rows, DLRMConfig fields, CacheConfig
+# fields, the update wrappers the card's run launches, once a step)
+REFERENCE_SLICES = {
+    "float32": ("float32", {}, {}, ("binned_sgd",)),
+    FP8: (FP8, {}, {}, ("binned_scatter_add", "stochastic_sgd_round")),
+    "adagrad float32": ("float32", {"embedding_optimizer": "rowwise_adagrad", "learning_rate": 0.1}, {},
+                        ("binned_adagrad",)),
+    "sparse bfloat16": ("bfloat16", {"use_sparse_embed_grad": True}, {"ship_sort_perm": False},
+                        ("ordered_scatter_add",)),
+    "float8_e4m3fn rounding off": (FP8, {}, {"stochastic_rounding": "off"}, ("binned_sgd",)),
+    "float8_e5m2 rounding on": (E5M2, {}, {}, ("binned_scatter_add", "stochastic_sgd_round")),
+}
+
+
+def phase_reference(device, name: str) -> dict:
+    """The slice ``name`` of REFERENCE_SLICES at a small width with f32
+    compute, once on the card (through the kernels) and once on the CPU
+    (through their plain versions), on the same seeded stream; the gates are
+    in the module docstring (phase 2). Six windows through a cache of 480
+    slots evict trained rows and admit them again, so a writeback that read
+    a slot out of order (before the previous window's update, or after this
+    window's admits) would show. Returns what the gates measured."""
     import numpy as np
     import torch
 
+    from cachedembedding_tpu_torch import ops
     from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
     from cachedembedding_tpu_torch.ops.rounding import storage_steps
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
+    cache_dtype, cfg_kw, cache_kw, entries = REFERENCE_SLICES[name]
     tables = [50, 300, 4000, 20000]
     steps, P = 24, 4
     cfg = DLRMConfig(
         num_embeddings_per_feature=tables, embedding_dim=16, dense_in_features=13,
         dense_arch_layer_sizes=(32, 16), over_arch_layer_sizes=(64, 32, 1),
-        batch_size=256, learning_rate=1.0, compute_dtype="float32",
-        cache=CacheConfig(
-            cache_ratio=0.02, resident_threshold=500, prefetch_num=P, weight_init="virtual",
-            ship_sort_perm=True, use_pallas_lookup=True, cache_dtype=cache_dtype,
-        ),
+        batch_size=256, compute_dtype="float32", **{"learning_rate": 1.0, **cfg_kw},
+        cache=CacheConfig(**{
+            "cache_ratio": 0.02, "resident_threshold": 500, "prefetch_num": P, "weight_init": "virtual",
+            "ship_sort_perm": True, "use_pallas_lookup": True, "cache_dtype": cache_dtype, **cache_kw,
+        }),
     )
     train = SyntheticLongTailDataset(tables, 256, steps, dense_in_features=13, skew=0.5, seed=7)
     test = SyntheticLongTailDataset(tables, 256, 4, dense_in_features=13, skew=0.5, seed=99)
     batches = list(train)
     touched = np.unique(np.concatenate([b.sparse_features.values.numpy() for b in batches]))
     first = np.unique(np.concatenate([b.sparse_features.values.numpy() for b in batches[:P]]))
+    tag = f"[reference {name}]"
     runs = []
     for dev in (device, "cpu"):
         tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=dev)
+        zero_launch_counts()
         rep = tr.train(batches, num_iters=steps)
+        if dev == device:
+            check_update_launches(tag, ops.launch_counts(), steps, *entries)
         emb = tr.embed
         # trained in the first window, written back on eviction, and in the
         # cache again at the end: evicted and admitted again
@@ -956,11 +1175,11 @@ def phase_reference(device, cache_dtype: str) -> None:
         s = emb.stats
         counts = (s.num_hits_history, s.num_miss_history, s.num_write_back_history)
         weights = [p.detach().cpu().numpy() for p in tr.model.parameters()]
-        rows = emb.dense_weight(touched)
+        rows = emb.dense_weight(touched)  # flushes
+        acc = None if emb.host_accum is None else emb.host_accum.gather(touched)
         tr.close()
-        runs.append((np.asarray(rep.losses), ev["auroc"], counts, weights, rows, again))
-    (lg, ag, cg, wg, rg, xg), (lc, ac, cc, wc, rc, xc) = runs
-    tag = f"[reference {cache_dtype}]"
+        runs.append((np.asarray(rep.losses), ev["auroc"], counts, weights, rows, again, acc))
+    (lg, ag, cg, wg, rg, xg, accg), (lc, ac, cc, wc, rc, xc, accc) = runs
     if cg != cc:
         raise AssertionError(f"{tag} cache counts differ between the card and the CPU: {cg} vs {cc}")
     if not np.array_equal(xg, xc) or xg.size == 0:
@@ -969,17 +1188,21 @@ def phase_reference(device, cache_dtype: str) -> None:
         raise AssertionError(f"{tag} losses not finite: {lg}")
     rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
     w_rel = max(float(np.max(np.abs(a - b) / (np.abs(b) + 1e-7))) for a, b in zip(wg, wc))
-    if cache_dtype == FP8:
+    out = {"loss_max_rel": rel, "weights_max_rel": w_rel, "auroc": (ag, ac), "writebacks": sum(cg[2]),
+           "evicted_and_admitted_again": int(xg.size)}
+    if cache_dtype != "float32":
+        dt = getattr(torch, cache_dtype)
         steps_off = storage_steps(*(torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (rg, rc)),
-                                 torch.float8_e4m3fn).numpy()
+                                  dt).numpy()
         equal = float((steps_off == 0).mean())
         if not np.allclose(lg, lc, rtol=1e-3, atol=0):
             raise AssertionError(f"{tag} losses differ between the card and the CPU: {lg} vs {lc}")
         if equal < 0.999 or int(steps_off.max()) > 2:
             raise AssertionError(f"{tag} flushed rows: {equal:.5f} of elements equal, "
-                                 f"up to {int(steps_off.max())} e4m3 steps apart")
-        rows_msg = (f"{equal * 100:.3f}% of {rg.size} flushed elements equal, "
-                    f"{int((steps_off > 0).sum())} one or two e4m3 steps apart (max {int(steps_off.max())})")
+                                 f"up to {int(steps_off.max())} {cache_dtype} steps apart")
+        out.update(flushed_equal_share=equal, flushed_max_steps=int(steps_off.max()))
+        rows_msg = (f"{equal * 100:.3f}% of {rg.size} flushed elements equal, {int((steps_off > 0).sum())} one "
+                    f"or two {cache_dtype} steps apart (max {int(steps_off.max())})")
     else:
         if not np.allclose(lg, lc, rtol=1e-4, atol=0):
             raise AssertionError(f"{tag} losses differ between the card and the CPU: {lg} vs {lc}")
@@ -991,10 +1214,19 @@ def phase_reference(device, cache_dtype: str) -> None:
         row_err = float(np.abs(rg - rc).max())
         if row_err > 1e-5:
             raise AssertionError(f"{tag} flushed rows differ between the card and the CPU by {row_err}")
+        out["flushed_max_abs_diff"] = row_err
         rows_msg = f"{touched.size} trained rows max abs diff {row_err:.2e}"
+    if accg is not None:
+        acc_rel = float(np.max(np.abs(accg - accc) / np.maximum(np.abs(accc), 1e-12)))
+        if not np.allclose(accg, accc, rtol=1e-4, atol=1e-9) or not (accg > 0).any():
+            raise AssertionError(f"{tag} flushed accumulators differ between the card and the CPU (max rel "
+                                 f"{acc_rel:.2e}) or none grew")
+        out["accum_max_rel"] = acc_rel
+        rows_msg += f"; {int((accg > 0).sum())} accumulators grew, max rel diff {acc_rel:.2e}"
     log(f"{tag} small slice, card vs CPU: counts equal, {sum(cg[2])} writebacks, "
         f"{xg.size} trained rows evicted and admitted again; {rows_msg}; loss max rel diff "
         f"{rel:.2e}; dense weights max rel diff {w_rel:.2e}; auroc {ag:.6f} vs {ac:.6f}")
+    return out
 
 
 def phase_slice(cfg, device):
@@ -1033,16 +1265,16 @@ def phase_slice(cfg, device):
     if tr._sr:
         sr_update = tr._sr_update
 
-        def sr_update_and_keep(cw, g_rows, perm, grouped, bins, slr, seed):
+        def sr_update_and_keep(cw, g_rows, perm, grouped, bins, slr, seed, *branch):
             if first_update:
-                return sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+                return sr_update(cw, g_rows, perm, grouped, bins, slr, seed, *branch)
             # the first step: its inputs copied to pinned host memory in stream
             # order (no device copy in the peak), the device peak read around its update
             keep = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
                     for t in (cw, g_rows.detach())]
             first_update.append((*keep, slr, seed))
             peaks.append(torch.cuda.max_memory_allocated(device))
-            sr_update(cw, g_rows, perm, grouped, bins, slr, seed)
+            sr_update(cw, g_rows, perm, grouped, bins, slr, seed, *branch)
             peaks.append(torch.cuda.max_memory_allocated(device))
             return None
 
@@ -1071,38 +1303,225 @@ def phase_slice(cfg, device):
         raise AssertionError(f"{tag} losses not finite: {losses}")
     if not 0.0 < rep.hit_rate <= 1.0:
         raise AssertionError(f"{tag} hit rate {rep.hit_rate} outside (0, 1]")
-    need = {"gather_rows": steps + P}
-    if tr._sr:
-        need.update(binned_scatter_add=steps, stochastic_sgd_round=steps, stochastic_round=0, binned_sgd=0)
-    else:
-        need.update(binned_sgd=steps, binned_scatter_add=0, stochastic_round=0, stochastic_sgd_round=0)
-    for name, n in need.items():
-        if (launches[name] < n) if n else launches[name]:
-            raise AssertionError(f"{tag} kernel {name} launched {launches[name]} times, expected "
-                                 f"{'at least ' + str(n) if n else 'none'}: {launches}")
+    if launches["gather_rows"] < steps + P:
+        raise AssertionError(f"{tag} kernel gather_rows launched {launches['gather_rows']} times: {launches}")
+    check_update_launches(tag, launches, steps,
+                          *(("binned_scatter_add", "stochastic_sgd_round") if tr._sr else ("binned_sgd",)))
     if ev["count"] != P * cfg.batch_size or not np.isfinite(ev["auroc"]):
         raise AssertionError(f"{tag} bad eval: {ev}")
     from cachedembedding_tpu_torch.slice_ab import profile_window
 
     prof = profile_window(tr, cfg)
     log(f"{tag} one more training window under torch.profiler: {json.dumps(prof)}")
-    # flushed host rows must equal the cache rows they came from
-    emb = tr.embed
-    emb.flush()
-    slots, rows = emb._dir.resident()
-    pick = np.random.default_rng(0).choice(slots.shape[0], min(4096, slots.shape[0]), replace=False)
-    res_pick = np.random.default_rng(1).choice(emb.resident_total, min(4096, emb.resident_total), replace=False)
-    addrs = np.concatenate([slots[pick].astype(np.int64), emb.capacity + res_pick])
-    host = emb.host_table.gather(np.concatenate([rows[pick], emb._res_rows[res_pick]]))
-    dev = emb.cache_weight[torch.from_numpy(addrs).to(device)].float().cpu().numpy()
-    if not np.array_equal(host, dev):
-        raise AssertionError(f"{tag} flushed host rows differ from their cache rows")
-    log(f"{tag} flush: {addrs.shape[0]} sampled rows equal their cache rows")
+    check_flush(tr, tag)
     first = None
     if first_update:
         cw0, g0, slr, seed = first_update[0]
         first = (cw0.to(device), g0.to(device), slr, seed)
     return launches, tr, first_win[0], first
+
+
+# scripts/terabyte.sh's flags with prefetch 8; the directory name picks the
+# Criteo-1TB tables and is never read (the batches are synthetic)
+TERABYTE_FLAGS = ["--dataset_dir", "criteo_1tb", "--batch_size", "16384", "--learning_rate", "1.0", "--use_cache",
+                  "--cache_ratio", "0.01", "--use_freq", "--use_overlap", "--prefetch_num", "8",
+                  "--transfer_dtype", "bfloat16"]
+
+
+def phase_terabyte(device) -> tuple:
+    """The sparse-gradient branch at Criteo-1TB width: the trainer built from
+    terabyte.sh's flags (26 tables, 177,944,275 rows, D=128, batch 16,384, a
+    1% cache of 1,779,442 bf16 rows and no resident region, bf16 transfers,
+    prefetch 8), driven directly so that the host table can be virtual (its
+    memory the touched rows, not a 91 GB dense table). Its device rows
+    exceed 4x a step's 425,984 ids, so the update is the ordered scatter.
+    Trains 24 steps, evaluates one window and flushes, with the launch
+    counts zeroed just before; then one more window under torch.profiler,
+    and the ordered scatter on the first step (``check_ordered_scatter``).
+    Returns the path's launch counts and the kernel's entry."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.slice_ab import profile_window
+    from cachedembedding_tpu_torch.train import dlrm_main
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer, update_branch
+
+    tag = "[1tb sparse]"
+    cfg = dlrm_main.build_config(dlrm_main.parse_args(TERABYTE_FLAGS))
+    cfg.cache.weight_init = "virtual"
+    steps, P, B, F = 24, cfg.cache.prefetch_num, cfg.batch_size, cfg.num_sparse_features
+    sizes = cfg.num_embeddings_per_feature
+    t0 = time.perf_counter()
+    train = SyntheticLongTailDataset(sizes, B, steps, skew=0.5, seed=7)
+    test = SyntheticLongTailDataset(sizes, B, P, skew=0.5, seed=8)
+    tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
+    torch.cuda.synchronize()
+    branch = update_branch(cfg, False, tr.embed.device_rows, B * F)
+    log(f"{tag} trainer built in {time.perf_counter() - t0:.1f} s: {sum(sizes)} rows, capacity "
+        f"{tr.embed.capacity}, device rows {tr.embed.device_rows} against 4 x {B * F} ids a step; rows "
+        f"{tr.embed.cache_weight.dtype}; update branch {branch}")
+    if branch != "sparse":
+        raise AssertionError(f"{tag} the update branch is {branch}, not sparse")
+    first, update = [], tr._update
+
+    def update_and_keep(cw, g_rows, perm, grouped, bins, slr, branch):
+        if not first:  # the first step's inputs: the rows before the update
+            first.append((cw.clone(), g_rows.detach().clone(), perm, grouped, slr))
+        return update(cw, g_rows, perm, grouped, bins, slr, branch)
+
+    tr._update = update_and_keep
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    rep = tr.train(train, num_iters=steps)
+    t1 = time.perf_counter()
+    ev = tr.evaluate(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    tr._update = update
+    losses = np.asarray(rep.losses)
+    log(f"{tag} loss per window {[float(x) for x in losses.reshape(-1, P).mean(axis=1)]}; hit rate "
+        f"{rep.hit_rate:.4f}; {rep.examples_per_s:.0f} examples/s over {steps} steps; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    log(f"{tag} host s/window {[round(x, 4) for x in rep.window_host_s]}; device s/window "
+        f"{[round(x, 4) for x in rep.window_device_s]}; plan host ms/step "
+        f"{1e3 * sum(rep.window_plan_s) / steps:.2f}; eval of {ev['count']} in {eval_s:.2f} s: auroc "
+        f"{ev['auroc']:.4f}; kernel launches {launches}")
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} losses not finite: {losses}")
+    if not 0.0 < rep.hit_rate <= 1.0 or ev["count"] != P * B or not np.isfinite(ev["auroc"]):
+        raise AssertionError(f"{tag} hit rate {rep.hit_rate}, eval {ev}")
+    if launches["gather_rows"] < steps + P:
+        raise AssertionError(f"{tag} kernel launches {launches}")
+    check_update_launches(tag, launches, steps, "ordered_scatter_add")
+    prof = profile_window(tr, cfg)
+    log(f"{tag} one more training window under torch.profiler: {json.dumps(prof)}")
+    check_flush(tr, tag)
+    tr.close()
+    del tr
+    gc.collect()
+    k5 = check_ordered_scatter(*first[0])
+    k5["window"] = {"host_s": rep.window_host_s, "device_s": rep.window_device_s, "profiled": prof}
+    return launches, k5
+
+
+def check_ordered_scatter(cw0, g, perm, grouped, slr: float) -> dict:
+    """The ordered scatter (Kernel 5) on the 1TB run's first step: its bf16
+    rows before the update, its bf16 row grads, its plan. Bit-equal to its
+    plain version (the same addends, rounded the same way, in the same
+    order) and on two launches. The step's heaviest run is applied alone to
+    its row (equal to that row in the step) and to a zero row, where its
+    addends are not absorbed (a heavy row of a small table starts far above
+    its addends, which bf16 adds then absorb, order or not): there the
+    kernel equals its plain version, and the gate, bit equality, is shown
+    to reject two planted faults: one addend dropped, and two addends
+    swapped (the gate sees order). Timed on the step and on the heaviest
+    run alone (serial by definition: each add depends on the one before)."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_scatter_add_, ordered_scatter_add_plain
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    (C, D), L, device, dt = cw0.shape, g.shape[0], cw0.device, cw0.dtype
+    i16 = torch.int16
+    a = ordered_scatter_add_(cw0.clone(), g, perm, grouped, slr)
+    b = ordered_scatter_add_(cw0.clone(), g, perm, grouped, slr)
+    t0 = time.perf_counter()
+    ref = ordered_scatter_add_plain(cw0.clone(), g, perm, grouped, slr)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(a.view(i16), b.view(i16)):
+        raise AssertionError("ordered_scatter_add is not deterministic across launches")
+    if not torch.equal(a.view(i16), ref.view(i16)):
+        n_bad = int((a.view(i16) != ref.view(i16)).sum())
+        raise AssertionError(f"ordered_scatter_add differs from its plain version in {n_bad} elements")
+    rows, counts = torch.unique_consecutive(grouped, return_counts=True)
+    r = int(torch.argmax(counts))
+    v, n, start = int(rows[r]), int(counts[r]), int(counts[:r].sum())
+    # the heaviest run alone: one row, its addends in stream order
+    g_run = g[perm[start:start + n].long()].contiguous()
+    perm_run = torch.arange(n, dtype=torch.int32, device=device)
+    grouped_run = torch.zeros(n, dtype=torch.int32, device=device)
+    row0, zero = cw0[v:v + 1].clone(), torch.zeros((1, D), dtype=dt, device=device)
+
+    def run(fn, row, gr):
+        return fn(row.clone(), gr, perm_run, grouped_run, slr).view(i16)
+
+    if not torch.equal(run(ordered_scatter_add_, row0, g_run), a[v:v + 1].view(i16)):
+        raise AssertionError("the heaviest run alone differs from its row in the step")
+    want = run(ordered_scatter_add_, zero, g_run)
+    if not torch.equal(want, run(ordered_scatter_add_plain, zero, g_run)):
+        raise AssertionError("ordered_scatter_add differs from its plain version on the heaviest run into a zero row")
+    # each planted fault must change the function's value (an absorbed addend
+    # is no fault). The run's trajectory from zero, one rounded add at a time
+    # on the host, finds them: the last addend whose removal changes the
+    # result, and the last pair of nearby addends (one of them moving the
+    # row) whose swap changes it
+    a_run = astype_storage(g_run.float() * -slr, dt).float().cpu()
+    states = [zero.float().cpu()]
+    for i in range(n):
+        states.append(astype_storage(states[-1] + a_run[i], dt).float())
+    moving = [i for i in range(n) if not torch.equal(states[i + 1], states[i])]
+
+    def final(w, order):
+        for i in order:
+            w = astype_storage(w + a_run[i], dt).float()
+        return w
+
+    faults = {}
+    for i in reversed(moving[-16:]):
+        if not torch.equal(final(states[i], range(i + 1, n)), states[n]):
+            dropped = g_run.clone()
+            dropped[i] = 0
+            faults[f"addend {i} of {n} dropped"] = dropped
+            break
+    pairs = [(min(i, j), max(i, j)) for i in reversed(moving[-8:]) for j in range(i - 8, i + 9)
+             if 0 <= j < n and j != i]
+    for i, j in pairs:  # a_j in a_i's place, a_i in a_j's
+        if not torch.equal(final(states[i], [j, *range(i + 1, j), i, *range(j + 1, n)]), states[n]):
+            swapped = g_run.clone()
+            swapped[[i, j]] = g_run[[j, i]]
+            faults[f"addends {i} and {j} of {n} swapped"] = swapped
+            break
+    if len(faults) != 2:
+        raise AssertionError(f"no visible fault of each kind in the heaviest run ({n} ids, {len(moving)} addends "
+                             f"move a zero row): {list(faults)}")
+    for fault, gr in faults.items():  # the gate: the kernel's result against each faulty run's plain version
+        if torch.equal(run(ordered_scatter_add_plain, zero, gr), want):
+            raise AssertionError(f"the ordered scatter's gate passed a planted fault ({fault})")
+    touched = int(rows.numel())
+    ids_stream = torch.empty_like(grouped)
+    ids_stream[perm.long()] = grouped  # the step's ids in stream order (the grads' order)
+    cw_t, row_t, cw_l = cw0.clone(), row0.clone(), cw0.clone()
+    entry = dict(
+        name="ordered_scatter_add", route="cuda",
+        source="cachedembedding_tpu_torch/csrc/ordered_scatter_add.cu",
+        replaces="cachedembedding_tpu/train/trainer.py:404 (cw.at[v].add in the sparse-gradient branch, "
+                 "an XLA scatter; no Pallas kernel)",
+        max_abs_err=0.0,
+        ms=median_ms(lambda: ordered_scatter_add_(cw_t, g, perm, grouped, slr)),
+        device_ms=device_median_ms(lambda: ordered_scatter_add_(cw_t, g, perm, grouped, slr)),
+        plain_ms=plain_s * 1e3,  # one call: it loops once per contributor rank of the heaviest run
+        # the grads and the plan read once, each touched row read and written
+        bound_ms=(L * D * g.element_size() + 2 * L * 4 + 2 * touched * D * cw0.element_size())
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        # atomic, in no fixed order, bf16 sums: another function, timed as a yardstick
+        library_ms=median_ms(lambda: cw_l.index_add_(0, ids_stream.long(), g, alpha=-slr)),
+        library="Tensor.index_add_ (atomics: no fixed order)",
+        timed_on=f"1tb sparse, first training step ({C} x {D} bf16 rows, {L} ids)",
+        tolerance="bit-exact against the plain version; two launches bit-identical",
+        touched_rows=touched, heaviest_run=n, planted_faults=list(faults),
+        heaviest_run_addends_moving_a_zero_row=len(moving),
+        heaviest_run_ms=median_ms(lambda: ordered_scatter_add_(row_t, g_run, perm_run, grouped_run, slr)),
+        heaviest_run_device_ms=device_median_ms(lambda: ordered_scatter_add_(row_t, g_run, perm_run, grouped_run, slr)),
+    )
+    log(f"[kernel] ordered_scatter_add: {touched} touched rows, heaviest run {n} ids (row {v}); bit-equal to its "
+        f"plain version and across launches, on the step and on the heaviest run into a zero row; the gate "
+        f"rejects both planted faults; {json.dumps(entry)}")
+    return entry
 
 
 def phase_bare_module(device) -> None:
@@ -1157,8 +1576,12 @@ CLI_FLAGS = ["--kaggle", "--use_freq", "--cache_ratio", "0.01", "--warmup_ratio"
 # DeepFM diverges at DLRM's learning rate of 1.0 on this data (its scores
 # collapse to one value); it trains at 0.1, as the JAX package's DeepFM test
 # does
+# Row-wise Adagrad diverges at 1.0 too (each touched element moves by about
+# the learning rate on its first step); at 0.1 it learns
+ADAGRAD_FLAGS = ["--embedding_optimizer", "rowwise_adagrad", "--learning_rate", "0.1"]
 CLI_RUNS = {"cli cached": ["--use_cache"], "cli resident": [],
-            "cli deepfm": ["--use_cache", "--model", "deepfm", "--learning_rate", "0.1"]}
+            "cli deepfm": ["--use_cache", "--model", "deepfm", "--learning_rate", "0.1"],
+            "cli adagrad": ["--use_cache", *ADAGRAD_FLAGS], "cli adagrad resident": ADAGRAD_FLAGS}
 CHECKPOINT_TABLE_CAP = 20_000  # the checkpoint round trip's tables: Kaggle's, capped at this many rows
 CLI_TAIL = 0.2  # P(rank >= r) ~ r^-CLI_TAIL: 426,827 distinct training ids, above the 1% cache's 337,625
 
@@ -1236,29 +1659,41 @@ def run_cli(name: str, data_dir, extra) -> dict:
         if not auroc > 0.5 or count != 2 * CLI_BATCH:
             raise AssertionError(f"[{name}] {stage}: auroc {auroc} over {count}")
     k = stats["kernel_launches"]
-    if (k["gather_rows"] < CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES or k["binned_sgd"] != CLI_TRAIN_BATCHES
-            or k["binned_scatter_add"] or k["stochastic_round"] or k["stochastic_sgd_round"]):
+    if k["gather_rows"] < CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES:
         raise AssertionError(f"[{name}] kernel launches {k}")
+    adagrad = "rowwise_adagrad" in extra
+    check_update_launches(f"[{name}]", k, CLI_TRAIN_BATCHES, "binned_adagrad" if adagrad else "binned_sgd")
+    if adagrad:
+        cached = "--use_cache" in extra
+        # accumulators grew on the card and, where a cache evicts, were written back
+        if stats["accum_positive_device_rows"] <= 0 or (cached and (
+                stats["accum_positive_host_rows"] <= 0 or not res["hit_rate"] < 1.0)):
+            raise AssertionError(f"[{name}] accumulators: {stats.get('accum_positive_device_rows')} device rows, "
+                                 f"{stats.get('accum_positive_host_rows')} written back, hit rate {res['hit_rate']}")
+        log(f"[{name}] accumulators grew on {stats['accum_positive_device_rows']} device rows"
+            + (f", {stats['accum_positive_host_rows']} written back to the host store on eviction" if cached else ""))
     return res
 
 
 def check_resident_kernels(data_dir, device) -> tuple:
     """Kernels 1 and 2 on the resident path's first training step: the f32
-    rows of the 33,762,577-row table, built as the CLI builds it. Kernel 1
-    bit for bit against its plain version and index_select. Kernel 2 in
-    place on the table, since a 17 GB clone would not fit beside it: on the
-    touched rows within 1e-5 of slr * sum|g| (plus one f32 ulp) of the
-    float64 result, as is its plain version on a compact copy of those rows;
-    a sample of 65,536 untouched rows bit-equal; a second launch from the
-    restored rows bit-identical; and the gate shown to reject a planted fault
-    (the heaviest row without one chunk). Returns their entries."""
+    rows of the 33,762,577-row table and its row-wise Adagrad accumulators,
+    built as the CLI builds them. Kernel 1 bit for bit against its plain
+    version and index_select. Kernel 2 in place on the table, since a 17 GB
+    clone would not fit beside it: on the touched rows within 1e-5 of slr *
+    sum|g| (plus one f32 ulp) of the float64 result, as is its plain version
+    on a compact copy of those rows; a sample of 65,536 untouched rows
+    bit-equal; a second launch from the restored rows bit-identical; and the
+    gate shown to reject a planted fault (the heaviest row without one
+    chunk). Then its Adagrad epilogue under the same scheme
+    (``check_resident_adagrad``). Returns their entries."""
     import torch
 
     from cachedembedding_tpu_torch.ops.binned_scatter import ROW_CHUNK, binned_sgd_update, binned_sgd_update_plain
     from cachedembedding_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
     from cachedembedding_tpu_torch.train import dlrm_main
 
-    args = dlrm_main.parse_args(["--dataset_dir", str(data_dir), *CLI_FLAGS])
+    args = dlrm_main.parse_args(["--dataset_dir", str(data_dir), *CLI_FLAGS, *ADAGRAD_FLAGS])
     cfg = dlrm_main.build_config(args)
     t0 = time.perf_counter()
     tr = dlrm_main.build_trainer(args, cfg, None, device)
@@ -1351,15 +1786,100 @@ def check_resident_kernels(data_dir, device) -> tuple:
     log(f"[cli kernels] binned_sgd on the resident table: {n_touched} touched rows of {C}, a sample of "
         f"{sample.numel()} untouched rows bit-equal, two launches bit-identical, the gate rejects the planted "
         f"fault; trainer built in {build_s:.1f} s; {json.dumps(k2)}")
+    cw[touched.long()] = before
+    ka = check_resident_adagrad(tr.embed, g, perm, grouped, bins, pos, touched, sample, abs64, slr,
+                                cfg.adagrad_eps)
     tr.close()
-    return k1, k2
+    return k1, k2, ka
 
 
-def check_checkpoint_round_trip(data_dir, ckpt_root, device) -> dict:
+def check_resident_adagrad(embed, g, perm, grouped, bins, pos, touched, sample, abs64, slr: float,
+                           eps: float) -> dict:
+    """Kernel 2's Adagrad epilogue in place on the resident table and its
+    (N,) accumulators, on its first step's plan (``pos``: the plan's ids
+    renumbered over the touched rows, in order). Against float64, with s the
+    step's sum of a row's grads and a its new accumulator: each accumulator
+    within 3e-5 x (a + mean(|s| x sum|g|)) and each touched element within
+    slr x 3 x (1e-5 x sum|g| + 1e-5 x |s|) / (sqrt(a) + eps) plus one f32
+    ulp (the f32 sums' and mean square's rounding carried through the
+    division); the plain version on a compact copy of the touched rows too;
+    the untouched sample's rows and accumulators bit-equal; a second launch
+    from the restored rows bit-identical; and the gate shown to reject a
+    planted fault (the mean square taken over D - 1 columns)."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import (
+        binned_adagrad_update,
+        binned_adagrad_update_plain,
+        binned_scatter_add_plain,
+    )
+
+    cw, acc = embed.cache_weight, embed.cache_accum
+    (C, D), L, n_touched = cw.shape, g.shape[0], touched.numel()
+    t = touched.long()
+    before, acc0 = cw[t].clone(), acc[t].clone()
+    before_u, acc_u = cw[sample].clone(), acc[sample].clone()
+    s64 = torch.zeros_like(before, dtype=torch.float64).index_add_(0, pos.long(), g[perm.long()].double())
+    a64 = acc0.double() + (s64 * s64).mean(dim=1)
+    den64 = torch.sqrt(a64) + eps
+    w64 = before.double() - slr * s64 / den64[:, None]
+    acc_tol = 3e-5 * (a64 + (s64.abs() * abs64).mean(dim=1))
+    row_tol = (slr * 3 * (SCATTER_RTOL * abs64 + 1e-5 * s64.abs()) / den64[:, None]
+               + torch.exp2(torch.floor(torch.log2(w64.abs().clamp_min(2.0 ** -126))) - 23))
+
+    def faults(w, a) -> int:
+        return int(((w.double() - w64).abs() > row_tol).sum()) + int(((a.double() - a64).abs() > acc_tol).sum())
+
+    binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, eps)
+    kw, ka = cw[t].clone(), acc[t].clone()
+    if not (torch.equal(cw[sample], before_u) and torch.equal(acc[sample], acc_u)):
+        raise AssertionError("binned_adagrad changed untouched rows or accumulators of the resident table")
+    cw[t], acc[t] = before, acc0
+    binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, eps)
+    if not (torch.equal(cw[t], kw) and torch.equal(acc[t], ka)):
+        raise AssertionError("binned_adagrad is not deterministic across launches on the resident table")
+    pw, pa = before.clone(), acc0.clone()
+    binned_adagrad_update_plain(pw, pa, g, perm, pos, bins, slr, eps)
+    for what, (w, a) in (("kernel", (kw, ka)), ("plain version", (pw, pa))):
+        if faults(w, a):
+            raise AssertionError(f"binned_adagrad {what} on the resident table: {faults(w, a)} elements or "
+                                 "accumulators off float64 beyond the tolerance")
+    s32 = binned_scatter_add_plain(g, perm, pos, bins, n_touched)
+    fa = acc0 + (s32[:, :-1] * s32[:, :-1]).mean(dim=1)
+    if not faults(before - slr * s32 / (torch.sqrt(fa) + eps)[:, None], fa):
+        raise AssertionError("the Adagrad gate passed a planted fault (the mean square over D - 1 columns)")
+    compact, compact_acc = before.clone(), acc0.clone()
+    entry = dict(
+        max_abs_err=(kw - pw).abs().max().item(),
+        accum_max_rel_err=((ka.double() - a64).abs() / a64.clamp_min(1e-300)).max().item(),
+        max_err_over_tolerance=max(((kw.double() - w64).abs() / row_tol).max().item(),
+                                   ((ka.double() - a64).abs() / acc_tol).max().item()),
+        ms=median_ms(lambda: binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, eps)),
+        device_ms=device_median_ms(lambda: binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, eps)),
+        plain_ms=median_ms(lambda: binned_adagrad_update_plain(compact, compact_acc, g, perm, pos, bins, slr, eps)),
+        plain_on="the touched rows (compact copy)",
+        # the grads, the plan, each touched row and its accumulator read and written
+        bound_ms=(L * D * g.element_size() + 2 * L * 4 + bins.numel() * 4 + 2 * n_touched * (D * 4 + 4))
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None,  # no PyTorch call computes row-wise Adagrad
+        timed_on=f"cli adagrad resident, first training step ({C} x {D} f32 rows, (C,) f32 accumulators)",
+        tolerance="see check_resident_adagrad", touched_rows=n_touched,
+    )
+    cw[t], acc[t] = before, acc0
+    log(f"[cli kernels] binned_sgd's Adagrad epilogue on the resident table: {n_touched} touched rows and "
+        f"accumulators within the tolerance of float64 (kernel and plain version), the untouched sample "
+        f"bit-equal, two launches bit-identical, the gate rejects the planted fault; {json.dumps(entry)}")
+    return entry
+
+
+def check_checkpoint_round_trip(data_dir, ckpt_root, device, adagrad: bool = False) -> dict:
     """Train through the CLI's functions on small tables (Kaggle's, capped at
     CHECKPOINT_TABLE_CAP rows; the same files serve, the ids being hashed),
     save, load into a fresh trainer and evaluate: the scores and AUROC equal
-    the saved trainer's bit for bit."""
+    the saved trainer's bit for bit. With ``adagrad`` (ADAGRAD_FLAGS) the
+    loaded host accumulators also equal the saved ones bit for bit, and two
+    more steps of both trainers give losses within rtol 1e-5 (the restored
+    cache holds other slots, so runs cross other chunk boundaries)."""
     import numpy as np
     import torch
 
@@ -1369,15 +1889,19 @@ def check_checkpoint_round_trip(data_dir, ckpt_root, device) -> dict:
     from cachedembedding_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
     small_dir = ckpt_root / "small_tables_kaggle"  # its own frequency map
-    small_dir.mkdir()
-    for f in data_dir.glob("day_*.npy"):
-        (small_dir / f.name).symlink_to(f)
+    if not small_dir.exists():
+        small_dir.mkdir()
+        for f in data_dir.glob("day_*.npy"):
+            (small_dir / f.name).symlink_to(f)
     tables = ",".join(str(min(n, CHECKPOINT_TABLE_CAP)) for n in sizes)
     args = dlrm_main.parse_args(["--dataset_dir", str(small_dir), *CLI_FLAGS, "--use_cache",
-                                 "--num_embeddings_per_feature", tables, "--cache_ratio", "0.8"])
+                                 "--num_embeddings_per_feature", tables, "--cache_ratio", "0.8",
+                                 *(ADAGRAD_FLAGS if adagrad else [])])
     cfg = dlrm_main.build_config(args)
     freq = dlrm_main.get_freq(args, cfg)
     scores = []
+    tag = "[cli checkpoint adagrad]" if adagrad else "[cli checkpoint]"
+    path = str(ckpt_root / ("ckpt_adagrad" if adagrad else "ckpt"))
 
     class Recording(trainer_mod.StreamingMetrics):
         def update(self, s, labels):
@@ -1396,21 +1920,33 @@ def check_checkpoint_round_trip(data_dir, ckpt_root, device) -> dict:
     t0 = time.perf_counter()
     tr = dlrm_main.build_trainer(args, cfg, freq, device)
     tr.train(dlrm_main.get_data(args, cfg, "train"), num_iters=CLI_TRAIN_BATCHES)
-    save_checkpoint(str(ckpt_root / "ckpt"), tr)
+    save_checkpoint(path, tr)
     m1, s1 = evaluate(tr)
-    tr.close()
     tr2 = dlrm_main.build_trainer(args, cfg, freq, device)
-    step = load_checkpoint(str(ckpt_root / "ckpt"), tr2)
+    step = load_checkpoint(path, tr2)
     m2, s2 = evaluate(tr2)
-    tr2.close()
     torch.cuda.synchronize()
     if step != CLI_TRAIN_BATCHES or not np.array_equal(s1, s2) or m1 != m2:
-        raise AssertionError(f"checkpoint round trip: step {step}, auroc {m1['auroc']} vs {m2['auroc']}, "
+        raise AssertionError(f"{tag} step {step}, auroc {m1['auroc']} vs {m2['auroc']}, "
                              f"{int((s1 != s2).sum())} scores differ")
     res = {"tables_rows": int(sum(cfg.num_embeddings_per_feature)), "step": step, "auroc": m1["auroc"],
-           "scores": int(s1.size), "seconds": time.perf_counter() - t0}
-    log(f"[cli checkpoint] trained {step} steps on {res['tables_rows']} rows of small tables, saved, loaded "
-        f"into a fresh trainer: {s1.size} scores and auroc {m1['auroc']:.6f} bit-equal; {res['seconds']:.1f} s")
+           "scores": int(s1.size)}
+    if adagrad:
+        if not np.array_equal(tr.embed.host_accum.arr, tr2.embed.host_accum.arr):
+            raise AssertionError(f"{tag} the loaded accumulators differ from the saved ones")
+        more = [b for _, b in zip(range(2), dlrm_main.get_data(args, cfg, "train"))]
+        r1, r2 = (np.asarray(t.train(more, num_iters=2).losses) for t in (tr, tr2))
+        if not np.allclose(r1, r2, rtol=1e-5):
+            raise AssertionError(f"{tag} the resumed trainer's next losses {r2} differ from {r1}")
+        res.update(accum_rows=int((tr.embed.host_accum.arr > 0).sum()), next_losses_max_rel=float(
+            np.max(np.abs(r1 - r2) / np.abs(r1))))
+    tr.close()
+    tr2.close()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"{tag} trained {step} steps on {res['tables_rows']} rows of small tables, saved, loaded into a fresh "
+        f"trainer: {s1.size} scores and auroc {m1['auroc']:.6f} bit-equal"
+        + (f"; {res['accum_rows']} accumulators restored bit for bit, the next two losses within "
+           f"{res['next_losses_max_rel']:.1e}" if adagrad else "") + f"; {res['seconds']:.1f} s")
     return res
 
 
@@ -1448,22 +1984,23 @@ def phase_cli(device) -> dict:
                 mtime = freq_path.stat().st_mtime_ns
             if (runs[name]["freq"] == "computed") != (name == "cli cached"):
                 raise AssertionError(f"[{name}] id_freq_map {runs[name]['freq']}")
-            if name != "cli resident" and not 0.0 < runs[name]["hit_rate"] <= 1.0:
+            if "--use_cache" in extra and not 0.0 < runs[name]["hit_rate"] <= 1.0:
                 raise AssertionError(f"[{name}] hit rate {runs[name]['hit_rate']} outside (0, 1]")
         if freq_path.stat().st_mtime_ns != mtime:
             raise AssertionError("id_freq_map.npy was written again")
-        log("[cli] id_freq_map.npy computed once by the first run and reused by the other two")
+        log(f"[cli] id_freq_map.npy computed once by the first run and reused by the other {len(runs) - 1}")
         torch.cuda.empty_cache()
-        k1, k2 = check_resident_kernels(data_dir, device)
+        k1, k2, ka = check_resident_kernels(data_dir, device)
         gc.collect()
         torch.cuda.empty_cache()
-        ckpt = check_checkpoint_round_trip(data_dir, root, device)
+        ckpt = {"sgd": check_checkpoint_round_trip(data_dir, root, device),
+                "adagrad": check_checkpoint_round_trip(data_dir, root, device, adagrad=True)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     secs = time.perf_counter() - t0
     log(f"[cli] phase done in {secs:.1f} s")
     return {"launches": {name: r["stats"]["kernel_launches"] for name, r in runs.items()},
-            "gather_rows": k1, "binned_sgd": k2, "checkpoint": ckpt, "seconds": secs}
+            "gather_rows": k1, "binned_sgd": k2, "binned_adagrad": ka, "checkpoint": ckpt, "seconds": secs}
 
 
 def main() -> int:
@@ -1500,8 +2037,8 @@ def run_phases(procs: dict) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[build] done in {time.perf_counter() - t0:.1f} s; card: {smi}")
     procs.update(start_unsorted_plan_checks())
-    phase_reference(device, "float32")
-    phase_reference(device, FP8)
+    for name in REFERENCE_SLICES:
+        phase_reference(device, name)
     finish_unsorted_plan_checks(procs)
 
     cfg = slice_config("bfloat16")
@@ -1516,22 +2053,30 @@ def run_phases(procs: dict) -> int:
     launches_fp8, tr, win, first_update = phase_slice(cfg8, device)
     k1_fp8, k34 = phase_kernels_fp8(cfg8, tr, win, first_update)
     kernels[0]["on_fp8_slice"] = k1_fp8
+    kernels[1]["on_fp8_rows"] = check_kernel2_fp8_rows(first_update[0], win, cfg8.learning_rate)
     kernels += k34
     tr.close()
     del tr, win, first_update
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8_paths = phase_fp8_windows(device)
+    launches_1tb, k5 = phase_terabyte(device)
+    kernels.append(k5)
     gc.collect()
     torch.cuda.empty_cache()
     phase_bare_module(device)
     cli = phase_cli(device)
     kernels[0]["on_resident_table"] = cli["gather_rows"]
     kernels[1]["on_resident_table"] = cli["binned_sgd"]
+    kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
 
-    paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **cli["launches"]}
+    paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "1tb sparse": launches_1tb,
+             **cli["launches"]}
     for k in kernels:
         name = k["name"]
         entries = KERNEL_ENTRIES.get(name, (name,))
         by_path = {path: sum(counts[e] for e in entries) for path, counts in paths.items()}
-        k["launches"] = by_path["bf16 slice" if name in BF16_KERNELS else "fp8 slice"]
+        k["launches"] = by_path[MAIN_PATH[name]]
         k["launches_by_path"] = by_path
         if len(entries) > 1:
             k["launches_by_entry"] = {e: {path: counts[e] for path, counts in paths.items()} for e in entries}

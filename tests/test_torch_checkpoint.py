@@ -125,10 +125,20 @@ def test_load_refuses_other_shapes(tmp_path):
     with pytest.raises(ValueError, match="checkpoint table"):
         load_checkpoint(str(tmp_path), t2)
     t2.close()
+    # Adagrad state loads into an Adagrad trainer, and must have the table's shape
     meta = json.loads((tmp_path / "meta.json").read_text())
     (tmp_path / "meta.json").write_text(json.dumps({**meta, "optimizer": "rowwise_adagrad"}))
-    t3 = port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 7"):
-        load_checkpoint(str(tmp_path), t3)
+    acc = np.linspace(0.0, 2.0, sum(TABLES), dtype=np.float32)
+    np.save(tmp_path / "accum.npy", acc)
+    adagrad = _cfg()
+    adagrad.embedding_optimizer = "rowwise_adagrad"
+    t3 = port_trainer_mod.CachedDLRMTrainer(adagrad, device="cpu")
+    assert load_checkpoint(str(tmp_path), t3) == 0
+    np.testing.assert_array_equal(t3.embed.host_accum.arr, acc)
     t3.close()
-    assert torch.is_tensor(t3.embed.cache_weight)
+    np.save(tmp_path / "accum.npy", acc[1:])
+    t4 = port_trainer_mod.CachedDLRMTrainer(adagrad, device="cpu")
+    with pytest.raises(ValueError, match="checkpoint accumulators"):
+        load_checkpoint(str(tmp_path), t4)
+    t4.close()
+    assert torch.is_tensor(t4.embed.cache_weight)

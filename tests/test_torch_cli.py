@@ -1,7 +1,9 @@
 """The port's command line (``train/dlrm_main.py``) against the JAX package's
 on the same Criteo-format npy files, on the CPU: the same flags and defaults,
-the same config, the same AUROC and losses, and a refusal naming its ROADMAP
-item for every flag outside the port."""
+the same config, the same AUROC and losses (row-wise Adagrad, the sparse
+gradient, fp8 rows with rounding off and float8_e5m2 rows included), a
+refusal naming its ROADMAP item for every flag outside the port, and the note
+on stderr where several GPUs are visible and ``--world_size`` is unset."""
 
 import dataclasses
 import re
@@ -12,7 +14,9 @@ import torch
 
 import cachedembedding_tpu.train.trainer as jax_trainer_mod
 import cachedembedding_tpu_torch.train.trainer as port_trainer_mod
+import torch_parity as tp
 from cachedembedding_tpu.train import dlrm_main as jax_main
+from cachedembedding_tpu_torch.ops import rounding as port_rounding
 from cachedembedding_tpu_torch.train import dlrm_main as port_main
 
 TABLES = [50, 200, 30]
@@ -76,34 +80,59 @@ def _metrics(out: str) -> dict:
             re.findall(r"epoch 0 (val|test): auroc=([0-9.]+) accuracy=[0-9.]+ over (\d+)", out)}
 
 
+CACHED = ["--use_cache", "--use_freq", "--cache_ratio", "0.8"]
+
+
+def _as_e5m2(build_config):
+    """The JAX CLI offers no float8_e5m2 choice; its trainer stores them.
+    Its config is given e5m2 rows after its flags are parsed as e4m3fn."""
+    def build(args):
+        cfg = build_config(args)
+        cfg.cache.cache_dtype = "float8_e5m2"
+        return cfg
+    return build
+
+
 @pytest.mark.parametrize("extra,rows", [
-    (["--use_cache", "--use_freq", "--cache_ratio", "0.8", "--cache_dtype", "float32"], "f32"),
+    ([*CACHED, "--cache_dtype", "float32"], "f32"),
     (["--cache_dtype", "float32"], "f32"),  # no --use_cache: the resident table (f32 rows)
-    (["--use_cache", "--use_freq", "--cache_ratio", "0.8", "--cache_dtype", "float32", "--model", "deepfm"], "f32"),
-    (["--use_cache", "--use_freq", "--cache_ratio", "0.8"], "bf16"),  # the CLI's default rows
-])
+    ([*CACHED, "--cache_dtype", "float32", "--model", "deepfm"], "f32"),
+    (CACHED, "bf16"),  # the CLI's default rows
+    ([*CACHED, "--cache_dtype", "float32", "--embedding_optimizer", "rowwise_adagrad", "--learning_rate", "0.1"],
+     "f32"),
+    ([*CACHED, "--use_sparse_embed_grad"], "exact order"),
+    ([*CACHED, "--cache_dtype", "float8_e4m3fn", "--stochastic_rounding", "off"], "fp8"),
+    ([*CACHED, "--cache_dtype", "float8_e5m2"], "fp8"),
+], ids=["f32", "resident", "deepfm", "bf16", "adagrad", "use_sparse_embed_grad", "e4m3_rounding_off", "e5m2"])
 def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
     """Both mains on the same files, one epoch with val/test: f32 rows give
     AUROC within 1e-4 and the losses within rtol 1e-5; the CLI's default
     bf16 rows give losses within rtol 2e-2 and AUROC within 2e-2 (the port
     sums the same bf16 grads in f32 in another order, which moves a row's
-    rounding by one ulp). Both write or read the same id_freq_map.npy."""
+    rounding by one ulp). The sparse gradient adds the same bf16 addends in
+    the same order in both (1e-4), and fp8 rows (rounding off, or e5m2 with
+    JAX's uniforms shared) differ by f32 GEMM order flipping a rounding
+    (1e-3). Both write or read the same id_freq_map.npy."""
+    if "float8_e5m2" in extra:
+        monkeypatch.setattr(jax_main, "build_config", _as_e5m2(jax_main.build_config))
+        monkeypatch.setattr(port_rounding, "philox_uniform", tp.jax_uniform)
     d = write_dataset(tmp_path / "criteo_kaggle")
     jl, pl = [], []
     _record_losses(monkeypatch, jax_trainer_mod.CachedDLRMTrainer, jl)
     _record_losses(monkeypatch, port_trainer_mod.CachedDLRMTrainer, pl)
-    jax_main.main(small_argv(d, *extra))
+    jax_extra = ["float8_e4m3fn" if x == "float8_e5m2" else x for x in extra]
+    jax_main.main(small_argv(d, *jax_extra))
     want = _metrics(capsys.readouterr().out)
     port_main.main(small_argv(d, *extra))
     captured = capsys.readouterr()
     got = _metrics(captured.out)
     assert set(got) == set(want) == {"val", "test"}
     assert len(pl) == len(jl) == 24 and np.isfinite(pl).all()
-    tol = 1e-4 if rows == "f32" else 2e-2
+    tol, rtol = {"f32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2), "exact order": (1e-4, 1e-4), "fp8": (1e-3, 1e-3)}[rows]
     for stage in ("val", "test"):
         assert got[stage][1] == want[stage][1] == 160
         assert abs(got[stage][0] - want[stage][0]) <= tol, (stage, got, want)
-    np.testing.assert_allclose(pl, jl, rtol=1e-5 if rows == "f32" else 2e-2)
+    np.testing.assert_allclose(pl, jl, rtol=rtol)
     assert "run stats: {" in captured.err
     if "--use_freq" in extra:
         assert "id_freq_map: loaded" in captured.err  # JAX's main wrote it first
@@ -111,12 +140,29 @@ def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
 
 @pytest.mark.parametrize("flag,item", [
     (["--use_tablewise"], 9), (["--use_rowwise"], 9), (["--multihost"], 9), (["--world_size", "2"], 9),
-    (["--embedding_optimizer", "rowwise_adagrad"], 7), (["--use_sparse_embed_grad"], 7),
     (["--transfer_dtype", "int8"], 4), (["--transfer_dtype", "int4"], 4), (["--planner", "device"], 11),
 ])
 def test_refused_flags_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
         port_main.main(["--platform", "cpu", *flag])
+
+
+@pytest.mark.parametrize("world_size,cards,noted", [
+    (None, 2, True), (None, 1, False), ("1", 4, False),
+], ids=["unset_two_cards", "unset_one_card", "set"])
+def test_single_card_note(tmp_path, capsys, monkeypatch, world_size, cards, noted):
+    """With --world_size unset and more than one CUDA device visible, the
+    port says on stderr, in one line, that it trains on one card where the
+    JAX CLI would use every visible device (ROADMAP Queue 1 item 9)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    argv = small_argv(write_dataset(tmp_path / "criteo_kaggle"), "--limit_train_batches", "1")
+    i = argv.index("--world_size")
+    del argv[i : i + 2]
+    port_main.main(argv + (["--world_size", world_size] if world_size else []))
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if "--world_size is unset" in ln]
+    assert len(lines) == int(noted)
+    if noted:
+        assert f"{cards} CUDA devices" in lines[0] and "ROADMAP Queue 1 item 9" in lines[0]
 
 
 def test_default_platform_needs_a_gpu():
