@@ -139,6 +139,7 @@ class FullyResidentEmbeddingBag:
         return self.to_device(self.begin_window_staging(ids_np, ids_np.shape).slot_ids)
 
     def lookup(self, features: RaggedFeatures) -> torch.Tensor:
+        """Pooled lookup of global ids, uniform or ragged: (B, F, D)."""
         return embedding_bag(self.cache_weight, features, mode=self.mode)
 
     def dense_weight(self, rows: Optional[np.ndarray] = None) -> np.ndarray:

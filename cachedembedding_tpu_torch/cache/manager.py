@@ -429,7 +429,11 @@ class CachedEmbeddingBag:
     def begin_window_staging(self, ids, out_shape, uniform_fbp=None) -> WindowStaging:
         """Plan a window and prepare its admits on the host. The caller then
         calls ``enqueue_writebacks`` (after the previous window's device work
-        was enqueued) and ``apply_admits`` (before this window's steps)."""
+        was enqueued) and ``apply_admits`` (before this window's steps).
+        ``ids`` is the window's flat id stream: ``uniform_fbp`` (P, F, Bp)
+        says it is P stacked (F, Bp) feature-major blocks, which spares the
+        resident split a per-id table search; a ragged window's stream
+        (``out_shape`` (-1,)) takes the search."""
         ids_np = np.ascontiguousarray(np.asarray(ids), dtype=np.int32)
         if uniform_fbp is not None and self.resident_tables:
             Pw, Fw, Bp = uniform_fbp
@@ -581,7 +585,7 @@ class CachedEmbeddingBag:
         return self.to_device(ws.slot_ids)
 
     def lookup(self, features: RaggedFeatures) -> torch.Tensor:
-        """Pooled lookup of device-address features: (B, F, D)."""
+        """Pooled lookup of device-address features, uniform or ragged: (B, F, D)."""
         return embedding_bag(self.cache_weight, features, mode=self.mode)
 
     # -- flush ----------------------------------------------------------------

@@ -3,8 +3,11 @@
 
   * DenseArch — MLP with ReLU on every layer.
   * InteractionArch — concat [dense_emb, sparse (B, F, D)], pairwise dot
-    products by batched matmul, upper-triangle (offset 1) flatten, concat with
-    dense_emb.
+    products, upper-triangle (offset 1) flatten, concat with dense_emb.
+    ``interaction_impl`` picks the JAX package's two custom VJPs: "bmm"
+    (``_PairwiseDots``, the (B, n, n) dots) or "gather"
+    (``_PairwiseTriuGather``, the (B, pairs) dots with a backward through
+    the (pairs, n*n) symmetrising matrix).
   * OverArch — MLP with ReLU on all but the final linear layer.
 
 Numerics follow the JAX package so that both give the same values:
@@ -12,7 +15,8 @@ Numerics follow the JAX package so that both give the same values:
     f32 accumulation, adds the f32 bias, and rounds once to the compute dtype
     (``_linear``); the logits head stays f32;
   * the interaction's backward rounds the symmetrized cotangent to the
-    operand dtype before its grad-dot (``_PairwiseDots``).
+    operand dtype before its grad-dot (``_PairwiseDots``,
+    ``_PairwiseTriuGather``).
 Exact products of bf16 operands fit an f32 mantissa, so the f32 matmul of the
 rounded operands is the f32-accumulated bf16 matmul.
 
@@ -155,6 +159,44 @@ class _PairwiseDots(torch.autograd.Function):
         return d.to(combined.dtype)
 
 
+def gsym_matrix(n: int) -> torch.Tensor:
+    """(pairs, n*n) f32 0/1 matrix scattering a triu-pair cotangent to both
+    (r, c) and (c, r): ``g @ M`` reshaped is (G + G^T) of the triu-only
+    cotangent (the JAX package's ``_gsym_matrix``)."""
+    r, c = np.triu_indices(n, k=1)
+    m = np.zeros((r.size, n * n), np.float32)
+    m[np.arange(r.size), r * n + c] = 1.0
+    m[np.arange(r.size), c * n + r] = 1.0
+    return torch.from_numpy(m)
+
+
+class _PairwiseTriuGather(torch.autograd.Function):
+    """(B, pairs) f32 upper-triangle pairwise dots of a (B, n, D)
+    compute-dtype input, with the JAX package's backward (``_ptg_bwd``): the
+    cotangent rounded to the operand dtype, symmetrised by the 0/1 matrix
+    with f32 accumulation and rounded again, then the grad-dot in f32,
+    rounded to the operand dtype. JAX computes the pairs as a fused gather
+    and multiply-reduce; PyTorch would materialise the two (B, pairs, D)
+    gathers, so the pairs come from the f32 batched matmul (exact products of
+    the rounded operands, f32 sums in another order)."""
+
+    @staticmethod
+    def forward(ctx, combined: torch.Tensor, triu_r: torch.Tensor, triu_c: torch.Tensor,
+                gsym: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(combined, gsym)
+        c = combined.float()
+        return torch.bmm(c, c.transpose(1, 2))[:, triu_r, triu_c]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        combined, gsym_m = ctx.saved_tensors
+        B, n, _ = combined.shape
+        dt = combined.dtype
+        gsym = (g.to(dt).float() @ gsym_m).reshape(B, n, n).to(dt)
+        d = torch.bmm(gsym.float(), combined.float())
+        return d.to(dt), None, None, None
+
+
 class DLRM(nn.Module):
     """DLRM dense modules: logits (B,) from dense features (B, Din) and pooled
     sparse embeddings (B, F, D)."""
@@ -173,10 +215,9 @@ class DLRM(nn.Module):
         device=None,
     ):
         super().__init__()
-        if interaction_impl != "bmm":
-            raise NotImplementedError(
-                "interaction_impl='gather' is ROADMAP Queue 1 item 3 (models)"
-            )
+        if interaction_impl not in ("bmm", "gather"):
+            raise ValueError(f"unknown interaction_impl {interaction_impl!r}")
+        self.interaction_impl = interaction_impl
         self.compute_dtype = compute_dtype
         params = init_dlrm_dense(
             seed, embedding_dim, num_sparse_features, dense_in_features,
@@ -197,6 +238,7 @@ class DLRM(nn.Module):
         r, c = np.triu_indices(n, k=1)
         self.register_buffer("_triu_r", torch.as_tensor(r, dtype=torch.long, device=device), persistent=False)
         self.register_buffer("_triu_c", torch.as_tensor(c, dtype=torch.long, device=device), persistent=False)
+        self.register_buffer("_gsym", gsym_matrix(n).to(device), persistent=False)
 
     def interaction(self, dense_emb: Optional[torch.Tensor], sparse_bfd: torch.Tensor) -> torch.Tensor:
         """(B, D + pairs) with the dense embedding, else (B, pairs)."""
@@ -205,7 +247,10 @@ class DLRM(nn.Module):
             combined = torch.cat([dense_emb[:, None, :].to(dt), sparse_bfd.to(dt)], dim=1)
         else:
             combined = sparse_bfd.to(dt)
-        flat = _PairwiseDots.apply(combined)[:, self._triu_r, self._triu_c]
+        if self.interaction_impl == "gather":
+            flat = _PairwiseTriuGather.apply(combined, self._triu_r, self._triu_c, self._gsym)
+        else:
+            flat = _PairwiseDots.apply(combined)[:, self._triu_r, self._triu_c]
         if dense_emb is not None:
             return torch.cat([dense_emb, flat], dim=1)  # promotes to f32
         return flat

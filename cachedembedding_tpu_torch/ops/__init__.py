@@ -1,6 +1,7 @@
 """Device ops of the port: the CUDA kernels (gather_rows, binned_sgd with its
 SGD and Adagrad entries, binned_scatter_add, stochastic_round,
-ordered_scatter_add) and the plain tensor ops around them."""
+ordered_scatter_add with its ordered_grad_update entry) and the plain tensor
+ops around them."""
 
 
 def kernel_wrappers() -> dict:
@@ -13,12 +14,13 @@ def kernel_wrappers() -> dict:
         binned_sgd_update,
     )
     from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-    from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_scatter_add_
+    from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_scatter_add_
     from cachedembedding_tpu_torch.ops.rounding import stochastic_astype, stochastic_sgd_round_
 
     return {"gather_rows": gather_rows, "binned_sgd": binned_sgd_update, "binned_adagrad": binned_adagrad_update,
             "binned_scatter_add": binned_scatter_add, "stochastic_round": stochastic_astype,
-            "stochastic_sgd_round": stochastic_sgd_round_, "ordered_scatter_add": ordered_scatter_add_}
+            "stochastic_sgd_round": stochastic_sgd_round_, "ordered_scatter_add": ordered_scatter_add_,
+            "ordered_grad_update": ordered_grad_update_}
 
 
 def launch_counts() -> dict:

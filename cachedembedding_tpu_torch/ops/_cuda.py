@@ -50,6 +50,10 @@ _PROTOTYPES = {
         "ordered_scatter_add", "ordered_scatter_add_launch",
         [_P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
     ),
+    "ordered_grad_update": (
+        "ordered_scatter_add", "ordered_grad_update_launch",
+        [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P],
+    ),
 }
 
 

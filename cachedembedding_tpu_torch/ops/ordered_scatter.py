@@ -1,5 +1,6 @@
-"""The update of the JAX trainer's sparse-gradient branch: an ordered
-scatter-add into rows of the storage dtype (Kernel 5 of the port).
+"""Ordered adds into rows of the storage dtype (Kernel 5 of the port): the
+update of the JAX trainer's sparse-gradient branch, and the update of its
+dense branch on ragged windows.
 
 Counterpart of ``cw.at[v].add((-slr * g.astype(f32)).astype(cw.dtype))`` in
 ``cachedembedding_tpu/train/trainer.py`` (``_scan_window``), which XLA lowers
@@ -25,12 +26,32 @@ registers, with no atomics: it gives the plain version's bits, and the same
 bits on every launch. On a plan not sorted by id it stops with a
 device-side assert.
 
-On a CPU tensor the wrapper runs the plain PyTorch version, which applies the
-k-th contributor of every row in one indexed write, for k = 0, 1, ...; on a
-CUDA tensor it launches the kernel or raises.
+The dense branch of a ragged window (``_scan_window``'s final ``else``)
+differentiates with respect to the whole ``cw`` in its storage dtype: the
+f32 row grads are cast to ``cw.dtype``, the transpose of the row gather adds
+them **in that dtype, into zero rows, in stream order**, and only then does
+the f32 update round each row once. ``ordered_grad_update_`` walks the same
+plan and computes exactly that, with no (C, D) grad:
+
+    ordered_grad_update_(cw, accum, g, perm, v_grouped, slr, eps)
+        s_v = +0;  for i in stream order with v_i = v:  s_v = round(s_v + g[i])
+        SGD (accum None):  cw[v] = round(cw[v] - slr * s_v)
+        row-wise Adagrad:  accum[v] += mean(s_v * s_v)
+                           cw[v] = round(cw[v] - slr * (s_v / (sqrt(accum[v]) + eps)))
+
+Untouched rows are not visited (JAX's ``cw - slr * 0`` leaves them equal).
+So fp8 rows accumulate their ragged grads in fp8: that is JAX's function.
+On the card the Adagrad entry needs the row in one warp: D <= 128 (D <= 32
+where D is not a multiple of 4).
+
+On a CPU tensor each wrapper runs its plain PyTorch version, which applies
+the k-th contributor of every row in one indexed write, for k = 0, 1, ...;
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -38,6 +59,27 @@ from cachedembedding_tpu_torch.ops import _cuda
 from cachedembedding_tpu_torch.ops.rounding import astype_storage, index_copy_storage_, index_select_f32
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+
+
+def _check_plan(name: str, cw, g, perm, v_grouped) -> None:
+    C, D = cw.shape
+    L = g.shape[0]
+    if g.shape != (L, D) or perm.shape != (L,) or v_grouped.shape != (L,):
+        raise ValueError(f"{name}: g (L, D), perm (L,) and v_grouped (L,) must agree")
+    if g.dtype != cw.dtype:
+        raise ValueError(f"g is {g.dtype}, cw is {cw.dtype}: {name} takes grads in the rows' dtype")
+
+
+def _check_cuda(name: str, tensors) -> None:
+    cw = tensors[0]
+    if any(t.device != cw.device for t in tensors) or cw.device.type != "cuda":
+        raise ValueError(f"{name}: all tensors must be on the same CUDA device")
+    if cw.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} supports float32, bfloat16 and fp8 rows, not {cw.dtype}")
+    if any(t.dtype != torch.int32 for t in tensors[-2:]):
+        raise ValueError("perm and v_grouped must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
 
 
 def occurrence_rank(v_grouped: torch.Tensor) -> torch.Tensor:
@@ -73,23 +115,12 @@ def ordered_scatter_add_(
     slr: float,                # sparse learning rate
 ) -> torch.Tensor:
     """cw[v_i] = round(cw[v_i] + round(-slr * g[i])) in stream order; returns cw."""
-    C, D = cw.shape
-    L = g.shape[0]
-    if g.shape != (L, D) or perm.shape != (L,) or v_grouped.shape != (L,):
-        raise ValueError("ordered_scatter_add_: g (L, D), perm (L,) and v_grouped (L,) must agree")
-    if g.dtype != cw.dtype:
-        raise ValueError(f"g is {g.dtype}, cw is {cw.dtype}: the sparse branch takes grads in the rows' dtype")
+    _check_plan("ordered_scatter_add_", cw, g, perm, v_grouped)
     tensors = (cw, g, perm, v_grouped)
     if all(t.device.type == "cpu" for t in tensors):
         return ordered_scatter_add_plain(cw, g, perm, v_grouped, float(slr))
-    if any(t.device != cw.device for t in tensors) or cw.device.type != "cuda":
-        raise ValueError("ordered_scatter_add_: all tensors must be on the same CUDA device")
-    if cw.dtype not in _DTYPE_CODES:
-        raise ValueError(f"ordered_scatter_add_ supports float32, bfloat16 and fp8 rows, not {cw.dtype}")
-    if any(t.dtype != torch.int32 for t in (perm, v_grouped)):
-        raise ValueError("perm and v_grouped must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ordered_scatter_add_ needs contiguous tensors")
+    _check_cuda("ordered_scatter_add_", tensors)
+    L, D = g.shape
     rc = _cuda.kernel_entry("ordered_scatter_add")(
         cw.data_ptr(), g.data_ptr(), perm.data_ptr(), v_grouped.data_ptr(), L, D, -float(slr),
         _DTYPE_CODES[cw.dtype], _cuda.stream_of(cw),
@@ -100,3 +131,70 @@ def ordered_scatter_add_(
 
 
 ordered_scatter_add_.launches = 0
+
+
+def ordered_grad_update_plain(
+    cw: torch.Tensor, accum: Optional[torch.Tensor], g: torch.Tensor, perm: torch.Tensor,
+    v_grouped: torch.Tensor, slr: float, eps: float = 0.0,
+) -> torch.Tensor:
+    """Plain PyTorch version (in place on ``cw`` and ``accum``): each touched
+    row's grads summed rank by rank into a zero row, each add rounded to
+    cw's dtype, then the f32 epilogue. The elements are sorted by rank once,
+    so rank k is one slice."""
+    if v_grouped.numel() == 0:
+        return cw
+    rows, run_of = torch.unique_consecutive(v_grouped.long(), return_inverse=True)
+    rank = occurrence_rank(v_grouped)
+    order = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist()
+    gs = index_select_f32(g, perm.long().index_select(0, order))
+    run_o = run_of.index_select(0, order)
+    s = torch.zeros((rows.numel(), cw.shape[1]), dtype=torch.float32, device=cw.device)
+    start = 0
+    for n in sizes:
+        j = run_o[start:start + n]
+        s.index_copy_(0, j, astype_storage(s.index_select(0, j) + gs[start:start + n], cw.dtype).float())
+        start += n
+    if accum is not None:
+        a = accum.index_select(0, rows) + torch.mean(s * s, dim=1)
+        accum.index_copy_(0, rows, a)
+        # torch's f32 sqrt on the CPU is not always correctly rounded (JAX's
+        # and __fsqrt_rn are); from f64 it is
+        s = s / (torch.sqrt(a.double()).float() + eps)[:, None]
+    index_copy_storage_(cw, rows, index_select_f32(cw, rows) - slr * s)
+    return cw
+
+
+def ordered_grad_update_(
+    cw: torch.Tensor,                # (C, D) rows, updated in place
+    accum: Optional[torch.Tensor],   # (C,) f32 row-wise Adagrad accumulators (in place), or None: SGD
+    g: torch.Tensor,                 # (L, D) row grads in stream order, cw's dtype
+    perm: torch.Tensor,              # (L,) int32 permutation sorting the stream stably by id
+    v_grouped: torch.Tensor,         # (L,) int32 ids, sorted
+    slr: float,                      # sparse learning rate
+    eps: float = 0.0,                # Adagrad's epsilon
+) -> torch.Tensor:
+    """The dense ragged update: each touched row's grads summed in cw's dtype
+    in stream order from +0, then ``cw = round(cw - slr * s)`` (SGD) or
+    row-wise Adagrad on s; returns cw."""
+    _check_plan("ordered_grad_update_", cw, g, perm, v_grouped)
+    if accum is not None and (accum.shape != (cw.shape[0],) or accum.dtype != torch.float32):
+        raise ValueError(f"accum must be ({cw.shape[0]},) float32, not {tuple(accum.shape)} {accum.dtype}")
+    tensors = tuple(t for t in (cw, accum, g, perm, v_grouped) if t is not None)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ordered_grad_update_plain(cw, accum, g, perm, v_grouped, float(slr), float(eps))
+    _check_cuda("ordered_grad_update_", tensors)
+    L, D = g.shape
+    if accum is not None and (D > 128 or (D % 4 and D > 32)):
+        raise ValueError(f"the Adagrad entry takes each row in one warp: D <= 128 (D <= 32 where D is not "
+                         f"a multiple of 4), not {D}")
+    rc = _cuda.kernel_entry("ordered_grad_update")(
+        cw.data_ptr(), 0 if accum is None else accum.data_ptr(), g.data_ptr(), perm.data_ptr(),
+        v_grouped.data_ptr(), L, D, float(slr), float(eps), _DTYPE_CODES[cw.dtype], _cuda.stream_of(cw),
+    )
+    _cuda.check_launch("ordered_grad_update", rc)
+    ordered_grad_update_.launches += 1
+    return cw
+
+
+ordered_grad_update_.launches = 0

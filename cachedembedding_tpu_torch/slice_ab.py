@@ -22,8 +22,9 @@ import sys
 STEPS = 24
 
 
-def profile_window(tr, cfg) -> dict:
-    """Train one more window of ``tr`` under torch.profiler and return its
+def profile_window(tr, cfg, data=None) -> dict:
+    """Train one more window of ``tr`` (on ``data``, a window of batches, or
+    the slice's synthetic stream) under torch.profiler and return its
     device busy time (the union of its kernels' and copies' intervals), the
     span from the first to the last of them, the idle share of that span,
     and the device ms of its heaviest kernels, a window's total. Profiling
@@ -36,7 +37,8 @@ def profile_window(tr, cfg) -> dict:
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
 
     P = cfg.cache.prefetch_num
-    data = SyntheticLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, P, skew=0.5, seed=9)
+    if data is None:
+        data = SyntheticLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, P, skew=0.5, seed=9)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tr.train(data, num_iters=P)

@@ -1,6 +1,6 @@
 """Single-device trainer: cached embedding + DLRM or DeepFM dense towers
-(counterpart of ``cachedembedding_tpu/train/trainer.py``, uniform-window
-slice).
+(counterpart of ``cachedembedding_tpu/train/trainer.py``, single-device
+slice: uniform and ragged windows).
 
 Far-sighted prefetch: every ``prefetch_num`` batches form a window whose ids
 are planned once by the host directory. Per window, in order:
@@ -56,6 +56,27 @@ seed. For f32 rows that branch reduces to ``cw - slr * g`` (rounding to f32
 is the identity), which Kernel 2 computes without the (C, D) f32 grad: f32
 rows take Kernel 2 whether rounding is on or not.
 
+**Ragged windows** (variable pooling, the fbgemm-trace workload of
+``data/synth.py``; any window with a batch that carries offsets) follow the
+JAX trainer's ``_begin_window_ragged`` and ``_scan_window(ragged=True)``:
+each step's flat feature-major slot-id stream is gathered by Kernel 1, upcast
+to f32 and summed into its bags (``ops/embedding_bag.pool_ragged``); the
+grads w.r.t. the gathered rows are cast to the rows' dtype, and the step's
+plan sorts the flat stream by row. JAX pads each step to ``Vp =
+_bucket(max step count, lo=2048)``; the port needs no padding but computes
+``Vp``, because the branch rule reads it: the **sparse** branch (Kernel 5's
+ordered scatter; Kernel 2 on f32 rows) when ``accum is None and
+(use_sparse_embed_grad or device_rows > 4 * Vp)``, else the **dense**
+branch, where JAX differentiates w.r.t. the whole ``cw`` in its storage
+dtype: the grads add **in that dtype**, in stream order, into zero rows, and
+the f32 SGD or Adagrad update rounds each row once (Kernel 5's
+``ordered_grad_update_``). No plan branch, and no stochastic rounding: fp8
+rows with rounding on are cast plainly on ragged windows, as in JAX. A
+fully resident table (``embed_override``) trains ragged batches with JAX's
+per-step function (``_dispatch_train``): always dense, its dense features in
+f32; JAX runs that function with SGD whatever the optimizer, so row-wise
+Adagrad there is refused.
+
 The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
 back once, at the end. ``evaluate`` runs the same window machinery with the
@@ -84,9 +105,9 @@ from cachedembedding_tpu_torch.ops.binned_scatter import (
     binned_sgd_update,
     sort_plan_np,
 )
-from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
+from cachedembedding_tpu_torch.ops.embedding_bag import pool_ragged, pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
-from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_scatter_add_
+from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_scatter_add_
 from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sgd_round_
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
@@ -107,8 +128,9 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
         raise ValueError(f"unknown embedding_optimizer {cfg.embedding_optimizer!r}")
     if cached and c.cache_dtype not in CACHE_DTYPES:
         raise ValueError(f"cache_dtype={c.cache_dtype!r}: the cache stores {', '.join(CACHE_DTYPES)} rows")
+    if cfg.interaction_impl not in ("bmm", "gather"):
+        raise ValueError(f"unknown interaction_impl {cfg.interaction_impl!r}")
     refusals = [
-        (cfg.interaction_impl != "bmm", "interaction_impl='gather' is ROADMAP Queue 1 item 3"),
         (tuple(cfg.mesh_shape) != (1,) or cfg.use_tablewise,
          "the mesh (data/model parallel) is ROADMAP Queue 1 item 9"),
         (cfg.compute_dtype not in _FLOAT_DTYPES, f"compute_dtype={cfg.compute_dtype!r} is not supported"),
@@ -123,12 +145,27 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
             raise NotImplementedError(msg)
 
 
-def update_branch(cfg: DLRMConfig, adagrad: bool, device_rows: int, ids_per_step: int) -> str:
-    """The JAX trainer's update branch for a uniform window ("plan", "sparse"
-    or "dense"): the plan branch where the host ships sort plans, else the
-    sparse-gradient branch where ``accum is None and (use_sparse_embed_grad
-    or device_rows > 4 * L) and not sr`` (its ``_dispatch_window``), else the
-    dense branch."""
+def bucket(n: int, lo: int = 2048) -> int:
+    """The JAX cache's ``_bucket``: n rounded up to a power of two, at least lo."""
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
+
+
+def update_branch(cfg: DLRMConfig, adagrad: bool, device_rows: int, ids_per_step: int,
+                  ragged: bool = False) -> str:
+    """The JAX trainer's update branch for a window ("plan", "sparse" or
+    "dense", its ``_dispatch_window``). Uniform windows: the plan branch where
+    the host ships sort plans, else the sparse-gradient branch where ``accum
+    is None and (use_sparse_embed_grad or device_rows > 4 * L) and not sr``,
+    else the dense branch. Ragged windows (``ids_per_step`` is then ``Vp``):
+    the sparse branch where ``accum is None and (use_sparse_embed_grad or
+    device_rows > 4 * Vp)``, else the dense branch; JAX reads neither the
+    plan option nor stochastic rounding there."""
+    if ragged:
+        sparse = not adagrad and (cfg.use_sparse_embed_grad or device_rows > 4 * ids_per_step)
+        return "sparse" if sparse else "dense"
     if cfg.cache.ship_sort_perm:
         return "plan"
     if (not adagrad and (cfg.use_sparse_embed_grad or device_rows > 4 * ids_per_step)
@@ -149,14 +186,31 @@ class TrainReport:
 
 
 class _Window(NamedTuple):
-    """One staged window, its inputs already enqueued to the device."""
+    """One staged window, its inputs already enqueued to the device. A
+    ragged window's steps are slices of flat arrays: step p's ids are
+    ``slot_ids[bounds[p]:bounds[p + 1]]``, and so are its plan's perm and
+    grouped ids."""
 
     staging: WindowStaging
-    slot_ids: torch.Tensor  # (P, L) int32 feature-major device addresses
+    slot_ids: torch.Tensor  # (P, L) int32 feature-major device addresses; ragged: flat
     dense: torch.Tensor     # (P, B, Din) float32
     labels: torch.Tensor    # (P, B) float32
     plan: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # perm, grouped, bins
     plan_s: float  # host seconds spent in the update plans
+    bounds: Optional[List[int]] = None       # ragged: (P + 1,) step boundaries
+    lengths: Optional[torch.Tensor] = None   # ragged: (P, F*B) int32 ids per bag
+    in_bags: Optional[List[int]] = None      # ragged: (P,) ids a step inside its bags
+    vp: int = 0                              # ragged: JAX's padded ids a step
+
+    def step_ids(self, p: int) -> torch.Tensor:
+        return self.slot_ids[p] if self.bounds is None else self.slot_ids[self.bounds[p]:self.bounds[p + 1]]
+
+    def step_plan(self, p: int):
+        perm, grouped, bins = self.plan
+        if self.bounds is None:
+            return perm[p], grouped[p], bins[p]
+        a, b = self.bounds[p], self.bounds[p + 1]
+        return perm[a:b], grouped[a:b], bins[p]
 
 
 def _model_loss(model: str, out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -255,25 +309,25 @@ class CachedDLRMTrainer:
 
     def _begin_window(self, batches: List[Batch], with_plan: bool = True,
                       dense_dtype: Optional[torch.dtype] = None) -> _Window:
-        """Plan and stage a uniform window, then enqueue its inputs to the
-        device: remapped ids, dense features (in ``dense_input_dtype``),
-        labels, and (``with_plan``) per-step grouping plans for the update."""
+        """Plan and stage a window, then enqueue its inputs to the device:
+        remapped ids, dense features (in ``dense_input_dtype``), labels, and
+        (``with_plan``) per-step grouping plans for the update. A window
+        whose batches all share one pooling factor and carry no offsets is
+        uniform; any other is ragged."""
         f0 = batches[0].sparse_features
         F, B, Pool = f0.num_features, f0.batch_size, f0.pooling
-        if Pool is None or any(
-            b.sparse_features.pooling != Pool or b.sparse_features.offsets is not None
-            or b.sparse_features.num_features != F or b.sparse_features.batch_size != B
-            for b in batches
-        ):
-            raise NotImplementedError("ragged windows are ROADMAP Queue 1 item 7")
+        if any(b.sparse_features.num_features != F or b.sparse_features.batch_size != B for b in batches):
+            raise NotImplementedError("a window's batches must share their feature count and batch size")
+        if Pool is None or any(b.sparse_features.pooling != Pool or b.sparse_features.offsets is not None
+                               for b in batches):
+            return self._begin_window_ragged(batches, with_plan, dense_dtype)
         P = len(batches)
         all_ids = concat_uniform_values(batches)
         L = all_ids.shape[0] // P
         N = L // F
         ws = self.embed.begin_window_staging(all_ids, (P, L), uniform_fbp=(P, F, N))
         to_dev = self.embed.to_device
-        dense = torch.stack([b.dense_features for b in batches]).to(dense_dtype or self._dense_dtype)
-        labels = torch.stack([b.labels for b in batches]).to(torch.uint8)
+        dense, labels = self._dense_and_labels(batches, dense_dtype)
         plan, plan_s = None, 0.0
         if with_plan:
             NR = self._device_rows()
@@ -282,13 +336,53 @@ class CachedDLRMTrainer:
             steps = [sort_plan_np(ws.slot_ids[p].reshape(F, N).T, NR) for p in range(P)]
             plan_s = time.perf_counter() - t0
             plan = tuple(to_dev(np.stack(a)) for a in zip(*steps))
+        return _Window(staging=ws, slot_ids=to_dev(ws.slot_ids), dense=dense, labels=labels, plan=plan,
+                       plan_s=plan_s)
+
+    def _dense_and_labels(self, batches: List[Batch], dense_dtype: Optional[torch.dtype]):
+        """A window's (P, B, Din) dense features, shipped in ``dense_dtype``
+        (default ``dense_input_dtype``), and (P, B) labels, as f32 on the
+        device."""
+        to_dev = self.embed.to_device
+        dense = torch.stack([b.dense_features for b in batches]).to(dense_dtype or self._dense_dtype)
+        labels = torch.stack([b.labels for b in batches]).to(torch.uint8)
+        return to_dev(dense).float(), to_dev(labels).float()
+
+    def _begin_window_ragged(self, batches: List[Batch], with_plan: bool,
+                             dense_dtype: Optional[torch.dtype]) -> _Window:
+        """A ragged window (the JAX trainer's ``_begin_window_ragged``): the
+        steps' flat feature-major id streams planned as one, their per-bag
+        lengths, and per step a plan that sorts the step's flat stream (the
+        order of its gathered rows) by row. A fully resident table ships
+        f32 dense features, as JAX's per-step path does."""
+        P = len(batches)
+        vals = [b.sparse_features.values.numpy() for b in batches]
+        bounds = np.concatenate([[0], np.cumsum([v.shape[0] for v in vals])]).astype(np.int64)
+        ws = self.embed.begin_window_staging(np.concatenate(vals), (-1,))
+        lengths = np.stack([b.sparse_features.lengths().numpy() for b in batches]).astype(np.int32)
+        to_dev = self.embed.to_device
+        if dense_dtype is None and not isinstance(self.embed, CachedEmbeddingBag):
+            dense_dtype = torch.float32
+        dense, labels = self._dense_and_labels(batches, dense_dtype)
+        plan, plan_s = None, 0.0
+        if with_plan:
+            NR = self._device_rows()
+            t0 = time.perf_counter()
+            steps = [sort_plan_np(ws.slot_ids[bounds[p]:bounds[p + 1]], NR) for p in range(P)]
+            plan_s = time.perf_counter() - t0
+            perm, grouped, bins = zip(*steps)
+            plan = (to_dev(np.concatenate(perm)), to_dev(np.concatenate(grouped)), to_dev(np.stack(bins)))
         return _Window(
             staging=ws,
             slot_ids=to_dev(ws.slot_ids),
-            dense=to_dev(dense).float(),
-            labels=to_dev(labels).float(),
+            dense=dense,
+            labels=labels,
             plan=plan,
             plan_s=plan_s,
+            bounds=[int(x) for x in bounds],
+            lengths=to_dev(lengths),
+            in_bags=[int(x) for x in lengths.sum(axis=1, dtype=np.int64)],
+            vp=bucket(int(np.diff(bounds).max())),
         )
 
     def _finish_window(self, win: _Window) -> None:
@@ -297,13 +391,32 @@ class CachedDLRMTrainer:
         self.embed.enqueue_writebacks(win.staging)
 
     def _gathered_rows(self, win: _Window, p: int) -> torch.Tensor:
-        """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype."""
-        return gather_rows(self.embed.cache_weight, win.slot_ids[p], self.cfg.num_sparse_features)
+        """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype;
+        on a ragged window the flat (L_p, D) rows in stream order."""
+        if win.bounds is not None:
+            return gather_rows(self.embed.cache_weight, win.step_ids(p), 1)[:, 0]
+        return gather_rows(self.embed.cache_weight, win.step_ids(p), self.cfg.num_sparse_features)
+
+    def _pool_ragged(self, win: _Window, p: int, rows: torch.Tensor, count_dtype: torch.dtype) -> torch.Tensor:
+        """Step p's bags of a ragged window: (B, F, D) f32 from its flat rows."""
+        F, B = self.cfg.num_sparse_features, win.labels.shape[1]
+        lengths, n = win.lengths[p], win.in_bags[p]
+        # each id's bag; ids past the last offset go to bag F*B, which pooling drops
+        seg = torch.full((rows.shape[0],), F * B, dtype=torch.int64, device=rows.device)
+        seg[:n] = torch.repeat_interleave(torch.arange(F * B, device=rows.device), lengths.long(), output_size=n)
+        pooled = pool_ragged(rows, seg, lengths, F * B, self.cfg.reduction_mode, count_dtype)
+        return pooled.reshape(F, B, -1).transpose(0, 1)
 
     def branch_of(self, win: _Window) -> str:
-        """The JAX trainer's update branch for ``win`` (``update_branch``)."""
-        return update_branch(self.cfg, self.embed.cache_accum is not None, self._device_rows(),
-                             win.slot_ids.shape[1])
+        """The JAX trainer's update branch for ``win`` (``update_branch``). A
+        fully resident table trains ragged batches by JAX's per-step
+        function, which is always dense."""
+        adagrad = self.embed.cache_accum is not None
+        if win.bounds is None:
+            return update_branch(self.cfg, adagrad, self._device_rows(), win.slot_ids.shape[1])
+        if not isinstance(self.embed, CachedEmbeddingBag):
+            return "dense"
+        return update_branch(self.cfg, adagrad, self._device_rows(), win.vp, ragged=True)
 
     def _upcasts(self, branch: str, cw: torch.Tensor, pooling: int) -> bool:
         """Whether the gradient is taken w.r.t. the f32 upcast of the rows:
@@ -354,15 +467,41 @@ class CachedDLRMTrainer:
         else:
             binned_sgd_update(cw, g, perm, grouped, bins, slr)
 
+    def _ragged_update(self, cw, g, perm, grouped, bins, slr: float, branch: str) -> None:
+        """The update of one step of a ragged window, in place on ``cw`` (and
+        the accumulators), from the grads in the rows' dtype: the sparse
+        branch as on uniform windows, else Kernel 5's ``ordered_grad_update_``
+        (the grads summed in the rows' dtype, then SGD or row-wise Adagrad)."""
+        if branch == "sparse":
+            self._update(cw, g, perm, grouped, bins, slr, branch)
+        else:
+            ordered_grad_update_(cw, self.embed.cache_accum, g, perm, grouped, slr, self.cfg.adagrad_eps)
+
+    def _pooled(self, win: _Window, p: int, rows: torch.Tensor, count_dtype: torch.dtype) -> torch.Tensor:
+        """Step p's (B, F, D) bags from its gathered rows."""
+        if win.bounds is not None:
+            return self._pool_ragged(win, p, rows, count_dtype)
+        return pool_uniform(rows, win.labels.shape[1], self.cfg.reduction_mode)
+
     def _dispatch_window(self, win: _Window, progresses: List[float]) -> torch.Tensor:
         """Land the admits and enqueue every step of the window. Returns the
         (P,) per-step losses (device tensor, not yet read back)."""
+        ragged = win.bounds is not None
+        resident = not isinstance(self.embed, CachedEmbeddingBag)
+        if ragged and resident and self.embed.cache_accum is not None:
+            raise NotImplementedError(
+                "row-wise Adagrad on a fully resident table with ragged batches: the JAX trainer trains "
+                "them by its per-step function, which ignores the accumulators (ROADMAP Queue 3)")
         self.embed.apply_admits(win.staging)
         cw = self.embed.cache_weight
-        perms, groupeds, bins = win.plan
         B = win.labels.shape[1]
         branch = self.branch_of(win)
-        upcast = self._upcasts(branch, cw, win.slot_ids.shape[1] // (B * self.cfg.num_sparse_features))
+        # ragged windows: the grads of the f32 upcast, cast to the rows' dtype
+        # (JAX differentiates w.r.t. the storage-dtype rows); no rounding branch
+        upcast = ragged or self._upcasts(branch, cw, win.slot_ids.shape[1] // (B * self.cfg.num_sparse_features))
+        # a ragged bag's mean divides by a count summed in the rows' dtype
+        # (JAX's embedding_bag), in f32 on the sparse branch
+        count_dtype = torch.float32 if branch == "sparse" else cw.dtype
         params = list(self.model.parameters())
         losses = []
         for p, progress in enumerate(progresses):
@@ -371,15 +510,19 @@ class CachedDLRMTrainer:
             if upcast:
                 rows = rows.float()
             rows.requires_grad_(True)
-            sparse = pool_uniform(rows, B, self.cfg.reduction_mode)
+            sparse = self._pooled(win, p, rows, count_dtype)
             loss = _model_loss(self.cfg.model, self.model(win.dense[p], sparse), win.labels[p])
             loss.backward()
             g_rows = rows.grad.reshape(-1, cw.shape[1])
-            if self._sr:
+            perm, grouped, bins = win.step_plan(p)
+            if ragged:
+                g = g_rows if g_rows.dtype == cw.dtype else astype_storage(g_rows, cw.dtype)
+                self._ragged_update(cw, g, perm, grouped, bins, slr, branch)
+            elif self._sr:
                 seed = (self._step_idx * _SEED_MUL + p) & _M32
-                self._sr_update(cw, g_rows, perms[p], groupeds[p], bins[p], slr, seed, branch)
+                self._sr_update(cw, g_rows, perm, grouped, bins, slr, seed, branch)
             else:
-                self._update(cw, g_rows, perms[p], groupeds[p], bins[p], slr, branch)
+                self._update(cw, g_rows, perm, grouped, bins, slr, branch)
             with torch.no_grad():
                 for prm in params:
                     prm.sub_(prm.grad * dlr)
@@ -388,7 +531,7 @@ class CachedDLRMTrainer:
         return torch.stack(losses)
 
     def train(self, data: Iterable[Batch], num_iters: Optional[int] = None, log_every: int = 0) -> TrainReport:
-        """Pipelined far-sighted training over uniform windows. With
+        """Pipelined far-sighted training over uniform or ragged windows. With
         ``log_every``, prints ``it {done}: loss=... hit_rate=...`` whenever
         the steps done cross a multiple of it (a readback of the last loss)."""
         pn = max(1, self.cfg.cache.prefetch_num)
@@ -499,9 +642,8 @@ class CachedDLRMTrainer:
             win = self._begin_window(window, with_plan=False, dense_dtype=eval_dense)
             self._finish_window(win)
             self.embed.apply_admits(win.staging)
-            B = win.labels.shape[1]
             for p in range(len(window)):
-                sparse = pool_uniform(self._gathered_rows(win, p), B, self.cfg.reduction_mode)
+                sparse = self._pooled(win, p, self._gathered_rows(win, p), self.embed.cache_weight.dtype)
                 pending.append(_model_probs(self.cfg.model, self.model(win.dense[p], sparse)))
             pending_labels.append(np.concatenate([b.labels.numpy() for b in window]))
             if len(pending) >= _EVAL_READBACK_STEPS:

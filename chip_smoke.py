@@ -9,12 +9,15 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
   1. Build: the host C++ library (g++) and each CUDA kernel (nvcc, sm_90a),
      all started together, from the sources in the checkout into
      ``cachedembedding_tpu_torch/build/``.
-  2. Reference: six small slices (REFERENCE_SLICES), each trained 6
-     windows and evaluated on the card and on the CPU (the kernels' plain
-     versions) from the same seed, through a cache of 480 slots that evicts
-     trained rows and admits them again (which holds the writeback ordering
-     to account), f32 compute; the card's run must launch its update
-     kernels once a step and no other:
+  2. Reference: twelve small slices (REFERENCE_SLICES), each trained 24
+     steps and evaluated on the card and on the CPU (the kernels' plain
+     versions) from the same seed, through a cache that evicts trained rows
+     and admits them again (which holds the writeback ordering to account),
+     f32 compute; the card's run must launch its update kernels once a step
+     and no other. The uniform ones (a-f, and l) take 4 tables of 50-20,000
+     rows, batch 256, a 480-slot cache; the ragged ones (g-k) the
+     fbgemm-trace replayer on tests/test_ragged_window.py's shape (3 tables
+     of 500 rows, bags of 0-5 ids, batch 64, a 750-slot cache):
        a. f32 rows (Kernels 1, 2): cache counts equal; losses, AUROC and
           dense weights within f32 order; the flushed rows of every id the
           training stream touched within 1e-5;
@@ -32,7 +35,16 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
           an f32 GEMM difference can flip a grad's bf16 rounding);
        e. float8_e4m3fn rows with rounding off (Kernel 2 on fp8 grads) and
        f. float8_e5m2 rows with rounding on (Kernels 3, 4): the gates of (b)
-          in steps of the rows' dtype.
+          in steps of the rows' dtype;
+       g. ragged, bf16 rows (the dense ragged branch: Kernel 5's
+          ordered_grad_update), h. ragged, row-wise Adagrad on f32 rows
+          (its Adagrad epilogue; the gates of (c)), i. ragged, the sparse
+          branch on bf16 rows (the ordered scatter), j. ragged,
+          float8_e4m3fn rows with rounding on (which ragged windows ignore:
+          ordered_grad_update and no rounding kernel), k. ragged, mean mode:
+          the gates of (b) in steps of the rows' dtype;
+       l. bf16 rows with DLRM's gather interaction (Kernel 2): the gates
+          of (b) in bf16 steps.
   3. The bf16 slice: bench.py's headline configuration (Criteo-Kaggle
      tables, D=128, batch 16,384, 1% cache, prefetch 8, bf16 rows and
      compute, resident tables <= 500k rows) with ship_sort_perm and the
@@ -95,7 +107,20 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      window and a flush; the ordered scatter launched once a step and no
      other update kernel; then the ordered scatter on the first step
      (``check_ordered_scatter``).
-  10. The command line (``cli``): a Criteo-Kaggle-format dataset written
+  10. The ragged path at full width (``ragged``, ``phase_ragged``): DLRM at
+     the bf16 slice's widths and tables on the fbgemm-trace replayer over
+     generated pools of 262,144 bags a table (bag lengths uniform in
+     [0, 8), ids rows * u**2), about 1.49M ids a step, so Vp = 2,097,152;
+     a cache of 10% (3,319,328 slots: 5% would be fewer than a window's
+     2.09M distinct cached ids) plus the 569,296 resident rows, under 4 Vp:
+     the dense ragged branch. 24 steps, one evaluation window and a flush;
+     Kernel 1 and ordered_grad_update launched once a step and no other
+     update entry; then Kernel 1 on the first step (bit-equal to
+     index_select) and ordered_grad_update (``check_ordered_grad_update``:
+     bit-equal to its plain version and across launches, untouched rows
+     unchanged, two planted faults rejected on the heaviest run into a zero
+     row).
+  11. The command line (``cli``): a Criteo-Kaggle-format dataset written
      under ``cachedembedding_tpu_torch/build/`` (24 training and 4 val/test
      batches of 16,384 rows; long-tail raw values that ``% hash`` spreads
      over the Kaggle tables; learnable labels), then the users' command,
@@ -132,14 +157,17 @@ their own bound and the device time of the unfused chain it replaced.
 Phase 5 counts both of Kernel 4's entries: the fused one 24 times on the
 fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
 each kernel's launches on every path (the two slices, the two fp8 windows,
-the 1TB run and the five CLI runs, whose processes report their counts in
-their ``run stats`` line).
-Phase 10 adds Kernels 1 and 2's times on the resident table
+the 1TB run, the ragged path and the five CLI runs, whose processes report
+their counts in their ``run stats`` line).
+Phase 11 adds Kernels 1 and 2's times on the resident table
 (``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 6
-Kernel 2's on fp8 rows (``on_fp8_rows``), and phase 9 the ordered scatter's
-(Kernel 5) with its heaviest run alone. Each kernel's ``launches`` are its
-main path's (MAIN_PATH), Kernel 2's summed over its two epilogues
-(``launches_by_entry``).
+Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
+step (``on_ragged_step``) and Kernel 5's dense ragged entry with its
+heaviest run alone (the kernel's own numbers), and phase 9 Kernel 5's
+scatter entry (``ordered_scatter_add_entry``). Each kernel's ``launches``
+are its main path's (MAIN_PATH), summed over its entries where two wrappers
+launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
+entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
@@ -162,13 +190,14 @@ FP8 = "float8_e4m3fn"
 E5M2 = "float8_e5m2"
 # each kernel's main path: its launches in the kernels line are that path's
 MAIN_PATH = {"gather_rows": "bf16 slice", "binned_sgd": "bf16 slice", "binned_scatter_add": "fp8 slice",
-             "stochastic_round": "fp8 slice", "ordered_scatter_add": "1tb sparse"}
+             "stochastic_round": "fp8 slice", "ordered_scatter_add": "ragged"}
 # a kernel whose CUDA kernel two wrappers launch: its launches are both wrappers' counts
 KERNEL_ENTRIES = {"stochastic_round": ("stochastic_round", "stochastic_sgd_round"),
-                  "binned_sgd": ("binned_sgd", "binned_adagrad")}  # Kernel 2's SGD and Adagrad epilogues
+                  "binned_sgd": ("binned_sgd", "binned_adagrad"),  # Kernel 2's SGD and Adagrad epilogues
+                  "ordered_scatter_add": ("ordered_scatter_add", "ordered_grad_update")}  # Kernel 5's two entries
 # the wrappers that update rows: a path must launch the ones it names and no other
 UPDATE_ENTRIES = ("binned_sgd", "binned_adagrad", "binned_scatter_add", "stochastic_round",
-                  "stochastic_sgd_round", "ordered_scatter_add")
+                  "stochastic_sgd_round", "ordered_scatter_add", "ordered_grad_update")
 
 
 def log(msg: str) -> None:
@@ -1120,40 +1149,67 @@ REFERENCE_SLICES = {
                         ("ordered_scatter_add",)),
     "float8_e4m3fn rounding off": (FP8, {}, {"stochastic_rounding": "off"}, ("binned_sgd",)),
     "float8_e5m2 rounding on": (E5M2, {}, {}, ("binned_scatter_add", "stochastic_sgd_round")),
+    # ragged windows (RAGGED_SLICE: tests/test_ragged_window.py's shape) and DLRM's gather interaction
+    "ragged bfloat16": ("bfloat16", {}, {}, ("ordered_grad_update",)),
+    "ragged adagrad float32": ("float32", {"embedding_optimizer": "rowwise_adagrad", "learning_rate": 0.1}, {},
+                               ("ordered_grad_update",)),
+    "ragged sparse bfloat16": ("bfloat16", {"use_sparse_embed_grad": True}, {}, ("ordered_scatter_add",)),
+    "ragged float8_e4m3fn rounding on": (FP8, {}, {"stochastic_rounding": "on"}, ("ordered_grad_update",)),
+    "ragged mean": ("bfloat16", {"reduction_mode": "mean"}, {}, ("ordered_grad_update",)),
+    "gather interaction bfloat16": ("bfloat16", {"interaction_impl": "gather"}, {}, ("binned_sgd",)),
 }
+# the ragged small slices: 3 tables of 500 rows, bags of 0-5 ids, rows * u**2 ids,
+# batch 64, prefetch 2, a cache of half the rows (750 slots) with no resident region
+RAGGED_SLICE = dict(tables=[500, 500, 500], batch=64, prefetch=2, cache_ratio=0.5)
 
 
 def phase_reference(device, name: str) -> dict:
     """The slice ``name`` of REFERENCE_SLICES at a small width with f32
     compute, once on the card (through the kernels) and once on the CPU
     (through their plain versions), on the same seeded stream; the gates are
-    in the module docstring (phase 2). Six windows through a cache of 480
-    slots evict trained rows and admit them again, so a writeback that read
-    a slot out of order (before the previous window's update, or after this
-    window's admits) would show. Returns what the gates measured."""
+    in the module docstring (phase 2). The windows, through a cache smaller
+    than the rows they touch, evict trained rows and admit them again, so a
+    writeback that read a slot out of order (before the previous window's
+    update, or after this window's admits) would show. Returns what the
+    gates measured."""
     import numpy as np
     import torch
 
     from cachedembedding_tpu_torch import ops
     from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
+    from cachedembedding_tpu_torch.data.synth import SynthTraceDataset
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
     from cachedembedding_tpu_torch.ops.rounding import storage_steps
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
     cache_dtype, cfg_kw, cache_kw, entries = REFERENCE_SLICES[name]
-    tables = [50, 300, 4000, 20000]
-    steps, P = 24, 4
+    ragged = name.startswith("ragged")
+    if ragged:
+        tables, B, P, ratio = (RAGGED_SLICE[k] for k in ("tables", "batch", "prefetch", "cache_ratio"))
+        resident = 0
+    else:
+        tables, B, P, ratio, resident = [50, 300, 4000, 20000], 256, 4, 0.02, 500
+    steps = 24
     cfg = DLRMConfig(
         num_embeddings_per_feature=tables, embedding_dim=16, dense_in_features=13,
         dense_arch_layer_sizes=(32, 16), over_arch_layer_sizes=(64, 32, 1),
-        batch_size=256, compute_dtype="float32", **{"learning_rate": 1.0, **cfg_kw},
+        batch_size=B, compute_dtype="float32", **{"learning_rate": 1.0, **cfg_kw},
         cache=CacheConfig(**{
-            "cache_ratio": 0.02, "resident_threshold": 500, "prefetch_num": P, "weight_init": "virtual",
+            "cache_ratio": ratio, "resident_threshold": resident, "prefetch_num": P, "weight_init": "virtual",
             "ship_sort_perm": True, "use_pallas_lookup": True, "cache_dtype": cache_dtype, **cache_kw,
         }),
     )
-    train = SyntheticLongTailDataset(tables, 256, steps, dense_in_features=13, skew=0.5, seed=7)
-    test = SyntheticLongTailDataset(tables, 256, 4, dense_in_features=13, skew=0.5, seed=99)
+    if ragged:
+        rng = np.random.default_rng(5)
+        traces = []
+        for n in tables:
+            offsets = np.concatenate([[0], np.cumsum(rng.integers(0, 6, 4096))])
+            traces.append((np.minimum((n * rng.random(offsets[-1]) ** 2).astype(np.int64), n - 1), offsets))
+        train = SynthTraceDataset(traces, tables, B, steps, dense_in_features=13, seed=7)
+        test = SynthTraceDataset(traces, tables, B, 4, dense_in_features=13, seed=99)
+    else:
+        train = SyntheticLongTailDataset(tables, B, steps, dense_in_features=13, skew=0.5, seed=7)
+        test = SyntheticLongTailDataset(tables, B, 4, dense_in_features=13, skew=0.5, seed=99)
     batches = list(train)
     touched = np.unique(np.concatenate([b.sparse_features.values.numpy() for b in batches]))
     first = np.unique(np.concatenate([b.sparse_features.values.numpy() for b in batches[:P]]))
@@ -1407,6 +1463,52 @@ def phase_terabyte(device) -> tuple:
     return launches, k5
 
 
+def visible_run_faults(g_run, a_run, dt, finish) -> tuple:
+    """Planted faults for a gate on one run of Kernel 5: its addends
+    ``a_run`` ((n, D) f32 on the host, as the kernel adds them) summed one
+    rounded add at a time from a zero row; ``finish`` maps the final sum to
+    the row the function writes. Each fault must change that row (an
+    absorbed addend is no fault): the run's trajectory on the host finds the
+    last addend whose removal changes it, and the last pair of nearby addends
+    (one of them moving the sum) whose swap changes it. Returns ({fault:
+    ``g_run`` with the fault}, the positions whose add moves the sum)."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    n = a_run.shape[0]
+    states = [torch.zeros_like(a_run[:1])]
+    for i in range(n):
+        states.append(astype_storage(states[-1] + a_run[i], dt).float())
+    moving = [i for i in range(n) if not torch.equal(states[i + 1], states[i])]
+    target = finish(states[n])
+
+    def final(w, order):
+        for i in order:
+            w = astype_storage(w + a_run[i], dt).float()
+        return finish(w)
+
+    faults = {}
+    for i in reversed(moving[-16:]):
+        if not torch.equal(final(states[i], range(i + 1, n)), target):
+            dropped = g_run.clone()
+            dropped[i] = 0
+            faults[f"addend {i} of {n} dropped"] = dropped
+            break
+    pairs = [(min(i, j), max(i, j)) for i in reversed(moving[-8:]) for j in range(i - 8, i + 9)
+             if 0 <= j < n and j != i]
+    for i, j in pairs:  # a_j in a_i's place, a_i in a_j's
+        if not torch.equal(final(states[i], [j, *range(i + 1, j), i, *range(j + 1, n)]), target):
+            swapped = g_run.clone()
+            swapped[[i, j]] = g_run[[j, i]]
+            faults[f"addends {i} and {j} of {n} swapped"] = swapped
+            break
+    if len(faults) != 2:
+        raise AssertionError(f"no visible fault of each kind in the heaviest run ({n} ids, {len(moving)} addends "
+                             f"move a zero row): {list(faults)}")
+    return faults, moving
+
+
 def check_ordered_scatter(cw0, g, perm, grouped, slr: float) -> dict:
     """The ordered scatter (Kernel 5) on the 1TB run's first step: its bf16
     rows before the update, its bf16 row grads, its plan. Bit-equal to its
@@ -1454,40 +1556,8 @@ def check_ordered_scatter(cw0, g, perm, grouped, slr: float) -> dict:
     want = run(ordered_scatter_add_, zero, g_run)
     if not torch.equal(want, run(ordered_scatter_add_plain, zero, g_run)):
         raise AssertionError("ordered_scatter_add differs from its plain version on the heaviest run into a zero row")
-    # each planted fault must change the function's value (an absorbed addend
-    # is no fault). The run's trajectory from zero, one rounded add at a time
-    # on the host, finds them: the last addend whose removal changes the
-    # result, and the last pair of nearby addends (one of them moving the
-    # row) whose swap changes it
-    a_run = astype_storage(g_run.float() * -slr, dt).float().cpu()
-    states = [zero.float().cpu()]
-    for i in range(n):
-        states.append(astype_storage(states[-1] + a_run[i], dt).float())
-    moving = [i for i in range(n) if not torch.equal(states[i + 1], states[i])]
-
-    def final(w, order):
-        for i in order:
-            w = astype_storage(w + a_run[i], dt).float()
-        return w
-
-    faults = {}
-    for i in reversed(moving[-16:]):
-        if not torch.equal(final(states[i], range(i + 1, n)), states[n]):
-            dropped = g_run.clone()
-            dropped[i] = 0
-            faults[f"addend {i} of {n} dropped"] = dropped
-            break
-    pairs = [(min(i, j), max(i, j)) for i in reversed(moving[-8:]) for j in range(i - 8, i + 9)
-             if 0 <= j < n and j != i]
-    for i, j in pairs:  # a_j in a_i's place, a_i in a_j's
-        if not torch.equal(final(states[i], [j, *range(i + 1, j), i, *range(j + 1, n)]), states[n]):
-            swapped = g_run.clone()
-            swapped[[i, j]] = g_run[[j, i]]
-            faults[f"addends {i} and {j} of {n} swapped"] = swapped
-            break
-    if len(faults) != 2:
-        raise AssertionError(f"no visible fault of each kind in the heaviest run ({n} ids, {len(moving)} addends "
-                             f"move a zero row): {list(faults)}")
+    faults, moving = visible_run_faults(g_run, astype_storage(g_run.float() * -slr, dt).float().cpu(), dt,
+                                        lambda w: w)
     for fault, gr in faults.items():  # the gate: the kernel's result against each faulty run's plain version
         if torch.equal(run(ordered_scatter_add_plain, zero, gr), want):
             raise AssertionError(f"the ordered scatter's gate passed a planted fault ({fault})")
@@ -1521,6 +1591,262 @@ def check_ordered_scatter(cw0, g, perm, grouped, slr: float) -> dict:
     log(f"[kernel] ordered_scatter_add: {touched} touched rows, heaviest run {n} ids (row {v}); bit-equal to its "
         f"plain version and across launches, on the step and on the heaviest run into a zero row; the gate "
         f"rejects both planted faults; {json.dumps(entry)}")
+    return entry
+
+
+RAGGED_POOL_BAGS = 262_144  # bags a table's pool: 4x the published traces' 65,536, so windows move
+RAGGED_MAX_LEN = 8          # bag lengths uniform in [0, 8)
+RAGGED_CACHE_RATIO = 0.10   # 0.05 gives 1,659,664 slots, fewer than a window's 2.09M distinct cached ids
+
+
+def ragged_traces(sizes, seed: int = 0):
+    """Per-table trace pools in the replayer's (indices, offsets) format,
+    generated from a seed: RAGGED_POOL_BAGS bags a table, lengths uniform in
+    [0, RAGGED_MAX_LEN), ids ``rows * u**2`` (tests/test_ragged_window.py's
+    law)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    traces = []
+    for n in sizes:
+        lengths = rng.integers(0, RAGGED_MAX_LEN, RAGGED_POOL_BAGS)
+        offsets = np.concatenate([[0], np.cumsum(lengths)])
+        ids = np.minimum((n * rng.random(offsets[-1]) ** 2).astype(np.int64), n - 1)
+        traces.append((ids, offsets))
+    return traces
+
+
+def window_distinct_cached(traces, sizes, resident_threshold: int, B: int, P: int, windows: int) -> list:
+    """Distinct ids of the cached tables in each of the first ``windows``
+    windows of P batches of B bags."""
+    import numpy as np
+
+    out = []
+    for w in range(windows):
+        n = 0
+        for (ids, off), rows in zip(traces, sizes):
+            if rows <= resident_threshold:
+                continue
+            bags = np.arange(w * P * B, (w + 1) * P * B) % (off.shape[0] - 1)
+            runs = np.split(bags, np.flatnonzero(np.diff(bags) != 1) + 1)  # consecutive bags: one slice
+            n += int(np.unique(np.concatenate([ids[off[r[0]]:off[r[-1] + 1]] for r in runs])).size)
+        out.append(n)
+    return out
+
+
+def phase_ragged(device) -> tuple:
+    """The ragged path at full width (``ragged``): DLRM at the Kaggle widths
+    of ``slice_config`` (26 Criteo-Kaggle tables, 33,762,577 rows, D = 128,
+    batch 16,384, bf16 rows and compute, prefetch 8, resident tables <= 500k
+    rows) on the fbgemm-trace replayer (``SynthTraceDataset``) over
+    generated pools (``ragged_traces``): about 1.49M ids a step, so Vp =
+    2,097,152 and a cache of RAGGED_CACHE_RATIO (3,319,328 slots + 569,296
+    resident rows, under 4 Vp) takes the dense ragged branch. Trains 24
+    steps, evaluates one window and flushes, with the launch counts zeroed
+    just before: Kernel 1 and ``ordered_grad_update`` once a step and no
+    other update entry; then one more window under torch.profiler, and
+    Kernels 1 and 5 on the first step (``check_ordered_grad_update``).
+    Returns the path's launch counts, Kernel 1's entry and Kernel 5's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.data.synth import SynthTraceDataset
+    from cachedembedding_tpu_torch.slice_ab import profile_window
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+
+    tag = "[ragged]"
+    cfg = slice_config("bfloat16")
+    cfg.cache = dataclasses.replace(cfg.cache, cache_ratio=RAGGED_CACHE_RATIO)
+    steps, P, B = 24, cfg.cache.prefetch_num, cfg.batch_size
+    sizes = cfg.num_embeddings_per_feature
+    t0 = time.perf_counter()
+    traces = ragged_traces(sizes)
+    distinct = window_distinct_cached(traces, sizes, cfg.cache.resident_threshold, B, P, steps // P)
+    train = SynthTraceDataset(traces, sizes, B, steps, seed=7)
+    test = SynthTraceDataset(traces, sizes, B, P, seed=8)
+    tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
+    torch.cuda.synchronize()
+    log(f"{tag} pools of {RAGGED_POOL_BAGS} bags a table and trainer built in {time.perf_counter() - t0:.1f} s: "
+        f"capacity {tr.embed.capacity} (cache ratio {RAGGED_CACHE_RATIO}), device rows {tr.embed.device_rows}; "
+        f"distinct cached ids a window {distinct}")
+    if max(distinct) > tr.embed.capacity:
+        raise AssertionError(f"{tag} a window's distinct cached ids exceed the {tr.embed.capacity} slots")
+    first, update = [], tr._ragged_update
+    begin = tr._begin_window
+
+    def begin_and_keep(batches, with_plan=True, dense_dtype=None):
+        win = begin(batches, with_plan, dense_dtype)
+        if with_plan and not first:
+            first.append(win)
+        return win
+
+    def update_and_keep(cw, g, perm, grouped, bins, slr, branch):
+        if len(first) == 1:  # the first step's rows before the update, its grads and plan
+            first.append((cw.clone(), g.detach().clone(), perm, grouped, slr, branch))
+        return update(cw, g, perm, grouped, bins, slr, branch)
+
+    tr._begin_window, tr._ragged_update = begin_and_keep, update_and_keep
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    rep = tr.train(train, num_iters=steps)
+    t1 = time.perf_counter()
+    ev = tr.evaluate(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    tr._begin_window, tr._ragged_update = begin, update
+    peak = torch.cuda.max_memory_allocated(device)
+    win, (cw0, g0, perm0, grouped0, slr, branch) = first
+    losses = np.asarray(rep.losses)
+    wb = sum(tr.embed.stats.num_write_back_history)
+    log(f"{tag} Vp {win.vp}, ids a step {np.diff(win.bounds).tolist()}, update branch {branch}; loss per window "
+        f"{[float(x) for x in losses.reshape(-1, P).mean(axis=1)]}; hit rate {rep.hit_rate:.4f}; {wb} writebacks; "
+        f"{rep.examples_per_s:.0f} examples/s over {steps} steps; peak device memory {peak / 2**30:.2f} GiB")
+    log(f"{tag} host s/window {[round(x, 4) for x in rep.window_host_s]}; device s/window "
+        f"{[round(x, 4) for x in rep.window_device_s]}; plan host ms/step {1e3 * sum(rep.window_plan_s) / steps:.2f}; "
+        f"eval of {ev['count']} in {eval_s:.2f} s: auroc {ev['auroc']:.4f}; kernel launches {launches}")
+    if branch != "dense":
+        raise AssertionError(f"{tag} the update branch is {branch} at Vp {win.vp}, not dense")
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} losses not finite: {losses}")
+    if not 0.0 < rep.hit_rate <= 1.0 or wb <= 0 or ev["count"] != P * B or not np.isfinite(ev["auroc"]):
+        raise AssertionError(f"{tag} hit rate {rep.hit_rate}, {wb} writebacks, eval {ev}")
+    if launches["gather_rows"] != steps + P:
+        raise AssertionError(f"{tag} kernel launches {launches}")
+    check_update_launches(tag, launches, steps, "ordered_grad_update")
+    prof = profile_window(tr, cfg, list(SynthTraceDataset(traces, sizes, B, P, seed=9)))
+    log(f"{tag} one more training window under torch.profiler: {json.dumps(prof)}")
+    check_flush(tr, tag)
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = check_gather_ragged(cw0, win.step_ids(0))
+    k5 = check_ordered_grad_update(cw0, g0, perm0, grouped0, slr)
+    k5["window"] = {"host_s": rep.window_host_s, "device_s": rep.window_device_s, "profiled": prof,
+                    "examples_per_s": rep.examples_per_s, "peak_gib": peak / 2**30, "hit_rate": rep.hit_rate}
+    return launches, k1, k5
+
+
+def check_gather_ragged(cw, ids) -> dict:
+    """Kernel 1 on the ragged path's first step: the flat gather (F = 1) of
+    its 1.49M ids from the bf16 rows, bit-equal to its plain version and to
+    index_select."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+
+    L, D = ids.shape[0], cw.shape[1]
+    out = gather_rows(cw, ids, 1)
+    plain = gather_rows_plain(cw, ids, 1)
+    if not (torch.equal(out, plain) and torch.equal(out[:, 0], torch.index_select(cw, 0, ids.long()))):
+        raise AssertionError("gather_rows differs from index_select on the ragged step")
+    n_distinct = int(torch.unique(ids).numel())
+    row_bytes = D * cw.element_size()
+    entry = dict(
+        ms=median_ms(lambda: gather_rows(cw, ids, 1)),
+        device_ms=device_median_ms(lambda: gather_rows(cw, ids, 1)),
+        plain_ms=median_ms(lambda: gather_rows_plain(cw, ids, 1)),
+        bound_ms=(L * 4 + (n_distinct + L) * row_bytes) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=median_ms(lambda: torch.index_select(cw, 0, ids.long())), max_abs_err=0.0,
+        timed_on=f"ragged, first training step ({L} ids, {n_distinct} distinct, bf16 rows)",
+    )
+    log(f"[kernel] gather_rows on the ragged step: equal to index_select; {json.dumps(entry)}")
+    return entry
+
+
+def check_ordered_grad_update(cw0, g, perm, grouped, slr: float) -> dict:
+    """Kernel 5's dense ragged entry on the ragged path's first step (its bf16
+    rows before the update, its bf16 row grads, its plan): bit-equal to its
+    plain version and on two launches. The step's heaviest run is applied
+    alone to its row (equal to that row in the step) and to a zero row,
+    where the row is -slr times the run's sum: there the kernel equals its
+    plain version, and the gate, bit equality, is shown to reject two planted
+    faults (one grad dropped, two swapped), each placed where it changes the
+    row. Timed on the step and on the heaviest run alone; the yardstick is
+    the (C, D) bf16 grad by ``index_add_`` (atomics, no fixed order) into
+    zeros, then ``sub_``: JAX's shape of the function, not its values."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_grad_update_plain
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    (C, D), L, device, dt = cw0.shape, g.shape[0], cw0.device, cw0.dtype
+    i16 = torch.int16
+    a = ordered_grad_update_(cw0.clone(), None, g, perm, grouped, slr)
+    b = ordered_grad_update_(cw0.clone(), None, g, perm, grouped, slr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ordered_grad_update_plain(cw0.clone(), None, g, perm, grouped, slr)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(a.view(i16), b.view(i16)):
+        raise AssertionError("ordered_grad_update is not deterministic across launches")
+    if not torch.equal(a.view(i16), ref.view(i16)):
+        n_bad = int((a.view(i16) != ref.view(i16)).sum())
+        raise AssertionError(f"ordered_grad_update differs from its plain version in {n_bad} elements")
+    rows, counts = torch.unique_consecutive(grouped, return_counts=True)
+    touched = int(rows.numel())
+    untouched = torch.ones(C, dtype=torch.bool, device=device)
+    untouched[rows.long()] = False
+    if not torch.equal(a[untouched].view(i16), cw0[untouched].view(i16)):
+        raise AssertionError("ordered_grad_update wrote a row that no id touched")
+    r = int(torch.argmax(counts))
+    v, n, start = int(rows[r]), int(counts[r]), int(counts[:r].sum())
+    g_run = g[perm[start:start + n].long()].contiguous()
+    perm_run = torch.arange(n, dtype=torch.int32, device=device)
+    grouped_run = torch.zeros(n, dtype=torch.int32, device=device)
+    row0, zero = cw0[v:v + 1].clone(), torch.zeros((1, D), dtype=dt, device=device)
+
+    def run(fn, row, gr):
+        return fn(row.clone(), None, gr, perm_run, grouped_run, slr).view(i16)
+
+    if not torch.equal(run(ordered_grad_update_, row0, g_run), a[v:v + 1].view(i16)):
+        raise AssertionError("the heaviest run alone differs from its row in the step")
+    want = run(ordered_grad_update_, zero, g_run)
+    if not torch.equal(want, run(ordered_grad_update_plain, zero, g_run)):
+        raise AssertionError("ordered_grad_update differs from its plain version on the heaviest run into a zero row")
+    faults, moving = visible_run_faults(g_run, g_run.float().cpu(), dt,
+                                        lambda s: astype_storage(-slr * s, dt).float())
+    for fault, gr in faults.items():
+        if torch.equal(run(ordered_grad_update_plain, zero, gr), want):
+            raise AssertionError(f"the dense ragged update's gate passed a planted fault ({fault})")
+    ids_stream = torch.empty_like(grouped)
+    ids_stream[perm.long()] = grouped  # the step's ids in stream order (the grads' order)
+    ids_long = ids_stream.long()
+    cw_t, row_t, cw_l = cw0.clone(), row0.clone(), cw0.clone()
+    entry = dict(
+        name="ordered_scatter_add", route="cuda",
+        source="cachedembedding_tpu_torch/csrc/ordered_scatter_add.cu",
+        replaces="cachedembedding_tpu/train/trainer.py:503-538 (the dense branch on ragged windows: the grad "
+                 "w.r.t. the storage-dtype cache, an XLA scatter-add in that dtype, and its f32 update) and :404 "
+                 "(cw.at[v].add in the sparse-gradient branch); XLA scatters, no Pallas kernel",
+        entry="ordered_grad_update", max_abs_err=0.0,
+        ms=median_ms(lambda: ordered_grad_update_(cw_t, None, g, perm, grouped, slr)),
+        device_ms=device_median_ms(lambda: ordered_grad_update_(cw_t, None, g, perm, grouped, slr)),
+        plain_ms=plain_s * 1e3,  # one call: it loops once per contributor rank of the heaviest run
+        # the grads and the plan read once, each touched row read and written
+        bound_ms=(L * D * g.element_size() + 2 * L * 4 + 2 * touched * D * cw0.element_size())
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        # the (C, D) grad in bf16 by atomics, in no fixed order, then the update
+        # of every row: JAX's shape of the work, another function's values
+        library_ms=median_ms(lambda: cw_l.sub_(torch.zeros_like(cw_l).index_add_(0, ids_long, g), alpha=slr)),
+        library="torch.zeros_like + Tensor.index_add_ (atomics: no fixed order) + Tensor.sub_",
+        timed_on=f"ragged, first training step ({C} x {D} bf16 rows, {L} ids)",
+        tolerance="bit-exact against the plain version; two launches bit-identical; untouched rows bit-equal",
+        touched_rows=touched, heaviest_run=n, planted_faults=list(faults),
+        heaviest_run_addends_moving_its_sum=len(moving),
+        heaviest_run_ms=median_ms(lambda: ordered_grad_update_(row_t, None, g_run, perm_run, grouped_run, slr)),
+        heaviest_run_device_ms=device_median_ms(
+            lambda: ordered_grad_update_(row_t, None, g_run, perm_run, grouped_run, slr)),
+    )
+    log(f"[kernel] ordered_grad_update: {touched} touched rows, heaviest run {n} ids (row {v}); bit-equal to its "
+        f"plain version and across launches, untouched rows unchanged; the gate rejects both planted faults; "
+        f"{json.dumps(entry)}")
     return entry
 
 
@@ -1951,7 +2277,7 @@ def check_checkpoint_round_trip(data_dir, ckpt_root, device, adagrad: bool = Fal
 
 
 def phase_cli(device) -> dict:
-    """Phase 9: the users' command line at full Criteo-Kaggle width on a
+    """Phase 11: the users' command line at full Criteo-Kaggle width on a
     written dataset (cached, resident and DeepFM runs, each its own
     process), Kernels 1 and 2 on the resident table, and the checkpoint
     round trip. Returns each run's kernel launches by path and the kernels'
@@ -2061,7 +2387,13 @@ def run_phases(procs: dict) -> int:
     torch.cuda.empty_cache()
     fp8_paths = phase_fp8_windows(device)
     launches_1tb, k5 = phase_terabyte(device)
-    kernels.append(k5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_ragged, k1_ragged, k5_ragged = phase_ragged(device)
+    kernels[0]["on_ragged_step"] = k1_ragged
+    # Kernel 5: its dense ragged entry on this slice's path, its scatter entry on the 1TB run's
+    kernels.append({**k5_ragged, "ordered_scatter_add_entry": {
+        k: v for k, v in k5.items() if k not in ("name", "route", "source", "replaces")}})
     gc.collect()
     torch.cuda.empty_cache()
     phase_bare_module(device)
@@ -2071,7 +2403,7 @@ def run_phases(procs: dict) -> int:
     kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
 
     paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "1tb sparse": launches_1tb,
-             **cli["launches"]}
+             "ragged": launches_ragged, **cli["launches"]}
     for k in kernels:
         name = k["name"]
         entries = KERNEL_ENTRIES.get(name, (name,))

@@ -90,5 +90,8 @@ def test_forward_backward_matches_jax(dtype):
 
 
 def test_refuses_gather_interaction():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DLRM(*ARCH.values(), interaction_impl="gather")
+    """The gather interaction is ported (tests/test_torch_ragged.py holds it
+    against JAX's); an unknown interaction is refused."""
+    assert DLRM(*ARCH.values(), interaction_impl="gather").interaction_impl == "gather"
+    with pytest.raises(ValueError, match="interaction_impl"):
+        DLRM(*ARCH.values(), interaction_impl="einsum")

@@ -183,7 +183,6 @@ def test_refuses_outside_the_slice():
     for kw, cache_kw, item in [
         ({"dense_input_dtype": "int8"}, {}, 8),
         ({}, {"transfer_dtype": "int4"}, 4),
-        ({"interaction_impl": "gather"}, {}, 3),
         ({"mesh_shape": (2,)}, {}, 9),
         ({}, {"planner": "device"}, 11),
     ]:
@@ -191,8 +190,10 @@ def test_refuses_outside_the_slice():
         with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
             port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
     # DeepFM, the JAX CLI's default ship_sort_perm=False, row-wise Adagrad,
-    # the sparse gradient, fp8 rows with rounding off and e5m2 rows are in the port
+    # the sparse gradient, fp8 rows with rounding off, e5m2 rows and the
+    # gather interaction are in the port
     for kw, cache_kw in [({"model": "deepfm"}, {}), ({}, {"ship_sort_perm": False}),
+                         ({"interaction_impl": "gather"}, {}),
                          ({"embedding_optimizer": "rowwise_adagrad"}, {}), ({"use_sparse_embed_grad": True}, {}),
                          ({}, {"cache_dtype": "float8_e4m3fn", "stochastic_rounding": "off"}),
                          ({}, {"cache_dtype": "float8_e5m2"})]:
