@@ -48,11 +48,13 @@ _PROTOTYPES = {
     ),
     "ordered_scatter_add": (
         "ordered_scatter_add", "ordered_scatter_add_launch",
-        [_P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P],
+        [_P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_int, _P, _P],
     ),
+    "bf16_add_sweep": ("ordered_scatter_add", "bf16_add_sweep_launch", [_P, _P]),
+    "chain_latency": ("ordered_scatter_add", "chain_latency_launch", [_P, _P, _I64, ctypes.c_int, _P]),
     "ordered_grad_update": (
         "ordered_scatter_add", "ordered_grad_update_launch",
-        [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P],
+        [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P],
     ),
 }
 
@@ -66,9 +68,14 @@ def build_kernel(name: str):
 def kernel_entry(name: str):
     """The C launch function ``name`` (a key of ``_PROTOTYPES``), its
     library built at first use."""
-    lib_name, sym, argtypes = _PROTOTYPES[name]
-    path, _, _ = build_kernel(lib_name)
-    lib = ctypes.CDLL(str(path))
+    path, _, _ = build_kernel(_PROTOTYPES[name][0])
+    return bind(ctypes.CDLL(str(path)), name)
+
+
+def bind(lib: ctypes.CDLL, name: str):
+    """The C launch function ``name`` (a key of ``_PROTOTYPES``) in ``lib``,
+    with its argument and return types."""
+    _, sym, argtypes = _PROTOTYPES[name]
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``cachedembedding_tpu_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel5-against SOURCE.cu
 
 Needs one CUDA GPU (an H100 is the target) and the checkout around this file;
 it imports torch, numpy and the port, nothing of JAX. Phases:
@@ -97,9 +98,12 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
   7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
      prepare_ids then lookup over seeded ids that together exceed its
      capacity, equal to the host rows through the storage cast, pooled.
-  8. Kernels 2 and 3 refuse a plan grouped by bin but not sorted by id (the
-     JAX package's layout): each, in a child process started after the
-     build, must stop with a device-side assert.
+  8. Kernels 2 and 3 and both of Kernel 5's entries refuse a plan grouped by
+     bin but not sorted by id (the JAX package's layout): each, in a child
+     process started after the build, must stop with a device-side assert.
+     Meanwhile Kernel 5 runs its run-shape cases (``check_ordered_run_cases``:
+     runs on the edges of its heavy-run ring, every row dtype and entry, four
+     and one elements a lane), bit-equal to its plain version.
   9. The sparse-gradient branch at Criteo-1TB width (``1tb sparse``,
      ``phase_terabyte``): terabyte.sh's configuration (26 tables,
      177,944,275 rows, a 1% cache of 1,779,442 bf16 rows, more than 4x a
@@ -118,8 +122,9 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      update entry; then Kernel 1 on the first step (bit-equal to
      index_select) and ordered_grad_update (``check_ordered_grad_update``:
      bit-equal to its plain version and across launches, untouched rows
-     unchanged, two planted faults rejected on the heaviest run into a zero
-     row).
+     unchanged, four planted faults rejected on the heaviest run into a zero
+     row: an addend dropped, two swapped, a stage of the ring skipped, two
+     stages swapped).
   11. The command line (``cli``): a Criteo-Kaggle-format dataset written
      under ``cachedembedding_tpu_torch/build/`` (24 training and 4 val/test
      batches of 16,384 rows; long-tail raw values that ``% hash`` spreads
@@ -164,13 +169,28 @@ Phase 11 adds Kernels 1 and 2's times on the resident table
 Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
 step (``on_ragged_step``) and Kernel 5's dense ragged entry with its
 heaviest run alone (the kernel's own numbers), and phase 9 Kernel 5's
-scatter entry (``ordered_scatter_add_entry``). Each kernel's ``launches``
+scatter entry (``ordered_scatter_add_entry``). Each of Kernel 5's entries
+also gives its ring's numbers on its step (``kernel5_design_numbers``): the
+heavy runs the launch found (non-zero), the chain's ns an add by row dtype
+in registers (``chain_latency_ns``) and the heaviest run's chain bound from
+it, the entry's share of that bound beside its share of the bytes bound, the
+entry's own ns an add with every contributor on one grad row (the ring's
+pace), and the light part alone (the step without its heavy runs) beside
+its bytes bound; the run-shape cases are under ``run_cases``. Each kernel's ``launches``
 are its main path's (MAIN_PATH), summed over its entries where two wrappers
 launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
+
+``--kernel5-against`` runs the build and phases 9 and 10 only, with their
+gates, and times each of Kernel 5's entries on its step, as it is and cast
+to f32 rows, against the same entry built from SOURCE (an earlier
+``ordered_scatter_add.cu`` that exports this checkout's C interface for the
+two entries): the same bits, then device ms in turns
+(``kernel5_against_turns``). It prints the card and one JSON line of the
+turns, and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1084,22 +1104,30 @@ def phase_fp8_windows(device) -> dict:
     return paths
 
 
-UNSORTED_PLAN_KERNELS = ("binned_sgd", "binned_scatter_add")
+UNSORTED_PLAN_KERNELS = ("binned_sgd", "binned_scatter_add", "ordered_scatter_add", "ordered_grad_update")
 
 
 def refuse_unsorted_plan(kernel: str) -> int:
     """Child process of phase 8: hand ``kernel``'s wrapper a plan grouped by
     bin but not sorted by id inside a bin (the JAX package's layout) and
-    synchronize. Returns 0 if the kernel stopped with a device-side assert,
-    1 if it took the plan."""
+    synchronize. Kernel 5's entries take bf16 rows and grads and a row of
+    600 ids, above the heavy threshold: the launch sequence of the ragged
+    and 1TB steps. Returns 0 if the kernel stopped with a device-side
+    assert, 1 if it took the plan."""
     import numpy as np
     import torch
 
     from cachedembedding_tpu_torch.ops.binned_scatter import BLOCK_ROWS, binned_scatter_add, binned_sgd_update
+    from cachedembedding_tpu_torch.ops.ordered_scatter import (
+        heavy_runs,
+        ordered_grad_update_,
+        ordered_scatter_add_,
+    )
 
     rng = np.random.default_rng(0)
     L, C, D = 4096, 1000, 128
     v = rng.integers(0, C, L).astype(np.int32)
+    v[rng.choice(L, 600, replace=False)] = 7  # a heavy run, once sorted
     perm = np.argsort(v // BLOCK_ROWS, kind="stable").astype(np.int32)
     grouped = v[perm]
     bins = np.searchsorted(grouped // BLOCK_ROWS, np.arange(-(-C // BLOCK_ROWS) + 1)).astype(np.int32)
@@ -1108,11 +1136,18 @@ def refuse_unsorted_plan(kernel: str) -> int:
     device = torch.device("cuda", 0)
     perm_d, grouped_d, bins_d = (torch.from_numpy(x).to(device) for x in (perm, grouped, bins))
     g = torch.randn((L, D), device=device)
+    cw16, g16 = torch.zeros((C, D), dtype=torch.bfloat16, device=device), g.bfloat16()
+    if heavy_runs(torch.from_numpy(np.sort(v)), torch.bfloat16) != 1:
+        raise AssertionError("the plan, once sorted, has no heavy run")
     try:
         if kernel == "binned_sgd":
             binned_sgd_update(torch.zeros((C, D), device=device), g, perm_d, grouped_d, bins_d, 1.0)
-        else:
+        elif kernel == "binned_scatter_add":
             binned_scatter_add(g, perm_d, grouped_d, bins_d, C)
+        elif kernel == "ordered_scatter_add":
+            ordered_scatter_add_(cw16, g16, perm_d, grouped_d, 1.0)
+        else:
+            ordered_grad_update_(cw16, None, g16, perm_d, grouped_d, 1.0)
         torch.cuda.synchronize()
     except RuntimeError as e:
         if "device-side assert" in str(e):
@@ -1469,9 +1504,12 @@ def visible_run_faults(g_run, a_run, dt, finish) -> tuple:
     rounded add at a time from a zero row; ``finish`` maps the final sum to
     the row the function writes. Each fault must change that row (an
     absorbed addend is no fault): the run's trajectory on the host finds the
-    last addend whose removal changes it, and the last pair of nearby addends
-    (one of them moving the sum) whose swap changes it. Returns ({fault:
-    ``g_run`` with the fault}, the positions whose add moves the sum)."""
+    last addend whose removal changes it, the last pair of nearby addends
+    (one of them moving the sum) whose swap changes it, and the same for the
+    kernel's ring: the last stage (32 contributors from the run's start)
+    whose skipping changes it, and the last pair of adjacent stages whose
+    swap does. Returns ({fault: ``g_run`` with the fault}, the positions
+    whose add moves the sum)."""
     import torch
 
     from cachedembedding_tpu_torch.ops.rounding import astype_storage
@@ -1503,10 +1541,345 @@ def visible_run_faults(g_run, a_run, dt, finish) -> tuple:
             swapped[[i, j]] = g_run[[j, i]]
             faults[f"addends {i} and {j} of {n} swapped"] = swapped
             break
-    if len(faults) != 2:
+    # faults of the kernel's ring: a stage (32 contributors of the run) skipped, two stages swapped
+    stages = -(-n // 32)
+    moving_stages = sorted({i // 32 for i in moving})
+    for k in reversed(moving_stages[-16:]):
+        if not torch.equal(final(states[32 * k], range(min(32 * k + 32, n), n)), target):
+            skipped = g_run.clone()
+            skipped[32 * k:32 * k + 32] = 0  # a zero addend adds nothing: the stage is skipped
+            faults[f"stage {k} of {stages} skipped"] = skipped
+            break
+    for k in reversed(moving_stages[-16:]):
+        for a, b in ((k - 1, k), (k, k + 1)):
+            if a < 0 or b >= stages:
+                continue
+            end = min(32 * b + 32, n)
+            seg = [*range(32 * b, end), *range(32 * a, 32 * a + 32)]  # stage b, then stage a
+            if not torch.equal(final(states[32 * a], [*seg, *range(end, n)]), target):
+                swapped = g_run.clone()
+                swapped[32 * a:end] = g_run[seg]
+                faults[f"stages {a} and {b} of {stages} swapped"] = swapped
+                break
+        if len(faults) == 4:
+            break
+    if len(faults) != 4:
         raise AssertionError(f"no visible fault of each kind in the heaviest run ({n} ids, {len(moving)} addends "
                              f"move a zero row): {list(faults)}")
     return faults, moving
+
+
+def int_view(t):
+    """The bits of a tensor of 4-, 2- or 1-byte elements, for bit equality (NaN included)."""
+    import torch
+
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[t.element_size()])
+
+
+def check_ordered_run_cases(device) -> dict:
+    """Kernel 5 on its run-shape cases (``ordered_run_cases``: runs of 1, 31,
+    32, 33, 255, 256, 257, 385, 513 and 3,000 contributors, four of them
+    heavy) for f32, bf16, e4m3fn and e5m2 rows: the scatter and SGD entries
+    at D = 128 and D = 32 (four elements a lane), D = 18 and D = 128 with the
+    grads one element off 16-byte alignment (one element a lane), the
+    Adagrad entry at D = 128 and 32. Each launch bit-equal to the plain
+    version (rows and accumulators) and to a second launch, with the four
+    heavy runs sent through the ring (the kernel's count; f32 rows take no
+    ring). The Adagrad entry must refuse D > 128."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import sort_plan_np
+    from cachedembedding_tpu_torch.ops.ordered_scatter import (
+        ORDERED_ADAGRAD_SHAPES,
+        heavy_runs,
+        last_heavy_runs,
+        ordered_grad_update_,
+        ordered_grad_update_plain,
+        ordered_run_cases,
+        ordered_scatter_add_,
+        ordered_scatter_add_plain,
+    )
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    t0 = time.perf_counter()
+    checked = []
+    for shape, case in ordered_run_cases(0):
+        (C, D), L = case["cw0"].shape, case["v"].shape[0]
+        perm, grouped, _ = (torch.from_numpy(a).to(device) for a in sort_plan_np(case["v"], C))
+        slr, eps, off = case["slr"], case["eps"], case["offset"]
+        for name in ("float32", "bfloat16", FP8, E5M2):
+            dt = getattr(torch, name)
+            want_heavy = heavy_runs(grouped, dt)
+            cw0 = astype_storage(torch.from_numpy(case["cw0"]).to(device), dt)
+            g = torch.empty(L * D + off, dtype=dt, device=device)[off:].view(L, D)
+            g.copy_(astype_storage(torch.from_numpy(case["g"]).to(device), dt))
+            if (g.data_ptr() % 16 == 0) != (off == 0):
+                raise AssertionError(f"run case {shape}: grads at {g.data_ptr()}")
+            acc0 = torch.from_numpy(case["acc0"]).to(device)
+            entries = {
+                "scatter": (lambda f, cw, acc: f(cw, g, perm, grouped, slr),
+                            ordered_scatter_add_, ordered_scatter_add_plain, False),
+                "sgd": (lambda f, cw, acc: f(cw, None, g, perm, grouped, slr),
+                        ordered_grad_update_, ordered_grad_update_plain, False),
+            }
+            if shape in ORDERED_ADAGRAD_SHAPES:
+                entries["adagrad"] = (lambda f, cw, acc: f(cw, acc, g, perm, grouped, slr, eps),
+                                      ordered_grad_update_, ordered_grad_update_plain, True)
+            for entry, (call, kernel, plain, adagrad) in entries.items():
+                tag = f"run case {shape} {name} {entry}"
+                outs = []
+                for _ in range(2):
+                    cw, acc = cw0.clone(), acc0.clone() if adagrad else None
+                    call(kernel, cw, acc)
+                    torch.cuda.synchronize()
+                    if last_heavy_runs() != want_heavy:
+                        raise AssertionError(f"{tag}: {last_heavy_runs()} heavy runs, the plan has {want_heavy}")
+                    outs.append((cw, acc))
+                cw_p, acc_p = cw0.clone(), acc0.clone() if adagrad else None
+                call(plain, cw_p, acc_p)
+                for what, x in (("a second launch", outs[1]), ("the plain version", (cw_p, acc_p))):
+                    if not torch.equal(int_view(outs[0][0]), int_view(x[0])):
+                        n_bad = int((int_view(outs[0][0]) != int_view(x[0])).sum())
+                        raise AssertionError(f"{tag}: rows differ from {what} in {n_bad} elements")
+                    if adagrad and not torch.equal(int_view(outs[0][1]), int_view(x[1])):
+                        raise AssertionError(f"{tag}: accumulators differ from {what}")
+                checked.append(f"{shape} {name} {entry}")
+    cw = torch.zeros((4, 136), device=device)
+    perm, grouped = (torch.tensor([0, 1], dtype=torch.int32, device=device) for _ in range(2))
+    try:
+        ordered_grad_update_(cw, torch.zeros(4, device=device), torch.zeros((2, 136), device=device), perm,
+                             grouped, 1.0)
+        raise AssertionError("the Adagrad entry took D = 136")
+    except ValueError:
+        pass
+    out = {"cases": len(checked), "heavy_runs_each_ring_dtype": want_heavy,
+           "seconds": time.perf_counter() - t0,
+           "tolerance": "bit-exact against the plain version (rows, accumulators); two launches bit-identical"}
+    log(f"[kernel] ordered run cases: {len(checked)} cases bit-equal to the plain version and across launches, "
+        f"{want_heavy} heavy runs each; the Adagrad entry refuses D = 136; {json.dumps(out)}; {checked}")
+    return out
+
+
+def check_bf16_add_sweep(device) -> dict:
+    """Kernel 5's bf16 chain adds with the card's bf16 add (one rounding of
+    the exact sum) where the function is the f32 add then the cast to bf16
+    (two): the two must agree on all 2^32 pairs of bf16 operands, NaN
+    included, bit for bit."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import bf16_add_sweep
+
+    bf16_add_sweep(device)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bad, nan = bf16_add_sweep(device)
+    secs = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"the bf16 chain's add differs from the f32 add and cast on {bad} of 2^32 pairs "
+                             f"({nan} of them NaN both ways)")
+    out = {"pairs": 1 << 32, "differing": bad, "seconds": secs}
+    log(f"[kernel] ordered_scatter_add's bf16 chain: add.rn.bf16x2 equals the f32 add then the cast on all 2^32 "
+        f"pairs of bf16 operands; {json.dumps(out)}")
+    return out
+
+
+def one_grad_row_ns(entry: str, n: int, D: int, device) -> dict:
+    """Kernel 5's rate on one run with memory out of the picture, by row
+    dtype: the entry on one run of n contributors into one row, every
+    contributor reading grad row 0, device ms / n, in ns. Its ring's pace
+    (each stage's hand-over, read and adds) for bf16 and fp8 rows; the light
+    walk's for f32 rows, which take no ring."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_scatter_add_
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    perm = torch.zeros(n, dtype=torch.int32, device=device)
+    grouped = torch.zeros(n, dtype=torch.int32, device=device)
+    g0 = torch.randn(D, generator=torch.Generator().manual_seed(0)) * 0.01
+    out = {}
+    for name in ("float32", "bfloat16", FP8, E5M2):
+        dt = getattr(torch, name)
+        g = torch.zeros((n, D), dtype=dt, device=device)
+        g[0] = astype_storage(g0.to(device), dt)
+        row = torch.zeros((1, D), dtype=dt, device=device)
+        if entry == "ordered_scatter_add":
+            out[name] = device_median_ms(lambda: ordered_scatter_add_(row, g, perm, grouped, 0.5)) * 1e6 / n
+        else:
+            out[name] = device_median_ms(lambda: ordered_grad_update_(row, None, g, perm, grouped, 0.5)) * 1e6 / n
+    return out
+
+
+CHAIN_LINKS = 1 << 18  # dependent links a lane in chain_latency_ns: about 0.5-10 device ms
+
+
+def chain_latency_ns(device) -> dict:
+    """The chain bound's time an add, by row dtype: Kernel 5's link (the f32
+    add then the cast to the rows' dtype; bf16's one add) run CHAIN_LINKS
+    times in dependence, in registers (``chain_latency``: no memory, no ring,
+    no hand-over), device ms / CHAIN_LINKS, in ns. Each dtype's links are
+    first held bit for bit against the same 64 links on the host."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import chain_latency
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for name in ("float32", "bfloat16", FP8, E5M2):
+        dt = getattr(torch, name)
+        a = astype_storage(torch.randn((32, 8), generator=gen) * 0.05, dt).float()
+        w = torch.zeros(32)
+        for i in range(64):
+            w = astype_storage(w + a[:, i % 8], dt).float()
+        a_d = a.to(device)
+        got = chain_latency(a_d, 64, dt).cpu()
+        if not torch.equal(int_view(got), int_view(w)):
+            raise AssertionError(f"chain_latency's {name} links differ from the same links on the host: "
+                                 f"{got.tolist()} against {w.tolist()}")
+        out[name] = device_median_ms(lambda: chain_latency(a_d, CHAIN_LINKS, dt)) * 1e6 / CHAIN_LINKS
+    return out
+
+
+def light_part_plan(g, perm, grouped):
+    """The step's plan without its heavy runs (more than heavy_threshold(L)
+    contributors): the light runs' grads in their stream order, the plan
+    renumbered to them."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import heavy_threshold
+
+    _, inv, counts = torch.unique_consecutive(grouped, return_inverse=True, return_counts=True)
+    light = counts[inv] <= heavy_threshold(grouped.shape[0])
+    src = perm[light].long()
+    keep = torch.zeros(grouped.shape[0], dtype=torch.bool, device=g.device)
+    keep[src] = True
+    pos = torch.cumsum(keep, 0) - 1
+    return g[keep].contiguous(), pos[src].int(), grouped[light].contiguous()
+
+
+def kernel5_design_numbers(entry: str, call, cw0, g, perm, grouped, n: int, device_ms: float,
+                           bytes_bound_ms: float) -> dict:
+    """The ring design's numbers for one of Kernel 5's entries on a step;
+    ``call(cw, g, perm, grouped)`` launches it. The heavy runs that the step's
+    launch sent through the ring (the kernel's count: non-zero, and the
+    plan's); the chain bound of the step's heaviest run (n contributors) at
+    the rows' dtype, n times the link's latency in registers
+    (``chain_latency_ns``), with the entry's share of it beside its share of
+    the bytes bound; the entry's own rate on that run with memory out of the
+    picture (``one_grad_row_ns``: the ring's pace); the light part alone
+    (``light_part_plan``) beside its bytes bound."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.ordered_scatter import heavy_runs, heavy_threshold, last_heavy_runs
+
+    L, D = g.shape
+    call(cw0.clone(), g, perm, grouped)
+    torch.cuda.synchronize()
+    found, want = last_heavy_runs(), heavy_runs(grouped, cw0.dtype)
+    if found != want or found == 0:
+        raise AssertionError(f"{entry}: the step's launch found {found} heavy runs, its plan has {want}")
+    chain = chain_latency_ns(g.device)
+    one_row = one_grad_row_ns(entry, n, D, g.device)
+    name = str(cw0.dtype).removeprefix("torch.")
+    chain_bound_ms = n * chain[name] * 1e-6
+    g_l, perm_l, grouped_l = light_part_plan(g, perm, grouped)
+    L_l, touched_l = g_l.shape[0], int(torch.unique_consecutive(grouped_l).numel())
+    cw_l = cw0.clone()
+    light_device_ms = device_median_ms(lambda: call(cw_l, g_l, perm_l, grouped_l))
+    light_bound_ms = (L_l * D * g.element_size() + 2 * L_l * 4 + 2 * touched_l * D * cw0.element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    out = dict(
+        heavy_threshold=heavy_threshold(L), heavy_runs=found,
+        chain_ns_per_add=chain, chain_bound_ms=chain_bound_ms,
+        chain_bound_by=f"{n} dependent adds in {name}, in registers",
+        share_of_bytes_bound=bytes_bound_ms / device_ms, share_of_chain_bound=chain_bound_ms / device_ms,
+        one_grad_row_ns_per_add=one_row, one_grad_row_ms=n * one_row[name] * 1e-6,
+        light_part=dict(ids=L_l, touched_rows=touched_l, ms=median_ms(lambda: call(cw_l, g_l, perm_l, grouped_l)),
+                        device_ms=light_device_ms, bound_ms=light_bound_ms, share=light_bound_ms / light_device_ms),
+    )
+    log(f"[kernel] {entry}: {found} heavy runs through the ring (threshold {out['heavy_threshold']}); chain "
+        f"{json.dumps(chain)} ns an add in registers, {json.dumps(one_row)} on one grad row; {json.dumps(out)}")
+    return out
+
+
+# Kernel 5 built from another source (``--kernel5-against``): {entry: C function}
+KERNEL5_AGAINST: dict = {}
+
+
+def build_kernel5_against(source) -> dict:
+    """Kernel 5 built from ``source``: an ordered_scatter_add.cu (an earlier
+    one, say) with this checkout's C interface for its two entries
+    (``ops/_cuda.py``), compiled beside this checkout's headers. Returns
+    {entry: C function}."""
+    import ctypes
+
+    from cachedembedding_tpu_torch import _build
+    from cachedembedding_tpu_torch.ops import _cuda
+
+    include = ["-I", str(_cuda.SOURCES["ordered_scatter_add"].parent)]
+    path, secs, _ = _build.build("libordered_scatter_add_against", [source],
+                                 lambda s, o: [*_build.nvcc_command(s, o), *include], _cuda.HEADERS)
+    log(f"[build] {source} (nvcc sm_90a): {secs:.1f} s -> {path.name}")
+    lib = ctypes.CDLL(str(path))
+    return {e: _cuda.bind(lib, e) for e in ("ordered_scatter_add", "ordered_grad_update")}
+
+
+def kernel5_against_call(fn, entry: str, slr: float):
+    """``call(cw, g, perm, grouped)`` for another build's entry ``fn``, as the
+    wrapper calls this build's (a scratch of the interface's size, always)."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops import _cuda
+    from cachedembedding_tpu_torch.ops.ordered_scatter import _DTYPE_CODES, heavy_threshold
+
+    def call(cw, g, perm, grouped):
+        L, D = g.shape
+        scratch = torch.empty(1 + L // (heavy_threshold(L) + 1), dtype=torch.int64, device=cw.device)
+        ptrs = (g.data_ptr(), perm.data_ptr(), grouped.data_ptr(), L, D)
+        if entry == "ordered_scatter_add":
+            rc = fn(cw.data_ptr(), *ptrs, -slr, _DTYPE_CODES[cw.dtype], scratch.data_ptr(), _cuda.stream_of(cw))
+        else:
+            rc = fn(cw.data_ptr(), None, *ptrs, slr, 0.0, _DTYPE_CODES[cw.dtype], scratch.data_ptr(),
+                    _cuda.stream_of(cw))
+        _cuda.check_launch(f"{entry} (against)", rc)
+
+    return call
+
+
+def kernel5_against_turns(entry: str, call, cw0, g, perm, grouped, slr: float) -> dict:
+    """``--kernel5-against``: Kernel 5's entry ``call(cw, g, perm, grouped)``
+    of this build against the same entry of the KERNEL5_AGAINST build, on
+    the step as it is and cast to f32 rows and grads (a cache of f32 rows
+    takes the same entry): the same bits, then device ms of the step and of
+    its heaviest run alone, in turns: the other build, this one twice, the
+    other."""
+    import torch
+
+    rows, counts = torch.unique_consecutive(grouped, return_counts=True)
+    r = int(torch.argmax(counts))
+    v, n, start = int(rows[r]), int(counts[r]), int(counts[:r].sum())
+    perm_run = torch.arange(n, dtype=torch.int32, device=g.device)
+    grouped_run = torch.zeros(n, dtype=torch.int32, device=g.device)
+    other = kernel5_against_call(KERNEL5_AGAINST[entry], entry, slr)
+    out = {"heaviest_run": n}
+    for cw_d, g_d in ((cw0, g), (cw0.float(), g.float())):
+        g_run = g_d[perm[start:start + n].long()].contiguous()
+        want, got = cw_d.clone(), cw_d.clone()
+        call(want, g_d, perm, grouped)
+        other(got, g_d, perm, grouped)
+        if not torch.equal(int_view(got), int_view(want)):
+            raise AssertionError(f"{entry}: the other build and this one differ on the step's {cw_d.dtype} rows")
+        turns = []
+        for src, fn in (("other", other), ("this", call), ("this", call), ("other", other)):
+            cw, row = cw_d.clone(), cw_d[v:v + 1].clone()
+            turns.append(dict(kernel=src, device_ms=device_median_ms(lambda: fn(cw, g_d, perm, grouped)),
+                              heaviest_run_device_ms=device_median_ms(
+                                  lambda: fn(row, g_run, perm_run, grouped_run))))
+        out[str(cw_d.dtype).removeprefix("torch.")] = {"same_bits": True, "turns": turns}
+        del want, got, g_run
+    log(f"[against] {entry}: {json.dumps(out)}")
+    return out
 
 
 def check_ordered_scatter(cw0, g, perm, grouped, slr: float) -> dict:
@@ -1588,9 +1961,16 @@ def check_ordered_scatter(cw0, g, perm, grouped, slr: float) -> dict:
         heaviest_run_ms=median_ms(lambda: ordered_scatter_add_(row_t, g_run, perm_run, grouped_run, slr)),
         heaviest_run_device_ms=device_median_ms(lambda: ordered_scatter_add_(row_t, g_run, perm_run, grouped_run, slr)),
     )
+    call = lambda c, gg, p, gr: ordered_scatter_add_(c, gg, p, gr, slr)  # noqa: E731
+    entry.update(kernel5_design_numbers("ordered_scatter_add", call, cw0, g, perm, grouped, n, entry["device_ms"],
+                                        entry["bound_ms"]))
+    if KERNEL5_AGAINST:
+        entry["against"] = kernel5_against_turns("ordered_scatter_add", call, cw0, g, perm, grouped, slr)
+    entry["heaviest_run_share_of_chain_bound"] = entry["chain_bound_ms"] / entry["heaviest_run_device_ms"]
+    entry["heaviest_run_share_of_one_grad_row"] = entry["one_grad_row_ms"] / entry["heaviest_run_device_ms"]
     log(f"[kernel] ordered_scatter_add: {touched} touched rows, heaviest run {n} ids (row {v}); bit-equal to its "
         f"plain version and across launches, on the step and on the heaviest run into a zero row; the gate "
-        f"rejects both planted faults; {json.dumps(entry)}")
+        f"rejects all four planted faults; {json.dumps(entry)}")
     return entry
 
 
@@ -1844,8 +2224,15 @@ def check_ordered_grad_update(cw0, g, perm, grouped, slr: float) -> dict:
         heaviest_run_device_ms=device_median_ms(
             lambda: ordered_grad_update_(row_t, None, g_run, perm_run, grouped_run, slr)),
     )
+    call = lambda c, gg, p, gr: ordered_grad_update_(c, None, gg, p, gr, slr)  # noqa: E731
+    entry.update(kernel5_design_numbers("ordered_grad_update", call, cw0, g, perm, grouped, n, entry["device_ms"],
+                                        entry["bound_ms"]))
+    if KERNEL5_AGAINST:
+        entry["against"] = kernel5_against_turns("ordered_grad_update", call, cw0, g, perm, grouped, slr)
+    entry["heaviest_run_share_of_chain_bound"] = entry["chain_bound_ms"] / entry["heaviest_run_device_ms"]
+    entry["heaviest_run_share_of_one_grad_row"] = entry["one_grad_row_ms"] / entry["heaviest_run_device_ms"]
     log(f"[kernel] ordered_grad_update: {touched} touched rows, heaviest run {n} ids (row {v}); bit-equal to its "
-        f"plain version and across launches, untouched rows unchanged; the gate rejects both planted faults; "
+        f"plain version and across launches, untouched rows unchanged; the gate rejects all four planted faults; "
         f"{json.dumps(entry)}")
     return entry
 
@@ -2339,6 +2726,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--unsorted-plan"]:  # phase 8's child process
         return refuse_unsorted_plan(sys.argv[2])
+    if sys.argv[1:2] == ["--kernel5-against"]:
+        return run_kernel5_against(sys.argv[2:])
     procs = {}
     try:
         return run_phases(procs)
@@ -2349,6 +2738,41 @@ def main() -> int:
                 p.wait()
 
 
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def run_kernel5_against(args) -> int:
+    """``--kernel5-against SOURCE``: the build, then phases 9 and 10 with
+    their gates, where each of Kernel 5's entries is also timed against the
+    same entry built from SOURCE (``kernel5_against_turns``). Prints the
+    card's name and power limit, then one JSON line of the turns. Not the
+    smoke run: it prints no ``ok`` line."""
+    from pathlib import Path
+
+    import torch
+
+    if len(args) != 1:
+        print("chip_smoke: --kernel5-against takes one source", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(build_kernel5_against, Path(args[0]).resolve())
+        phase_build()
+        KERNEL5_AGAINST.update(fut.result())
+    _, k5 = phase_terabyte(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, k5_ragged = phase_ragged(device)
+    print(card_name())
+    print(json.dumps({"kernel5_against": {"ordered_scatter_add (1tb step)": k5["against"],
+                                          "ordered_grad_update (ragged step)": k5_ragged["against"]}}), flush=True)
+    return 0
+
+
 def run_phases(procs: dict) -> int:
     import torch
 
@@ -2357,12 +2781,11 @@ def run_phases(procs: dict) -> int:
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(f"[build] done in {time.perf_counter() - t0:.1f} s; card: {smi}")
     procs.update(start_unsorted_plan_checks())
+    run_cases = check_ordered_run_cases(device)
+    bf16_sweep = check_bf16_add_sweep(device)
     for name in REFERENCE_SLICES:
         phase_reference(device, name)
     finish_unsorted_plan_checks(procs)
@@ -2393,7 +2816,8 @@ def run_phases(procs: dict) -> int:
     kernels[0]["on_ragged_step"] = k1_ragged
     # Kernel 5: its dense ragged entry on this slice's path, its scatter entry on the 1TB run's
     kernels.append({**k5_ragged, "ordered_scatter_add_entry": {
-        k: v for k, v in k5.items() if k not in ("name", "route", "source", "replaces")}})
+        k: v for k, v in k5.items() if k not in ("name", "route", "source", "replaces")}, "run_cases": run_cases,
+                    "bf16_add_sweep": bf16_sweep})
     gc.collect()
     torch.cuda.empty_cache()
     phase_bare_module(device)
