@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of ``cachedembedding_tpu`` for one NVIDIA H100.
 
 The JAX package beside this one is the reference; every module here has the
-same path and names as its counterpart there (``ops/pallas_bag.py`` is the one
-exception: its port is ``ops/gather_rows.py``). This package imports torch,
+same path and names as its counterpart there, with two exceptions: the port of
+``ops/pallas_bag.py`` is ``ops/gather_rows.py``, and the window wire that the
+JAX trainer keeps in ``train/trainer.py`` (dense and id encoders, the device
+decoders, the packed admits) is ``train/wire.py``. This package imports torch,
 numpy and the standard library only, never jax or ``cachedembedding_tpu``.
 
 Importing the package builds nothing: the host C++ library and the CUDA

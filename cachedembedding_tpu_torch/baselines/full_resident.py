@@ -112,7 +112,7 @@ class FullyResidentEmbeddingBag:
             raise ValueError(f"embedding ids out of range [0, {self.num_embeddings})")
         return ResidentWindow(slot_ids=ids_np.reshape(out_shape))
 
-    def enqueue_writebacks(self, ws: ResidentWindow) -> None:
+    def enqueue_writebacks(self, ws: ResidentWindow, slots=None) -> None:
         pass  # nothing leaves the device
 
     def apply_admits(self, ws: ResidentWindow) -> None:

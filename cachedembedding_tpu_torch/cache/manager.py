@@ -13,6 +13,12 @@ Split of responsibilities:
     and written to the host table by a drain thread;
   * device: admit scatters, writeback gathers, lookups, and the update.
 
+Admitted host rows travel in ``transfer_dtype``: f32, bf16, or per-row
+int8 / int4 payloads with an f32 scale each (``_quant_rows_host``,
+``_quant_rows_host4``), dequantized to f32 on the device and cast to the
+cache dtype. Warmup and the resident region ship f32 rows unless the mode is
+bf16, and writebacks ship bf16 whenever the mode is not f32, as in JAX.
+
 With ``optimizer="rowwise_adagrad"`` each device row has an f32 accumulator
 (``cache_accum``, (capacity + resident_total,)) whose master lives in a host
 store (``host_table.DenseAccumStore``, or ``OverlayAccumStore`` for a
@@ -35,7 +41,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,7 +55,13 @@ from cachedembedding_tpu_torch.cache.host_table import (
     OverlayAccumStore,
     VirtualHostTable,
 )
-from cachedembedding_tpu_torch.cache.state import EvictionStrategy, gather_slots, scatter_admits
+from cachedembedding_tpu_torch.cache.state import (
+    EvictionStrategy,
+    gather_slots,
+    scatter_admits,
+    scatter_admits_q4,
+    scatter_admits_q8,
+)
 from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
 from cachedembedding_tpu_torch.ops.synth_rows import scatter_synth_admits
@@ -59,7 +71,28 @@ CACHE_DTYPES = {
     "float8_e5m2": torch.float8_e5m2,
 }
 OPTIMIZERS = ("sgd", "rowwise_adagrad")
-_TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TRANSFER_DTYPES = ("float32", "bfloat16", "int8", "int4")
+
+
+def _quant_rows_host(rows: np.ndarray):
+    """Per-row symmetric int8 quantization of host rows for the wire:
+    (q (n, D) int8, scales (n,) f32)."""
+    rows = np.asarray(rows, np.float32)
+    absmax = np.abs(rows).max(axis=1)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(rows / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _quant_rows_host4(rows: np.ndarray):
+    """Per-row symmetric 4-bit quantization, nibble-packed in element pairs
+    (element 2k in the low nibble), biased by 8: (packed (n, D/2) uint8,
+    scales (n,) f32)."""
+    rows = np.asarray(rows, np.float32)
+    absmax = np.abs(rows).max(axis=1)
+    scale = np.where(absmax > 0, absmax / 7.0, 1.0).astype(np.float32)
+    q = (np.clip(np.round(rows / scale[:, None]), -7, 7) + 8).astype(np.uint8)
+    return (q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8), scale
 
 
 @dataclass
@@ -100,14 +133,16 @@ class CacheStats:
 class WindowStaging(NamedTuple):
     """Everything needed to make one window's rows resident, prepared on the
     host by ``begin_window_staging``: never-trained admits (synthesized on the
-    device) and fetched admits (host-table rows, in the transfer dtype)."""
+    device) and fetched admits (host-table rows, in the transfer mode)."""
 
     slot_ids: np.ndarray       # remapped ids, in the caller's out_shape
     synth_slots: np.ndarray    # (ns,) int32
     synth_rows: np.ndarray     # (ns,) int64 global rows
     synth_bounds: np.ndarray   # (ns,) float32
     fetch_slots: np.ndarray    # (nf,) int32
-    fetch_payload: torch.Tensor  # (nf, D) transfer dtype, pinned on CUDA
+    fetch_rows: np.ndarray     # (nf,) int64 global rows of the fetched admits
+    fetch_payload: torch.Tensor  # (nf, D) f32 / bf16 / int8, or (nf, D/2) uint8 nibble pairs (int4)
+    fetch_scales: np.ndarray   # (nf,) f32 per-row scales of int8/int4 payloads, else (0,)
     fetch_accum: np.ndarray    # (nf,) f32 Adagrad accumulators of the fetched rows, or (0,)
     admit_slots: np.ndarray    # (n_miss,) full plan arrays for the writebacks
     evict_rows: np.ndarray     # (n_miss,)
@@ -144,10 +179,14 @@ class CachedEmbeddingBag:
 
     Cache rows are stored in ``dtype`` (f32, bf16, float8_e4m3fn or
     float8_e5m2) over the f32 host master; admits round into it as
-    ``jnp.astype`` does, and writebacks and flushes widen exactly to the
-    transfer dtype (>= bf16). ``optimizer`` is "sgd" or "rowwise_adagrad"
-    (per-row accumulators that tier with the cache, starting at
-    ``adagrad_initial``).
+    ``jnp.astype`` does; writebacks travel at f32 where ``transfer_dtype``
+    is f32 and at bf16 otherwise, flushes in the rows' dtype. ``optimizer``
+    is "sgd" or "rowwise_adagrad" (per-row accumulators that tier with the
+    cache, starting at ``adagrad_initial``). The bare module's knobs are the
+    reference's: ``cuda_row_num`` (the slot count, in place of
+    ``cache_ratio``), ``device_init`` ("auto", "on" or "off": never-trained
+    admits synthesized on the device), ``include_last_offset`` and
+    ``set_cache_op`` for ``forward``.
     Runs on ``device`` (default: the current CUDA device; with no GPU and no
     explicit ``device="cpu"`` this raises)."""
 
@@ -157,7 +196,9 @@ class CachedEmbeddingBag:
         embedding_dim: int,
         *,
         mode: str = "sum",
+        include_last_offset: bool = True,
         cache_ratio: float = 0.01,
+        cuda_row_num: Optional[int] = None,
         ids_freq_mapping: Optional[np.ndarray] = None,
         warmup_ratio: float = 0.7,
         buffer_size: int = 50_000,
@@ -171,15 +212,17 @@ class CachedEmbeddingBag:
         resident_tables: Optional[Sequence[int]] = None,
         optimizer: str = "sgd",
         adagrad_initial: float = 0.0,
+        device_init: str = "auto",
     ):
         self.device = resolve_device(device)
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {optimizer!r}")
-        if transfer_dtype not in _TRANSFER_DTYPES:
-            raise NotImplementedError(
-                f"transfer_dtype={transfer_dtype!r}: int8/int4 admit payloads are "
-                "ROADMAP Queue 1 item 4"
-            )
+        if transfer_dtype not in TRANSFER_DTYPES:
+            raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
+        if transfer_dtype == "int4" and embedding_dim % 2:
+            raise ValueError("int4 transfers require an even embedding_dim")
+        if device_init not in ("auto", "on", "off"):
+            raise ValueError(f"unknown device_init {device_init!r}")
         dtype = CACHE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
         if dtype not in CACHE_DTYPES.values():
             raise ValueError(f"cache dtype {dtype}: the cache stores {', '.join(CACHE_DTYPES)} rows")
@@ -188,6 +231,7 @@ class CachedEmbeddingBag:
         self.num_embeddings = int(num_embeddings)
         self.embedding_dim = int(embedding_dim)
         self.mode = mode
+        self.include_last_offset = include_last_offset
         self.dtype = dtype
 
         # --- mixed-kernel resident region ---------------------------------
@@ -202,7 +246,8 @@ class CachedEmbeddingBag:
         self._goff = goff
         self.resident_total = int(sum(sizes[t] for t in self.resident_tables))
         num_cached_rows = self.num_embeddings - self.resident_total
-        self.capacity = max(1, min(int(cache_ratio * num_cached_rows), max(num_cached_rows, 1)))
+        capacity = cuda_row_num if cuda_row_num is not None else int(cache_ratio * num_cached_rows)
+        self.capacity = max(1, min(int(capacity), max(num_cached_rows, 1)))
         self.buffer_size = int(buffer_size)
         self.evict_strategy = evict_strategy
 
@@ -267,7 +312,12 @@ class CachedEmbeddingBag:
             if evict_strategy == EvictionStrategy.DATASET:
                 raise ValueError("DATASET eviction requires ids_freq_mapping")
 
-        self.device_init = getattr(self.host_table, "supports_device_init", False)
+        # never-trained rows materialize on the device ("auto": wherever the
+        # host table is procedural; the port's only planner is the host one)
+        self.device_init = device_init != "off" and getattr(self.host_table, "supports_device_init", False)
+        if device_init == "on" and not self.device_init:
+            raise ValueError("device_init requires a procedural host table (uniform/virtual init) "
+                             "and the host planner")
         self._seed = int(getattr(self.host_table, "seed", 0) or 0)
 
         # Warmup never spends cache slots on resident rows.
@@ -280,7 +330,12 @@ class CachedEmbeddingBag:
             self._warm_freq = self._host_freq
 
         self.stats = CacheStats()
-        self.transfer_dtype = _TRANSFER_DTYPES[transfer_dtype]
+        self.cache_op = True
+        self.transfer_mode = transfer_dtype
+        # warmup and the resident region ship f32 rows unless the mode is bf16;
+        # writebacks land in the f32 host master at >= bf16 (bf16 unless f32)
+        self._row_dtype = torch.bfloat16 if transfer_dtype == "bfloat16" else torch.float32
+        self.writeback_dtype = torch.float32 if transfer_dtype == "float32" else torch.bfloat16
         # Writeback drain: evicted rows land in the host table on a worker
         # thread. The host table is guarded by a lock; a re-admission of a row
         # whose writeback is still in flight is prevented by _ensure_clean.
@@ -311,6 +366,31 @@ class CachedEmbeddingBag:
     def device_rows(self) -> int:
         """Total rows of the device array: cache slots + resident region."""
         return self.capacity + self.resident_total
+
+    @property
+    def cache_weight_mgr(self) -> "CachedEmbeddingBag":
+        """The reference's ``embed.cache_weight_mgr``: bag and manager are one."""
+        return self
+
+    def set_cache_op(self, cache_op: bool) -> None:
+        """With ``cache_op`` off, ``forward`` takes slot ids from an earlier
+        ``prepare_ids`` and runs no cache maintenance."""
+        self.cache_op = bool(cache_op)
+
+    def pf_pack_spec(self, n_per_feature: int):
+        """Per-feature (pack width, device delta) of the window id wire: each
+        feature's block at its own width, resident features as raw local ids
+        with a static address delta added on the device, cached features at
+        the cache capacity's width. None without a resident split."""
+        if not self.resident_tables:
+            return None
+        spec = []
+        for t, size in enumerate(self.table_sizes):
+            if self._is_res_table[t]:
+                spec.append((hostops.nibble_width(size, n_per_feature), int(self._goff[t] + self._res_delta[t])))
+            else:
+                spec.append((hostops.nibble_width(self.capacity, n_per_feature), 0))
+        return tuple(spec)
 
     # -- warmup ---------------------------------------------------------------
     def _warmup(self, warmup_ratio: float) -> None:
@@ -343,7 +423,7 @@ class CachedEmbeddingBag:
         if n_fresh < k:
             rows = self.host_table.gather(top[written])
             slots_dev = self.to_device(slots[written].astype(np.int64))
-            scatter_admits(self.cache_weight, slots_dev, self.to_device(torch.from_numpy(rows).to(self.transfer_dtype)))
+            scatter_admits(self.cache_weight, slots_dev, self.to_device(torch.from_numpy(rows).to(self._row_dtype)))
             # trained warm rows resume with their accumulators (a restored checkpoint)
             self._land_accum(slots_dev, top[written])
             self.stats.swap_in_bytes += rows.nbytes
@@ -369,7 +449,7 @@ class CachedEmbeddingBag:
         if written.any():
             vals = self.host_table.gather(rows[written])
             addrs_dev = self.to_device(addrs[written])
-            scatter_admits(self.cache_weight, addrs_dev, self.to_device(torch.from_numpy(vals).to(self.transfer_dtype)))
+            scatter_admits(self.cache_weight, addrs_dev, self.to_device(torch.from_numpy(vals).to(self._row_dtype)))
             self._land_accum(addrs_dev, rows[written])
             self.stats.swap_in_bytes += vals.nbytes
 
@@ -453,8 +533,9 @@ class CachedEmbeddingBag:
             return WindowStaging(
                 slot_ids=slot_full.reshape(out_shape),
                 synth_slots=empty_i, synth_rows=np.zeros((0,), np.int64),
-                synth_bounds=empty_f, fetch_slots=empty_i,
-                fetch_payload=torch.zeros((0, D), dtype=self.transfer_dtype), fetch_accum=empty_f,
+                synth_bounds=empty_f, fetch_slots=empty_i, fetch_rows=np.zeros((0,), np.int64),
+                fetch_payload=self._payload(np.zeros((0, D), np.float32))[0], fetch_scales=empty_f,
+                fetch_accum=empty_f,
                 admit_slots=hp.admit_slots, evict_rows=hp.evict_rows,
             )
         # Every in-flight writeback must land before the written-mask check:
@@ -471,57 +552,96 @@ class CachedEmbeddingBag:
         synth_rows = hp.admit_rows[fresh]
         self.stats.synth_rows += int(synth_rows.shape[0])
         w_rows = hp.admit_rows[written]
-        payload = self._pinned((w_rows.shape[0], D), self.transfer_dtype)
         fetch_accum = empty_f
+        t0 = time.perf_counter()
         if w_rows.shape[0]:
-            t0 = time.perf_counter()
             with self._host_lock:
                 vals = self.host_table.gather(w_rows)
                 if self.host_accum is not None:
                     fetch_accum = self.host_accum.gather(w_rows)
-            payload.copy_(torch.from_numpy(vals))
+        else:
+            vals = np.zeros((0, D), np.float32)
+        payload, scales = self._payload(vals)
+        if w_rows.shape[0]:
             self.stats.swap_in_bytes += w_rows.shape[0] * D * 4
             self.stats.swap_in_time += time.perf_counter() - t0
         return WindowStaging(
             slot_ids=slot_full.reshape(out_shape),
             synth_slots=hp.admit_slots[fresh], synth_rows=synth_rows,
             synth_bounds=self.host_table.row_bounds(synth_rows).astype(np.float32),
-            fetch_slots=hp.admit_slots[written], fetch_payload=payload, fetch_accum=fetch_accum,
+            fetch_slots=hp.admit_slots[written], fetch_rows=w_rows, fetch_payload=payload, fetch_scales=scales,
+            fetch_accum=fetch_accum,
             admit_slots=hp.admit_slots, evict_rows=hp.evict_rows,
         )
 
+    def _payload(self, vals: np.ndarray):
+        """Fetched f32 host rows in the transfer mode: (payload tensor, f32
+        per-row scales, empty unless int8/int4)."""
+        if self.transfer_mode == "int8":
+            q, scales = _quant_rows_host(vals)
+            return torch.from_numpy(q), scales
+        if self.transfer_mode == "int4":
+            q, scales = _quant_rows_host4(vals)
+            return torch.from_numpy(q), scales
+        t = torch.from_numpy(np.ascontiguousarray(vals, np.float32))
+        return (t.to(torch.bfloat16) if self.transfer_mode == "bfloat16" else t), np.zeros((0,), np.float32)
+
     def apply_admits(self, ws: WindowStaging) -> None:
-        """Land a staged window's admits on the device: synthesized rows
-        first, then fetched rows (the order of the JAX window program), each
-        with its Adagrad accumulator (``adagrad_initial`` for a synthesized
-        row, the host value for a fetched one)."""
+        """Copy a staged window's admits to the device and land them
+        (``land_admits``); the trainer ships them in its window buffer
+        instead (``train/wire.py``)."""
+        to_dev = self.to_device
+        synth = fetch = None
         if ws.synth_slots.shape[0]:
-            slots = self.to_device(ws.synth_slots.astype(np.int64))
-            scatter_synth_admits(
-                self.cache_weight, slots, self.to_device(ws.synth_rows), self.to_device(ws.synth_bounds), self._seed,
-            )
+            synth = (to_dev(ws.synth_slots.astype(np.int64)), to_dev(ws.synth_rows), to_dev(ws.synth_bounds))
+        if ws.fetch_slots.shape[0]:
+            quantized = self.transfer_mode in ("int8", "int4")
+            fetch = (to_dev(ws.fetch_slots.astype(np.int64)), to_dev(ws.fetch_payload),
+                     to_dev(ws.fetch_scales) if quantized else None,
+                     to_dev(ws.fetch_accum) if self.cache_accum is not None else None)
+        self.land_admits(synth, fetch)
+
+    def land_admits(self, synth=None, fetch=None) -> None:
+        """Land admits that are on the device, in place: synthesized rows
+        first, then fetched rows (the order of the JAX window program).
+        ``synth`` = (int64 slots, global rows, f32 bounds), their
+        accumulators at ``adagrad_initial``; ``fetch`` = (int64 slots,
+        payload in the transfer mode, the f32 per-row scales of int8/int4
+        payloads, the f32 accumulators under Adagrad)."""
+        if synth is not None:
+            slots, rows, bounds = synth
+            scatter_synth_admits(self.cache_weight, slots, rows, bounds, self._seed)
             if self.cache_accum is not None:
                 self.cache_accum.index_fill_(0, slots, self.adagrad_initial)
-        if ws.fetch_slots.shape[0]:
-            slots = self.to_device(ws.fetch_slots.astype(np.int64))
-            scatter_admits(self.cache_weight, slots, self.to_device(ws.fetch_payload))
+        if fetch is not None:
+            slots, payload, scales, accum = fetch
+            if self.transfer_mode == "int8":
+                scatter_admits_q8(self.cache_weight, slots, payload, scales)
+            elif self.transfer_mode == "int4":
+                scatter_admits_q4(self.cache_weight, slots, payload, scales)
+            else:
+                scatter_admits(self.cache_weight, slots, payload)
             if self.cache_accum is not None:
-                self.cache_accum.index_copy_(0, slots, self.to_device(ws.fetch_accum))
+                self.cache_accum.index_copy_(0, slots, accum)
 
-    def enqueue_writebacks(self, ws: WindowStaging) -> None:
+    def enqueue_writebacks(self, ws: WindowStaging, slots: Optional[torch.Tensor] = None) -> None:
         """Enqueue the device gathers of this window's evicted occupants and
         their copies to pinned host memory. MUST run after the previous
         window's steps are enqueued (so the values read are their outputs) and
-        before this window's admits (which overwrite the slots)."""
+        before this window's admits (which overwrite the slots). ``slots``:
+        the evicted rows' slots already on the device (the trainer ships them
+        in the window's buffer), else copied here."""
         mask = ws.evict_rows >= 0
         n_wb = int(mask.sum())
         self.stats.num_write_back_history.append(n_wb)
         if n_wb == 0:
             self._ensure_clean(None, block=False)
             return
-        # writebacks land in the f32 host master at >= bf16
-        slots = self.to_device(ws.admit_slots[mask].astype(np.int64))
-        vals_dev = gather_slots(self.cache_weight, slots, out_dtype=self.transfer_dtype)
+        # writebacks land in the f32 host master at >= bf16, never int8/int4
+        # (a fresh quantization each evict/re-admit cycle would compound)
+        if slots is None:
+            slots = self.to_device(ws.admit_slots[mask].astype(np.int64))
+        vals_dev = gather_slots(self.cache_weight, slots, out_dtype=self.writeback_dtype)
         host = self._pinned(vals_dev.shape, vals_dev.dtype)
         host.copy_(vals_dev, non_blocking=self._on_cuda)
         host_acc = None
@@ -587,6 +707,34 @@ class CachedEmbeddingBag:
     def lookup(self, features: RaggedFeatures) -> torch.Tensor:
         """Pooled lookup of device-address features, uniform or ragged: (B, F, D)."""
         return embedding_bag(self.cache_weight, features, mode=self.mode)
+
+    def forward(self, values, offsets=None, per_sample_weights=None, shape_hook: Optional[Callable] = None, *,
+                num_features: int = 1, batch_size: Optional[int] = None) -> torch.Tensor:
+        """EmbeddingBag-style forward of the bare module: (B, F, D) bags of
+        ``values`` split by ``offsets`` (``include_last_offset`` semantics;
+        without offsets one id a bag). With ``cache_op`` on the values are
+        global ids and the cache is maintained first (``prepare_ids``);
+        otherwise they are slot ids already. ``shape_hook`` maps the output."""
+        values = torch.as_tensor(np.asarray(values.cpu() if isinstance(values, torch.Tensor) else values),
+                                 dtype=torch.int32)
+        values = self.prepare_ids(values) if self.cache_op else self.to_device(values)
+        if offsets is not None:
+            offsets = torch.as_tensor(np.asarray(offsets.cpu() if isinstance(offsets, torch.Tensor) else offsets),
+                                      dtype=torch.int32)
+            if not self.include_last_offset:  # the trailing boundary torch's EmbeddingBag leaves out
+                offsets = torch.cat([offsets, torch.tensor([values.shape[0]], dtype=torch.int32)])
+            offsets = self.to_device(offsets)
+        if batch_size is None:
+            nb = offsets.shape[0] - 1 if offsets is not None else values.shape[0]
+            batch_size = nb // num_features
+        feats = RaggedFeatures(values=values, offsets=offsets, num_features=num_features, batch_size=batch_size,
+                               pooling=1 if offsets is None else None)
+        psw = None if per_sample_weights is None else self.to_device(
+            torch.as_tensor(np.asarray(per_sample_weights, np.float32)))
+        out = embedding_bag(self.cache_weight, feats, mode=self.mode, per_sample_weights=psw)
+        return shape_hook(out) if shape_hook is not None else out
+
+    __call__ = forward
 
     # -- flush ----------------------------------------------------------------
     def _flush_resident(self) -> None:

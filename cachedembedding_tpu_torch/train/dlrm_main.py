@@ -24,7 +24,9 @@ pinned, and staging overlaps the device's steps, always).
 Besides the JAX CLI's lines it prints, on stderr, ``run stats: {json}``: the
 kernel launches, the table's fill seconds, the frequency map's seconds, host
 and device seconds a window, the update plans' host ms a step, the peak
-device memory, and under row-wise Adagrad the rows whose accumulator grew.
+device memory, the bytes of fetched admits, each window's id wire format and
+the first window's bytes by block, and under row-wise Adagrad the rows whose
+accumulator grew.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use_overlap", action="store_true", help="accepted: staging always overlaps")
     p.add_argument("--prefetch_num", type=int, default=8, help="far-sighted prefetch window depth")
     p.add_argument("--transfer_dtype", choices=["float32", "bfloat16", "int8", "int4"], default="float32",
-                   help="host<->device row payload dtype (int8/int4: ROADMAP Queue 1 item 4)")
+                   help="host<->device row payload dtype (int8/int4: per-row quantized admits)")
     p.add_argument("--cache_dtype", choices=["float32", "bfloat16", "float8_e4m3fn", "float8_e5m2"],
                    default="bfloat16", help="device cache-row storage dtype")
     p.add_argument("--stochastic_rounding", choices=["auto", "on", "off"], default="auto",
@@ -127,8 +129,6 @@ def refuse_outside_port(args) -> None:
     for bad, flag in refusals:
         if bad:
             raise NotImplementedError(f"{flag}: multi-device training is ROADMAP Queue 1 item 9")
-    if args.transfer_dtype in ("int8", "int4"):
-        raise NotImplementedError(f"--transfer_dtype {args.transfer_dtype} is ROADMAP Queue 1 item 4")
     if args.planner == "device":
         raise NotImplementedError("--planner device is ROADMAP Queue 1 item 11")
 
@@ -356,6 +356,8 @@ def main(argv=None) -> None:
                 window_host_s=[x for r in parts for x in r.window_host_s],
                 window_device_s=[x for r in parts for x in r.window_device_s],
                 window_plan_s=[x for r in parts for x in r.window_plan_s],
+                window_wire=[x for r in parts for x in r.window_wire],
+                window_copy_s=[x for r in parts for x in r.window_copy_s],
             )
         else:
             report = trainer.train(train_data, num_iters=limit, log_every=100)
@@ -393,6 +395,9 @@ def main(argv=None) -> None:
         "window_device_s": [x for r in reports for x in r.window_device_s],
         "plan_host_ms_per_step": 1e3 * sum(x for r in reports for x in r.window_plan_s) / max(steps, 1),
         "peak_device_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+        "swap_in_bytes": trainer.embed.stats.swap_in_bytes,
+        "wire_formats": [w["format"] for r in reports for w in r.window_wire],
+        "window_bytes": [w["bytes"] for r in reports for w in r.window_wire][:1],
     }
     if trainer.embed.cache_accum is not None:
         # row-wise Adagrad: rows whose accumulator grew, on the device and,

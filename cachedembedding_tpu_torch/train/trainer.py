@@ -5,10 +5,13 @@ slice: uniform and ragged windows).
 Far-sighted prefetch: every ``prefetch_num`` batches form a window whose ids
 are planned once by the host directory. Per window, in order:
 
-  1. the host plans and stages window k+1 while the GPU runs window k (the
-     staging, its host->device copies and the writeback gathers of window
-     k+1's evictions are enqueued right after window k's steps);
-  2. the admits land: synthesized rows first, then fetched rows;
+  1. the host plans and stages window k+1 while the GPU runs window k: it
+     packs the window's ids, dense features, labels, admits and update plans
+     into one uint8 buffer and copies it to the device in one transfer
+     (``train/wire.py``); the copy, the decode and the writeback gathers of
+     window k+1's evictions are enqueued right after window k's steps;
+  2. the admits land from the buffer: synthesized rows first, then fetched
+     rows;
   3. each step gathers its rows with Kernel 1 (``ops/gather_rows.py``) into
      the (B, F, D) layout, in the cache's storage dtype;
   4. the dense forward and backward run, with the gradient taken with respect
@@ -93,6 +96,7 @@ import numpy as np
 import torch
 
 from cachedembedding_tpu_torch import resolve_device
+from cachedembedding_tpu_torch._native import hostops
 from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, OPTIMIZERS, CachedEmbeddingBag, WindowStaging
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
@@ -109,10 +113,12 @@ from cachedembedding_tpu_torch.ops.embedding_bag import pool_ragged, pool_unifor
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
 from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_scatter_add_
 from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sgd_round_
+from cachedembedding_tpu_torch.train import wire
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
 _EVAL_READBACK_STEPS = 32  # eval scores stay on the device this many steps
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DENSE_INPUT_DTYPES = ("float32", "bfloat16", "int8", "int4")
 _M32 = 0xFFFFFFFF
 _SEED_MUL = 0x9E3779B9  # per-step rounding seeds: uint32(step) * this + p, as in JAX
 
@@ -133,13 +139,14 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
     refusals = [
         (tuple(cfg.mesh_shape) != (1,) or cfg.use_tablewise,
          "the mesh (data/model parallel) is ROADMAP Queue 1 item 9"),
-        (cfg.compute_dtype not in _FLOAT_DTYPES, f"compute_dtype={cfg.compute_dtype!r} is not supported"),
-        (cfg.dense_input_dtype not in _FLOAT_DTYPES,
-         f"dense_input_dtype={cfg.dense_input_dtype!r}: int8/int4 dense inputs are ROADMAP Queue 1 item 8"),
-        (c.transfer_dtype not in _FLOAT_DTYPES,
-         f"transfer_dtype={c.transfer_dtype!r}: int8/int4 transfers are ROADMAP Queue 1 item 4"),
         (c.planner == "device", "the device planner is ROADMAP Queue 1 item 11"),
     ]
+    if cfg.compute_dtype not in _FLOAT_DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r} is not supported")
+    if cfg.dense_input_dtype not in DENSE_INPUT_DTYPES:
+        raise ValueError(f"unknown dense_input_dtype {cfg.dense_input_dtype!r}")
+    if c.id_wire not in ("plain", "escape", "ranktier"):
+        raise ValueError(f"unknown id_wire {c.id_wire!r}")
     for bad, msg in refusals:
         if bad:
             raise NotImplementedError(msg)
@@ -183,27 +190,41 @@ class TrainReport:
     window_host_s: List[float] = dataclasses.field(default_factory=list)  # host s per window: data, plan, staging
     window_device_s: List[float] = dataclasses.field(default_factory=list)  # device s per window (CUDA events)
     window_plan_s: List[float] = dataclasses.field(default_factory=list)  # host s per window in the update plans
+    # per window: the id format shipped ("fixed", "plain", "esc" or "rt"),
+    # bytes by block (ids, dense, labels, admits, and the tail: plans and
+    # writeback slots), host s in the id encoder and in the rest of the
+    # packing (dense features, labels, admits, the buffer's assembly)
+    window_wire: List[dict] = dataclasses.field(default_factory=list)
+    window_copy_s: List[float] = dataclasses.field(default_factory=list)  # device s of each buffer copy
 
 
 class _Window(NamedTuple):
-    """One staged window, its inputs already enqueued to the device. A
-    ragged window's steps are slices of flat arrays: step p's ids are
-    ``slot_ids[bounds[p]:bounds[p + 1]]``, and so are its plan's perm and
-    grouped ids."""
+    """One staged window: its buffer copied to the device and decoded there
+    (views of the buffer where the bytes allow). A ragged window's ids are
+    (P, Vp), step p's first ``bounds[p + 1] - bounds[p]`` of its row; its
+    plan's perm and grouped ids are flat, step p's at ``bounds[p]:bounds[p +
+    1]``."""
 
     staging: WindowStaging
-    slot_ids: torch.Tensor  # (P, L) int32 feature-major device addresses; ragged: flat
+    slot_ids: torch.Tensor  # (P, L) int32 feature-major device addresses; ragged: (P, Vp)
     dense: torch.Tensor     # (P, B, Din) float32
     labels: torch.Tensor    # (P, B) float32
     plan: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # perm, grouped, bins
     plan_s: float  # host seconds spent in the update plans
+    buf: torch.Tensor = None                 # the window's device buffer
+    admits: Optional[wire.AdmitLayout] = None
+    wire: Optional[dict] = None              # format, id spec, bytes by block, encode s
+    copy_ev: Optional[tuple] = None          # CUDA events around the buffer copy
+    wb_slots: Optional[torch.Tensor] = None  # int32 slots of the evicted rows to write back
     bounds: Optional[List[int]] = None       # ragged: (P + 1,) step boundaries
     lengths: Optional[torch.Tensor] = None   # ragged: (P, F*B) int32 ids per bag
     in_bags: Optional[List[int]] = None      # ragged: (P,) ids a step inside its bags
     vp: int = 0                              # ragged: JAX's padded ids a step
 
     def step_ids(self, p: int) -> torch.Tensor:
-        return self.slot_ids[p] if self.bounds is None else self.slot_ids[self.bounds[p]:self.bounds[p + 1]]
+        if self.bounds is None:
+            return self.slot_ids[p]
+        return self.slot_ids[p, : self.bounds[p + 1] - self.bounds[p]]
 
     def step_plan(self, p: int):
         perm, grouped, bins = self.plan
@@ -289,7 +310,8 @@ class CachedDLRMTrainer:
                 device=self.device,
             )
         self.data_parallel_size = int(np.prod(cfg.mesh_shape))
-        self._dense_dtype = _FLOAT_DTYPES[cfg.dense_input_dtype]
+        # the stateful id wire of uniform windows (train/wire.py)
+        self.wire = wire.WindowWire(c.id_wire, c.escape_pack, self._rt_dict_features(), self._device_rows())
         # f32 rows: the rounding branch is cw - slr * g, Kernel 2's function
         self._sr = c.rounds_stochastically and self.embed.cache_weight.dtype != torch.float32
         self._step_idx = 0  # training steps dispatched before the current window
@@ -307,88 +329,218 @@ class CachedDLRMTrainer:
         """Row count of the device embedding array (cache slots + resident region)."""
         return self.embed.device_rows
 
+    def _rt_dict_features(self) -> list:
+        """The rank-tier wire's dictionary features: the cached ones (their
+        slot ids are arbitrary); resident local ids are already rank-like."""
+        if not isinstance(self.embed, CachedEmbeddingBag):
+            return [False] * self.cfg.num_sparse_features
+        return [not bool(r) for r in self.embed._is_res_table]
+
+    def _encode_ids(self, slot: np.ndarray, P: int, L: int, F: int):
+        """The id block of a uniform window (JAX's ``_begin_window``): per-
+        feature blocks through the stateful wire where the bag has a
+        per-feature spec (a resident split) or is a cache with the escape
+        wire on, else one fixed width. Returns (bytes, id_spec, format)."""
+        Bf = L // F
+        spec = self.embed.pf_pack_spec(P * Bf) if hasattr(self.embed, "pf_pack_spec") else None
+        if spec is None and self.wire._escape_pack and isinstance(self.embed, CachedEmbeddingBag):
+            w = hostops.nibble_width(self._device_rows(), P * Bf)
+            spec = tuple((w, 0) for _ in range(F))
+        if spec is not None:
+            return self.wire.encode(slot.reshape(P, F, Bf), spec, P, L, Bf)
+        width = hostops.id_pack_width(self._device_rows(), L)
+        packed = slot.reshape(-1).view(np.uint8) if width == 32 else hostops.pack_ids(slot, width)
+        return packed, width, "fixed"
+
+    def _dense_mode(self, dense_mode: Optional[str], ragged: bool) -> str:
+        """The dense wire of a window: ``dense_input_dtype``, but f32 for a
+        fully resident table's ragged windows, which JAX trains by its
+        per-step function on the f32 features."""
+        if dense_mode is None and ragged and not isinstance(self.embed, CachedEmbeddingBag):
+            return "float32"
+        return dense_mode or self.cfg.dense_input_dtype
+
+    def _ship(self, parts: dict, tail: list):
+        """Assemble a window's blocks, then ``tail`` at an aligned offset, into
+        one host buffer and copy it to the device in one transfer. Returns
+        (device buffer, tail offset, CUDA events around the copy or None)."""
+        host, tail_at = wire.assemble([p for blk in parts.values() for p in blk], tail,
+                                      pin=self.device.type == "cuda")
+        ev = None
+        if self.device.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        buf = self.embed.to_device(host)
+        if ev is not None:
+            ev[1].record()
+        return buf, tail_at, ev
+
+    @staticmethod
+    def _writeback_slots(ws) -> list:
+        """The slots whose evicted rows the window writes back, shipped in its
+        buffer (none for a fully resident table)."""
+        if not isinstance(ws, WindowStaging):
+            return []
+        return [np.ascontiguousarray(ws.admit_slots[ws.evict_rows >= 0], np.int32)]
+
+    def _admit_parts(self, ws) -> Tuple[list, tuple]:
+        """The admit block of a staged window and its (sb, fb, fmode, accum)."""
+        if not isinstance(ws, WindowStaging):
+            return [], (0, 0, "float32", False)
+        fmode = self.embed.transfer_mode
+        accum = self.embed.cache_accum is not None
+        return wire.admit_wire(ws, fmode, accum), (ws.synth_slots.shape[0], ws.fetch_slots.shape[0], fmode, accum)
+
+    @staticmethod
+    def _tail_views(buf: torch.Tensor, at: int, shapes) -> tuple:
+        """int32 views of the plan arrays and writeback slots at the buffer's
+        aligned tail."""
+        out = []
+        for shape in shapes:
+            n = int(np.prod(shape))
+            out.append(wire.field(buf, at, n, torch.int32).reshape(shape))
+            at += 4 * n
+        return tuple(out)
+
     def _begin_window(self, batches: List[Batch], with_plan: bool = True,
-                      dense_dtype: Optional[torch.dtype] = None) -> _Window:
-        """Plan and stage a window, then enqueue its inputs to the device:
-        remapped ids, dense features (in ``dense_input_dtype``), labels, and
-        (``with_plan``) per-step grouping plans for the update. A window
-        whose batches all share one pooling factor and carry no offsets is
-        uniform; any other is ragged."""
+                      dense_mode: Optional[str] = None) -> _Window:
+        """Plan and stage a window and ship it: the remapped ids, dense
+        features (in ``dense_input_dtype``, or ``dense_mode``), labels, the
+        admits and (``with_plan``) per-step grouping plans for the update,
+        in one buffer and one host-to-device copy. A window whose batches all
+        share one pooling factor and carry no offsets is uniform; any other
+        is ragged."""
         f0 = batches[0].sparse_features
         F, B, Pool = f0.num_features, f0.batch_size, f0.pooling
         if any(b.sparse_features.num_features != F or b.sparse_features.batch_size != B for b in batches):
             raise NotImplementedError("a window's batches must share their feature count and batch size")
         if Pool is None or any(b.sparse_features.pooling != Pool or b.sparse_features.offsets is not None
                                for b in batches):
-            return self._begin_window_ragged(batches, with_plan, dense_dtype)
+            return self._begin_window_ragged(batches, with_plan, dense_mode)
         P = len(batches)
         all_ids = concat_uniform_values(batches)
         L = all_ids.shape[0] // P
         N = L // F
         ws = self.embed.begin_window_staging(all_ids, (P, L), uniform_fbp=(P, F, N))
-        to_dev = self.embed.to_device
-        dense, labels = self._dense_and_labels(batches, dense_dtype)
-        plan, plan_s = None, 0.0
+        t0 = time.perf_counter()
+        ids_bytes, id_spec, fmt = self._encode_ids(ws.slot_ids, P, L, F)
+        encode_s = time.perf_counter() - t0
+        dmode = self._dense_mode(dense_mode, False)
+        t0 = time.perf_counter()
+        labels, lbits = wire.label_wire(torch.stack([b.labels for b in batches]).numpy(), True)
+        admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
+        parts = {"ids": [ids_bytes], "dense": wire.dense_wire(self._dense_np(batches), dmode),
+                 "labels": [labels], "admits": admit_parts}
+        pack_s = time.perf_counter() - t0
+        plan_parts, plan_s = [], 0.0
         if with_plan:
             NR = self._device_rows()
             t0 = time.perf_counter()
             # the update's stream is the gathered rows' order: (N, F)
             steps = [sort_plan_np(ws.slot_ids[p].reshape(F, N).T, NR) for p in range(P)]
             plan_s = time.perf_counter() - t0
-            plan = tuple(to_dev(np.stack(a)) for a in zip(*steps))
-        return _Window(staging=ws, slot_ids=to_dev(ws.slot_ids), dense=dense, labels=labels, plan=plan,
-                       plan_s=plan_s)
+            plan_parts = [np.stack(a) for a in zip(*steps)]
+        wb = self._writeback_slots(ws)
+        t0 = time.perf_counter()
+        buf, tail_at, ev = self._ship(parts, plan_parts + wb)
+        pack_s += time.perf_counter() - t0
+        slot_ids, a = wire.decode_window_ids(buf, P, L, id_spec)
+        dense, b = wire.unpack_dense(buf, a, P, B, self.cfg.dense_in_features, dmode)
+        labels_dev, c = wire.unpack_labels(buf, b, P, B, lbits)
+        tail = self._tail_views(buf, tail_at, [p.shape for p in plan_parts + wb])
+        return _Window(staging=ws, slot_ids=slot_ids, dense=dense, labels=labels_dev,
+                       plan=tail[:3] if with_plan else None, plan_s=plan_s,
+                       buf=buf, admits=wire.AdmitLayout(c, sb, fb, fmode, accum),
+                       wire=self._wire_report(fmt, id_spec, parts, plan_parts + wb, encode_s, pack_s, dmode, lbits),
+                       copy_ev=ev, wb_slots=tail[-1] if wb else None)
 
-    def _dense_and_labels(self, batches: List[Batch], dense_dtype: Optional[torch.dtype]):
-        """A window's (P, B, Din) dense features, shipped in ``dense_dtype``
-        (default ``dense_input_dtype``), and (P, B) labels, as f32 on the
-        device."""
-        to_dev = self.embed.to_device
-        dense = torch.stack([b.dense_features for b in batches]).to(dense_dtype or self._dense_dtype)
-        labels = torch.stack([b.labels for b in batches]).to(torch.uint8)
-        return to_dev(dense).float(), to_dev(labels).float()
+    @staticmethod
+    def _dense_np(batches: List[Batch]) -> np.ndarray:
+        return torch.stack([b.dense_features for b in batches]).float().numpy()
 
-    def _begin_window_ragged(self, batches: List[Batch], with_plan: bool,
-                             dense_dtype: Optional[torch.dtype]) -> _Window:
+    @staticmethod
+    def _wire_report(fmt, id_spec, parts: dict, tail: list, encode_s: float, pack_s: float, dmode: str,
+                     lbits: bool) -> dict:
+        nbytes = {k: int(sum(p.nbytes for p in v)) for k, v in parts.items()}
+        nbytes["tail"] = int(sum(p.nbytes for p in tail))  # plans and writeback slots
+        return {"format": fmt, "id_spec": id_spec, "bytes": nbytes, "encode_s": encode_s, "pack_s": pack_s,
+                "dense": dmode, "label_bits": lbits}
+
+    def _begin_window_ragged(self, batches: List[Batch], with_plan: bool, dense_mode: Optional[str]) -> _Window:
         """A ragged window (the JAX trainer's ``_begin_window_ragged``): the
-        steps' flat feature-major id streams planned as one, their per-bag
-        lengths, and per step a plan that sorts the step's flat stream (the
-        order of its gathered rows) by row. A fully resident table ships
-        f32 dense features, as JAX's per-step path does."""
+        steps' flat feature-major id streams planned as one, shipped as a
+        (P, Vp) zero-padded block at ``id_pack_width`` over ``Vp = bucket(max
+        step ids)``, the per-bag lengths as u8 or u16, dense features, u8
+        labels and the admits; per step a plan that sorts the step's flat
+        stream (the order of its gathered rows) by row."""
         P = len(batches)
+        f0 = batches[0].sparse_features
+        F, B = f0.num_features, f0.batch_size
         vals = [b.sparse_features.values.numpy() for b in batches]
-        bounds = np.concatenate([[0], np.cumsum([v.shape[0] for v in vals])]).astype(np.int64)
+        counts = [v.shape[0] for v in vals]
+        bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         ws = self.embed.begin_window_staging(np.concatenate(vals), (-1,))
-        lengths = np.stack([b.sparse_features.lengths().numpy() for b in batches]).astype(np.int32)
-        to_dev = self.embed.to_device
-        if dense_dtype is None and not isinstance(self.embed, CachedEmbeddingBag):
-            dense_dtype = torch.float32
-        dense, labels = self._dense_and_labels(batches, dense_dtype)
-        plan, plan_s = None, 0.0
+        vp = bucket(max(counts))
+        slot_pad = np.zeros((P, vp), np.int32)
+        for p in range(P):
+            slot_pad[p, : counts[p]] = ws.slot_ids[bounds[p] : bounds[p + 1]]
+        lengths = np.stack([b.sparse_features.lengths().numpy() for b in batches]).astype(np.int64)
+        if lengths.max(initial=0) >= 65536:
+            raise ValueError("a bag of 65536 ids or more does not fit the u16 lengths wire")
+        len16 = bool(lengths.max(initial=0) >= 256)
+        lens_bytes = lengths.astype("<u2").reshape(-1).view(np.uint8) if len16 else lengths.astype(np.uint8).reshape(-1)
+        t0 = time.perf_counter()
+        width = hostops.id_pack_width(self._device_rows(), vp)
+        ids_bytes = slot_pad.reshape(-1).view(np.uint8) if width == 32 else hostops.pack_ids(slot_pad, width)
+        encode_s = time.perf_counter() - t0
+        dmode = self._dense_mode(dense_mode, True)
+        t0 = time.perf_counter()
+        labels, _ = wire.label_wire(torch.stack([b.labels for b in batches]).numpy(), False)
+        admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
+        parts = {"ids": [ids_bytes, lens_bytes], "dense": wire.dense_wire(self._dense_np(batches), dmode),
+                 "labels": [labels], "admits": admit_parts}
+        pack_s = time.perf_counter() - t0
+        plan_parts, plan_s = [], 0.0
         if with_plan:
             NR = self._device_rows()
             t0 = time.perf_counter()
             steps = [sort_plan_np(ws.slot_ids[bounds[p]:bounds[p + 1]], NR) for p in range(P)]
             plan_s = time.perf_counter() - t0
             perm, grouped, bins = zip(*steps)
-            plan = (to_dev(np.concatenate(perm)), to_dev(np.concatenate(grouped)), to_dev(np.stack(bins)))
+            plan_parts = [np.concatenate(perm), np.concatenate(grouped), np.stack(bins)]
+        wb = self._writeback_slots(ws)
+        t0 = time.perf_counter()
+        buf, tail_at, ev = self._ship(parts, plan_parts + wb)
+        pack_s += time.perf_counter() - t0
+        a = (P * vp * width) // 8
+        slot_ids = wire.unpack_flat(buf[:a], P * vp, width).reshape(P, vp)
+        lengths_dev, b0 = wire.unpack_lengths(buf, a, P, F * B, len16)
+        dense, b1 = wire.unpack_dense(buf, b0, P, B, self.cfg.dense_in_features, dmode)
+        labels_dev, c = wire.unpack_labels(buf, b1, P, B, False)
+        tail = self._tail_views(buf, tail_at, [p.shape for p in plan_parts + wb])
         return _Window(
-            staging=ws,
-            slot_ids=to_dev(ws.slot_ids),
-            dense=dense,
-            labels=labels,
-            plan=plan,
-            plan_s=plan_s,
-            bounds=[int(x) for x in bounds],
-            lengths=to_dev(lengths),
-            in_bags=[int(x) for x in lengths.sum(axis=1, dtype=np.int64)],
-            vp=bucket(int(np.diff(bounds).max())),
+            staging=ws, slot_ids=slot_ids, dense=dense, labels=labels_dev,
+            plan=tail[:3] if with_plan else None, plan_s=plan_s,
+            buf=buf, admits=wire.AdmitLayout(c, sb, fb, fmode, accum),
+            wire=self._wire_report("fixed", width, parts, plan_parts + wb, encode_s, pack_s, dmode, False),
+            copy_ev=ev,
+            wb_slots=tail[-1] if wb else None,
+            bounds=[int(x) for x in bounds], lengths=lengths_dev,
+            in_bags=[int(x) for x in lengths.sum(axis=1)], vp=vp,
         )
+
+    def _land_admits(self, win: _Window) -> None:
+        """Land the window's admits from its device buffer (after the
+        writebacks of its evictions were enqueued)."""
+        lay = win.admits
+        if lay is not None and (lay.sb or lay.fb):
+            wire.apply_packed_admits(self.embed, win.buf, lay)
 
     def _finish_window(self, win: _Window) -> None:
         """Enqueue the window's eviction writebacks (after the previous
-        window's steps, before this window's admits)."""
-        self.embed.enqueue_writebacks(win.staging)
+        window's steps, before this window's admits), their slots read from
+        the window's buffer."""
+        self.embed.enqueue_writebacks(win.staging, win.wb_slots)
 
     def _gathered_rows(self, win: _Window, p: int) -> torch.Tensor:
         """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype;
@@ -492,7 +644,7 @@ class CachedDLRMTrainer:
             raise NotImplementedError(
                 "row-wise Adagrad on a fully resident table with ragged batches: the JAX trainer trains "
                 "them by its per-step function, which ignores the accumulators (ROADMAP Queue 3)")
-        self.embed.apply_admits(win.staging)
+        self._land_admits(win)
         cw = self.embed.cache_weight
         B = win.labels.shape[1]
         branch = self.branch_of(win)
@@ -541,6 +693,8 @@ class CachedDLRMTrainer:
         loss_chunks: List[torch.Tensor] = []
         host_s: List[float] = []
         plan_s: List[float] = []
+        wires: List[dict] = []
+        copy_ev = []
         events = []
 
         def fetch_window() -> List[Batch]:
@@ -560,6 +714,9 @@ class CachedDLRMTrainer:
             win = self._begin_window(batches)
             self._finish_window(win)
             plan_s.append(win.plan_s)
+            wires.append(win.wire)
+            if win.copy_ev is not None:
+                copy_ev.append(win.copy_ev)
             return win, th
 
         cuda = self.device.type == "cuda"
@@ -606,6 +763,8 @@ class CachedDLRMTrainer:
             window_host_s=host_s,
             window_device_s=[a.elapsed_time(b) / 1e3 for a, b in events],
             window_plan_s=plan_s,
+            window_wire=wires,
+            window_copy_s=[a.elapsed_time(b) / 1e3 for a, b in copy_ev],
         )
 
     @torch.no_grad()
@@ -627,7 +786,7 @@ class CachedDLRMTrainer:
         # as in JAX: the cache's windows ship the dense features in
         # dense_input_dtype, while a fully resident table is scored batch by
         # batch on the f32 features
-        eval_dense = None if isinstance(self.embed, CachedEmbeddingBag) else torch.float32
+        eval_dense = None if isinstance(self.embed, CachedEmbeddingBag) else "float32"
         it = iter(data)
         while True:
             window: List[Batch] = []
@@ -639,9 +798,9 @@ class CachedDLRMTrainer:
             if not window:
                 break
             # forward-only windows never need the update's grouping plans
-            win = self._begin_window(window, with_plan=False, dense_dtype=eval_dense)
+            win = self._begin_window(window, with_plan=False, dense_mode=eval_dense)
             self._finish_window(win)
-            self.embed.apply_admits(win.staging)
+            self._land_admits(win)
             for p in range(len(window)):
                 sparse = self._pooled(win, p, self._gathered_rows(win, p), self.embed.cache_weight.dtype)
                 pending.append(_model_probs(self.cfg.model, self.model(win.dense[p], sparse)))

@@ -10,7 +10,7 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
   1. Build: the host C++ library (g++) and each CUDA kernel (nvcc, sm_90a),
      all started together, from the sources in the checkout into
      ``cachedembedding_tpu_torch/build/``.
-  2. Reference: twelve small slices (REFERENCE_SLICES), each trained 24
+  2. Reference: nineteen small slices (REFERENCE_SLICES), each trained 24
      steps and evaluated on the card and on the CPU (the kernels' plain
      versions) from the same seed, through a cache that evicts trained rows
      and admits them again (which holds the writeback ordering to account),
@@ -45,7 +45,13 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
           ordered_grad_update and no rounding kernel), k. ragged, mean mode:
           the gates of (b) in steps of the rows' dtype;
        l. bf16 rows with DLRM's gather interaction (Kernel 2): the gates
-          of (b) in bf16 steps.
+          of (b) in bf16 steps;
+       m.-s. the window wire (train/wire.py) on bf16 rows unless named:
+          int8 and int4 dense inputs, int8 admit payloads on f32 rows
+          (the gates of (a)), int4 payloads, and the plain, escape and
+          rank-tier id wires with their learning shortened (2 windows;
+          1 skipped and 3 learned), whose last window must ship the frozen
+          format: the gates of (b) in bf16 steps.
   3. The bf16 slice: bench.py's headline configuration (Criteo-Kaggle
      tables, D=128, batch 16,384, 1% cache, prefetch 8, bf16 rows and
      compute, resident tables <= 500k rows) with ship_sort_perm and the
@@ -95,6 +101,21 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      float8_e4m3fn rows with rounding off and float8_e5m2 rows with
      rounding on, at the slice's width, with their own launch counts
      (``phase_fp8_windows``).
+  6b. The window wire at full width (``wire``, ``phase_wire``): the bf16
+     slice's configuration on one trainer with bench.py's wires: int8 dense
+     features and the escape id wire for 16 windows (it freezes after 12),
+     the rank-tier wire for 28 (it freezes after 24), then 2 windows each of
+     int4 dense features and the plain wire; Kernels 1 and 2 once a step;
+     the frozen windows in the frozen format; the last window of each run
+     decoded on the card bit-equal to the host's ids, dense features and
+     labels, with a flipped id byte rejected; the flush. It prints per run
+     the bytes a window by block (beside raw int32 ids and bf16 features),
+     the encoder's host ms, the buffer copy's device ms, host and device s
+     a window and examples/s over the frozen windows. Then int8 and int4
+     admit payloads on the card at phase 2's width
+     (``check_quantized_admits``): one window's fetched rows equal the
+     dequantized host quantization cast to the rows' dtype, bit for bit,
+     and rows written back hold bf16 values in the f32 host table.
   7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
      prepare_ids then lookup over seeded ids that together exceed its
      capacity, equal to the host rows through the storage cast, pooled.
@@ -137,7 +158,8 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      ``cli deepfm`` (at --learning_rate 0.1), ``cli adagrad`` and ``cli
      adagrad resident`` (``--embedding_optimizer rowwise_adagrad
      --learning_rate 0.1``, cached bf16 rows and the resident table with
-     its 135 MB of accumulators). Each must give finite losses, val/test
+     its 135 MB of accumulators), ``cli int8`` and ``cli int4``
+     (``--transfer_dtype``: quantized admit payloads, bf16 writebacks). Each must give finite losses, val/test
      AUROC above 0.5 over 32,768 examples, a hit rate in (0, 1] where it
      caches, Kernel 1 launches and one Kernel 2 launch a step (its Adagrad
      epilogue under Adagrad) and no other; the Adagrad runs accumulators
@@ -180,8 +202,8 @@ its bytes bound; the run-shape cases are under ``run_cases``. Each kernel's ``la
 are its main path's (MAIN_PATH), summed over its entries where two wrappers
 launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
-Prints per-phase results, then the card's name and power limit, then a
-``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
+Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...}``
+line, the card's name and power limit, then a ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
 
 ``--kernel5-against`` runs the build and phases 9 and 10 only, with their
@@ -1192,6 +1214,17 @@ REFERENCE_SLICES = {
     "ragged float8_e4m3fn rounding on": (FP8, {}, {"stochastic_rounding": "on"}, ("ordered_grad_update",)),
     "ragged mean": ("bfloat16", {"reduction_mode": "mean"}, {}, ("ordered_grad_update",)),
     "gather interaction bfloat16": ("bfloat16", {"interaction_impl": "gather"}, {}, ("binned_sgd",)),
+    # the window wire: quantized dense inputs and admit payloads, and each id
+    # wire with its learning shortened (the wire's attributes, then the format
+    # its frozen windows must ship)
+    "int8 dense": ("bfloat16", {"dense_input_dtype": "int8"}, {}, ("binned_sgd",)),
+    "int4 dense": ("bfloat16", {"dense_input_dtype": "int4"}, {}, ("binned_sgd",)),
+    "int8 transfer float32": ("float32", {}, {"transfer_dtype": "int8"}, ("binned_sgd",)),
+    "int4 transfer bfloat16": ("bfloat16", {}, {"transfer_dtype": "int4"}, ("binned_sgd",)),
+    "plain wire": ("bfloat16", {}, {"id_wire": "plain"}, ("binned_sgd",), {}, "plain"),
+    "escape wire": ("bfloat16", {}, {"id_wire": "escape"}, ("binned_sgd",), {"_esc_learn_windows": 2}, "esc"),
+    "ranktier wire": ("bfloat16", {}, {"id_wire": "ranktier"}, ("binned_sgd",),
+                      {"_RT_SKIP_WINDOWS": 1, "_RT_LEARN_WINDOWS": 4}, "rt"),
 }
 # the ragged small slices: 3 tables of 500 rows, bags of 0-5 ids, rows * u**2 ids,
 # batch 64, prefetch 2, a cache of half the rows (750 slots) with no resident region
@@ -1217,7 +1250,8 @@ def phase_reference(device, name: str) -> dict:
     from cachedembedding_tpu_torch.ops.rounding import storage_steps
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
-    cache_dtype, cfg_kw, cache_kw, entries = REFERENCE_SLICES[name]
+    cache_dtype, cfg_kw, cache_kw, entries, *wire_kw = REFERENCE_SLICES[name]
+    wire_attrs, wire_format = wire_kw or ({}, None)
     ragged = name.startswith("ragged")
     if ragged:
         tables, B, P, ratio = (RAGGED_SLICE[k] for k in ("tables", "batch", "prefetch", "cache_ratio"))
@@ -1252,10 +1286,15 @@ def phase_reference(device, name: str) -> dict:
     runs = []
     for dev in (device, "cpu"):
         tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=dev)
+        for k, v in wire_attrs.items():
+            setattr(tr.wire, k, v)
         zero_launch_counts()
         rep = tr.train(batches, num_iters=steps)
         if dev == device:
             check_update_launches(tag, ops.launch_counts(), steps, *entries)
+        formats = [w["format"] for w in rep.window_wire]
+        if wire_format and formats[-1] != wire_format:
+            raise AssertionError(f"{tag} the last window shipped {formats[-1]}, not {wire_format}: {formats}")
         emb = tr.embed
         # trained in the first window, written back on eviction, and in the
         # cache again at the end: evicted and admitted again
@@ -1314,6 +1353,9 @@ def phase_reference(device, name: str) -> dict:
                                  f"{acc_rel:.2e}) or none grew")
         out["accum_max_rel"] = acc_rel
         rows_msg += f"; {int((accg > 0).sum())} accumulators grew, max rel diff {acc_rel:.2e}"
+    if wire_format:
+        out["formats"] = formats
+        rows_msg += f"; id formats {formats}"
     log(f"{tag} small slice, card vs CPU: counts equal, {sum(cg[2])} writebacks, "
         f"{xg.size} trained rows evicted and admitted again; {rows_msg}; loss max rel diff "
         f"{rel:.2e}; dense weights max rel diff {w_rel:.2e}; auroc {ag:.6f} vs {ac:.6f}")
@@ -1346,8 +1388,8 @@ def phase_slice(cfg, device):
     first_win, first_update, peaks = [], [], []
     begin = tr._begin_window
 
-    def begin_and_keep(batches, with_plan=True, dense_dtype=None):
-        win = begin(batches, with_plan, dense_dtype)
+    def begin_and_keep(batches, with_plan=True, dense_mode=None):
+        win = begin(batches, with_plan, dense_mode)
         if not first_win:
             first_win.append(win)
         return win
@@ -2057,8 +2099,8 @@ def phase_ragged(device) -> tuple:
     first, update = [], tr._ragged_update
     begin = tr._begin_window
 
-    def begin_and_keep(batches, with_plan=True, dense_dtype=None):
-        win = begin(batches, with_plan, dense_dtype)
+    def begin_and_keep(batches, with_plan=True, dense_mode=None):
+        win = begin(batches, with_plan, dense_mode)
         if with_plan and not first:
             first.append(win)
         return win
@@ -2237,6 +2279,191 @@ def check_ordered_grad_update(cw0, g, perm, grouped, slr: float) -> dict:
     return entry
 
 
+# phase wire's runs on one trainer, in order: (id wire, dense wire, learning
+# windows, frozen windows, the format the frozen windows must ship)
+WIRE_RUNS = {"escape int8": ("escape", "int8", 12, 4, "esc"), "ranktier int8": ("ranktier", "int8", 24, 4, "rt"),
+             "escape int4": ("escape", "int4", 2, 0, None), "plain int8": ("plain", "int8", 2, 0, None)}
+
+
+def wire_window_check(win, batches, dmode: str) -> dict:
+    """The window's ids, dense features and labels decoded on the card
+    against the host's own arrays, bit for bit; then a byte flipped at the
+    start of the buffer's id block must make the ids differ (a planted
+    fault the comparison has to reject)."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.train import wire
+
+    host_ids = win.staging.slot_ids
+    dense = torch.stack([b.dense_features for b in batches]).float().numpy()
+    labels = torch.stack([b.labels for b in batches]).float().numpy()
+    ids_ok = np.array_equal(win.slot_ids.cpu().numpy(), host_ids)
+    dense_ok = np.array_equal(win.dense.cpu().numpy().view(np.uint32), wire.dense_reference(dense, dmode).view(np.uint32))
+    labels_ok = np.array_equal(win.labels.cpu().numpy(), labels)
+    P, L = host_ids.shape
+    again, _ = wire.decode_window_ids(win.buf, P, L, win.wire["id_spec"])
+    flipped = win.buf.clone()
+    flipped[0] ^= 0x5A
+    bad, _ = wire.decode_window_ids(flipped, P, L, win.wire["id_spec"])
+    fault_caught = not np.array_equal(bad.cpu().numpy(), host_ids)
+    return {"ids": ids_ok and np.array_equal(again.cpu().numpy(), host_ids), "dense": dense_ok, "labels": labels_ok,
+            "flipped_id_byte_rejected": fault_caught}
+
+
+def phase_wire(device) -> tuple:
+    """The window wire at full width: the bf16 slice's configuration with
+    bench.py's dense and id wires (``WIRE_RUNS``, one trainer): the escape
+    wire on int8 dense features for 16 windows (it freezes after 12), the
+    rank-tier wire for 28 (it freezes after 24), then 2 windows each of
+    int4 dense features and the plain wire. Gates: finite losses, a hit
+    rate in (0, 1], Kernels 1 and 2 once a step and no other update entry,
+    the frozen windows in the frozen format, the last window of each run
+    decoded on the card bit-equal to the host's ids, dense features and
+    labels, a flipped id byte rejected, and the flush. Numbers per run: bytes
+    a window by block beside raw int32 ids and bf16 dense features, the host
+    id encoder's ms, the rest of the packing's host ms (dense features and
+    labels encoded, admits and buffer assembled), the buffer copy's device ms, host and device s a window,
+    and examples/s over the frozen windows. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.train import wire
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+
+    tag = "[wire]"
+    t_phase = time.perf_counter()
+    cfg = slice_config("bfloat16")
+    cfg.dense_input_dtype = "int8"
+    P, B, Din, F = cfg.cache.prefetch_num, cfg.batch_size, cfg.dense_in_features, cfg.num_sparse_features
+    steps = P * sum(r[2] + r[3] for r in WIRE_RUNS.values())
+    data = SyntheticLongTailDataset(cfg.num_embeddings_per_feature, B, steps, skew=0.5, seed=11)
+    t0 = time.perf_counter()
+    tr = CachedDLRMTrainer(cfg, id_freq_map=data.id_freq_map(), device=device)
+    torch.cuda.synchronize()
+    log(f"{tag} trainer built in {time.perf_counter() - t0:.1f} s")
+    kept = {}
+    begin = tr._begin_window
+
+    def begin_and_keep(batches, *a):
+        win = begin(batches, *a)
+        kept.update(win=win, batches=batches)
+        return win
+
+    tr._begin_window = begin_and_keep
+    it = iter(data)
+    zero_launch_counts()
+    numbers = {}
+    for name, (id_wire, dmode, learn, frozen, frozen_format) in WIRE_RUNS.items():
+        tr.cfg.dense_input_dtype = dmode
+        tr.wire = wire.WindowWire(id_wire, True, tr._rt_dict_features(), tr._device_rows())
+        reps = [tr.train(it, num_iters=learn * P)] + ([tr.train(it, num_iters=frozen * P)] if frozen else [])
+        losses = np.concatenate([r.losses for r in reps])
+        if losses.shape != ((learn + frozen) * P,) or not np.isfinite(losses).all():
+            raise AssertionError(f"{tag} {name}: losses not finite: {losses}")
+        if not 0.0 < reps[-1].hit_rate <= 1.0:
+            raise AssertionError(f"{tag} {name}: hit rate {reps[-1].hit_rate} outside (0, 1]")
+        last = reps[-1]
+        formats = [w["format"] for r in reps for w in r.window_wire]
+        if frozen_format and set(w["format"] for w in last.window_wire) != {frozen_format}:
+            raise AssertionError(f"{tag} {name}: the frozen windows shipped {formats}, not {frozen_format}")
+        check = wire_window_check(kept["win"], kept["batches"], dmode)
+        if not all(check.values()):
+            raise AssertionError(f"{tag} {name}: decode on the card against the host: {check}")
+        ws = last.window_wire
+        mean = lambda xs: float(np.mean(xs)) if len(xs) else None  # noqa: E731
+        by_block = {k: mean([w["bytes"][k] for w in ws]) for k in ("ids", "dense", "labels", "admits", "tail")}
+        numbers[name] = {
+            "formats": formats, "bytes_per_window": by_block,
+            "raw_bytes_per_window": {"ids_int32": P * B * F * 4, "dense_bf16": P * B * Din * 2, "labels_u8": P * B},
+            "encode_ms": mean([1e3 * w["encode_s"] for w in ws]), "pack_ms": mean([1e3 * w["pack_s"] for w in ws]),
+            "copy_ms": mean([1e3 * x for x in last.window_copy_s]),
+            "host_s_per_window": mean(last.window_host_s), "device_s_per_window": mean(last.window_device_s),
+            "examples_per_s": last.examples_per_s, "decode_check": check, "hit_rate": last.hit_rate,
+            "loss_last_window": float(losses[-P:].mean()),
+        }
+        log(f"{tag} {name}: {json.dumps(numbers[name])}")
+    launches = ops.launch_counts()
+    log(f"{tag} kernel launches {launches}")
+    if launches["gather_rows"] < steps:
+        raise AssertionError(f"{tag} kernel gather_rows launched {launches['gather_rows']} times")
+    check_update_launches(tag, launches, steps, "binned_sgd")
+    check_flush(tr, tag)
+    tr.close()
+    log(f"{tag} phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, numbers
+
+
+def check_quantized_admits(device) -> dict:
+    """int8 and int4 admit payloads on the card, at phase 2's small width
+    with a 2.5% cache (evictions and re-admissions): in every window with
+    fetched admits, the payload equals the host quantizer's of the host rows,
+    and the rows landed on the card equal its dequantization cast to the
+    rows' dtype, bit for bit; afterwards every trained row written back and
+    not admitted again holds a bf16 value in the f32 host table."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.cache import manager, state
+    from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+
+    out = {}
+    tables = [50, 300, 4000, 20000]
+    for mode, rows_dtype in (("int8", "float32"), ("int4", "bfloat16")):
+        tag = f"[quantized admits {mode}]"
+        cfg = DLRMConfig(
+            num_embeddings_per_feature=tables, embedding_dim=16, dense_in_features=13,
+            dense_arch_layer_sizes=(32, 16), over_arch_layer_sizes=(64, 32, 1), batch_size=256,
+            cache=CacheConfig(cache_ratio=0.025, resident_threshold=500, prefetch_num=4, weight_init="virtual",
+                              ship_sort_perm=True, cache_dtype=rows_dtype, transfer_dtype=mode))
+        train = SyntheticLongTailDataset(tables, 256, 24, dense_in_features=13, skew=0.5, seed=7)
+        tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
+        checked = []
+        land = tr._land_admits
+
+        def land_and_check(win):
+            ws = win.staging
+            if not ws.fetch_slots.shape[0]:
+                return land(win)
+            quant = manager._quant_rows_host if mode == "int8" else manager._quant_rows_host4
+            q, sc = quant(tr.embed.host_table.gather(ws.fetch_rows))
+            payload_ok = np.array_equal(q, ws.fetch_payload.numpy()) and np.array_equal(sc, ws.fetch_scales)
+            deq = (state.dequant_q8(torch.from_numpy(q), torch.from_numpy(sc)) if mode == "int8"
+                   else state.dequant_rows_q4(torch.from_numpy(q), torch.from_numpy(sc), 16))
+            want = astype_storage(deq, tr.embed.cache_weight.dtype).float().numpy()
+            land(win)
+            got = tr.embed.cache_weight[torch.from_numpy(ws.fetch_slots.astype(np.int64)).to(device)].float()
+            checked.append({"fetched": int(ws.fetch_slots.shape[0]), "payload_equal": payload_ok,
+                            "landed_equal": bool(np.array_equal(got.cpu().numpy(), want))})
+            return None
+
+        tr._land_admits = land_and_check
+        rep = tr.train(train, num_iters=24)
+        emb = tr.embed
+        emb._drain_writebacks()
+        touched = np.unique(np.concatenate([b.sparse_features.values.numpy() for b in train])).astype(np.int64)
+        _, cached_rows = emb._dir.resident()
+        back = touched[emb.host_table.written_mask(touched) & ~np.isin(touched, cached_rows) & ~np.isin(
+            touched, emb._res_rows)]
+        vals = emb.host_table.gather(back)
+        bf16_ok = np.array_equal(vals, torch.from_numpy(vals).to(torch.bfloat16).float().numpy())
+        tr.close()
+        if not checked or not all(c["payload_equal"] and c["landed_equal"] for c in checked):
+            raise AssertionError(f"{tag} fetched admits on the card: {checked}")
+        if not back.size or not bf16_ok or not np.isfinite(rep.losses).all():
+            raise AssertionError(f"{tag} {back.size} written-back rows, bf16 values: {bf16_ok}")
+        out[mode] = {"windows_with_fetches": len(checked), "fetched": sum(c["fetched"] for c in checked),
+                     "payload_equal": True, "landed_equal": True, "written_back_rows": int(back.size),
+                     "written_back_bf16": bf16_ok}
+        log(f"{tag} {json.dumps(out[mode])}")
+    return out
+
+
 def phase_bare_module(device) -> None:
     """The bare-module API on the card with fp8 rows: prepare_ids, then
     lookup (Kernel 1), over six seeded id sets whose union exceeds the
@@ -2294,7 +2521,8 @@ CLI_FLAGS = ["--kaggle", "--use_freq", "--cache_ratio", "0.01", "--warmup_ratio"
 ADAGRAD_FLAGS = ["--embedding_optimizer", "rowwise_adagrad", "--learning_rate", "0.1"]
 CLI_RUNS = {"cli cached": ["--use_cache"], "cli resident": [],
             "cli deepfm": ["--use_cache", "--model", "deepfm", "--learning_rate", "0.1"],
-            "cli adagrad": ["--use_cache", *ADAGRAD_FLAGS], "cli adagrad resident": ADAGRAD_FLAGS}
+            "cli adagrad": ["--use_cache", *ADAGRAD_FLAGS], "cli adagrad resident": ADAGRAD_FLAGS,
+            "cli int8": ["--use_cache", "--transfer_dtype", "int8"], "cli int4": ["--use_cache", "--transfer_dtype", "int4"]}
 CHECKPOINT_TABLE_CAP = 20_000  # the checkpoint round trip's tables: Kaggle's, capped at this many rows
 CLI_TAIL = 0.2  # P(rank >= r) ~ r^-CLI_TAIL: 426,827 distinct training ids, above the 1% cache's 337,625
 
@@ -2365,6 +2593,8 @@ def run_cli(name: str, data_dir, extra) -> dict:
         f"memory {stats['peak_device_bytes'] / 2**30:.2f} GiB; {res['comm']}")
     log(f"[{name}] host s/window {[round(x, 4) for x in stats['window_host_s']]}; device s/window "
         f"{[round(x, 4) for x in stats['window_device_s']]}; kernel launches {stats['kernel_launches']}")
+    log(f"[{name}] fetched admits {stats['swap_in_bytes']} f32 bytes; id wire {stats['wire_formats']}; first "
+        f"window bytes {stats['window_bytes']}")
     losses = stats["losses"]
     if len(losses) != CLI_TRAIN_BATCHES or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[{name}] losses not finite: {losses}")
@@ -2809,6 +3039,10 @@ def run_phases(procs: dict) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fp8_paths = phase_fp8_windows(device)
+    launches_wire, wire_numbers = phase_wire(device)
+    quantized_admits = check_quantized_admits(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches_1tb, k5 = phase_terabyte(device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2826,7 +3060,8 @@ def run_phases(procs: dict) -> int:
     kernels[1]["on_resident_table"] = cli["binned_sgd"]
     kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
 
-    paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "1tb sparse": launches_1tb,
+    paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "wire": launches_wire,
+             "1tb sparse": launches_1tb,
              "ragged": launches_ragged, **cli["launches"]}
     for k in kernels:
         name = k["name"]
@@ -2837,6 +3072,7 @@ def run_phases(procs: dict) -> int:
         if len(entries) > 1:
             k["launches_by_entry"] = {e: {path: counts[e] for path, counts in paths.items()} for e in entries}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -181,8 +181,6 @@ def test_refuses_outside_the_slice():
     base = dict(num_embeddings_per_feature=[10, 20], embedding_dim=16, dense_in_features=4,
                 dense_arch_layer_sizes=(16,), over_arch_layer_sizes=(8, 1), batch_size=8)
     for kw, cache_kw, item in [
-        ({"dense_input_dtype": "int8"}, {}, 8),
-        ({}, {"transfer_dtype": "int4"}, 4),
         ({"mesh_shape": (2,)}, {}, 9),
         ({}, {"planner": "device"}, 11),
     ]:
@@ -190,13 +188,17 @@ def test_refuses_outside_the_slice():
         with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
             port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
     # DeepFM, the JAX CLI's default ship_sort_perm=False, row-wise Adagrad,
-    # the sparse gradient, fp8 rows with rounding off, e5m2 rows and the
-    # gather interaction are in the port
+    # the sparse gradient, fp8 rows with rounding off, e5m2 rows, the gather
+    # interaction, int8/int4 dense inputs and transfers and every id wire
+    # are in the port
     for kw, cache_kw in [({"model": "deepfm"}, {}), ({}, {"ship_sort_perm": False}),
                          ({"interaction_impl": "gather"}, {}),
                          ({"embedding_optimizer": "rowwise_adagrad"}, {}), ({"use_sparse_embed_grad": True}, {}),
                          ({}, {"cache_dtype": "float8_e4m3fn", "stochastic_rounding": "off"}),
-                         ({}, {"cache_dtype": "float8_e5m2"})]:
+                         ({}, {"cache_dtype": "float8_e5m2"}),
+                         ({"dense_input_dtype": "int8"}, {}), ({"dense_input_dtype": "int4"}, {}),
+                         ({}, {"transfer_dtype": "int8"}), ({}, {"transfer_dtype": "int4"}),
+                         ({}, {"id_wire": "ranktier"}), ({}, {"id_wire": "plain"})]:
         cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, "cache_ratio": 0.5, **cache_kw}))
         port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu").close()
     # fp8 rows with rounding on ("auto" or "on") are in the slice
