@@ -1,17 +1,32 @@
 """CachedEmbeddingBag — host-DRAM embedding table with a GPU hot-row cache
-(counterpart of ``cachedembedding_tpu/cache/manager.py``, host-planner slice).
+(counterpart of ``cachedembedding_tpu/cache/manager.py``).
 
 The full ``(num_embeddings, dim)`` table lives in host DRAM (a dense numpy
 array or a virtual procedural table); ``int(cache_ratio * cached_rows)`` rows
 are resident in the device tensor ``cache_weight``, optionally followed by a
 region that holds small tables whole (``resident_tables``).
 
-Split of responsibilities:
+Split of responsibilities, with the host planner (``planner="host"``, or
+"auto"):
   * host (this class): the C++ directory plans each window, rows to admit are
     split into never-trained rows (synthesized on the GPU from their id) and
     trained rows (gathered from the host table), evicted rows are read back
     and written to the host table by a drain thread;
   * device: admit scatters, writeback gathers, lookups, and the update.
+
+With the device planner (``planner="device"``) the directory lives on the
+device (``cache/state.py::CacheState``: the (N,) ``row_to_slot`` alone is
+135 MB at Criteo-Kaggle's 33.8M rows, 712 MB at Criteo-1TB's 177.9M) and
+``begin_prepare`` enqueues ``plan_ids`` and the id remap there, then copies
+the plan's six scalars and its whole (3, U) index block into pinned host
+memory behind a CUDA event, so that nothing waits for the device's earlier
+work. ``finish_prepare`` waits on that event only, raises where the window
+overflows its unique budget or the cache, and enqueues the writeback gathers
+and the admits (every admit is fetched from the host table, in f32 or, with
+``transfer_dtype="bfloat16"``, bf16; writebacks travel in bf16 in that mode
+and in the rows' dtype otherwise, as in JAX's device branch). As in JAX, the
+device planner takes no resident tables, no row-wise Adagrad and no device
+init of never-trained rows.
 
 Admitted host rows travel in ``transfer_dtype``: f32, bf16, or per-row
 int8 / int4 payloads with an f32 scale each (``_quant_rows_host``,
@@ -25,8 +40,7 @@ store (``host_table.DenseAccumStore``, or ``OverlayAccumStore`` for a
 virtual table). It moves with its row: synthesized admits start at
 ``adagrad_initial``, fetched admits carry the host value, and evictions,
 flushes and checkpoints write it back in the same stream order as the rows.
-As in the JAX package this needs the host planner, the only planner the
-port has.
+As in the JAX package this needs the host planner.
 
 Ordering on the device comes from stream order, never from thread timing:
 a window's writeback gathers are enqueued after the previous window's steps
@@ -56,8 +70,13 @@ from cachedembedding_tpu_torch.cache.host_table import (
     VirtualHostTable,
 )
 from cachedembedding_tpu_torch.cache.state import (
+    CacheState,
     EvictionStrategy,
+    Plan,
     gather_slots,
+    init_cache_state,
+    plan_ids,
+    remap_ids,
     scatter_admits,
     scatter_admits_q4,
     scatter_admits_q8,
@@ -71,6 +90,7 @@ CACHE_DTYPES = {
     "float8_e5m2": torch.float8_e5m2,
 }
 OPTIMIZERS = ("sgd", "rowwise_adagrad")
+PLANNERS = ("auto", "host", "device")
 TRANSFER_DTYPES = ("float32", "bfloat16", "int8", "int4")
 
 
@@ -148,6 +168,22 @@ class WindowStaging(NamedTuple):
     evict_rows: np.ndarray     # (n_miss,)
 
 
+class PreparedWindow(NamedTuple):
+    """A window planned on the device by ``begin_prepare`` whose rows have not
+    moved yet (``finish_prepare`` moves them)."""
+
+    slot_ids: torch.Tensor      # the ids remapped to slots, on the device
+    plan: Plan                  # on the device
+    budget: int                 # the unique budget the plan was made with
+    host_scalars: torch.Tensor  # (6,) int32 copy of plan.scalars (pinned on CUDA)
+    host_indices: torch.Tensor  # (3, U) int32 copy of plan.indices (pinned on CUDA)
+    events: Optional[tuple]     # CUDA: events before the plan, after the remap, after the copies
+
+    @property
+    def readback_bytes(self) -> int:
+        return self.host_scalars.nbytes + self.host_indices.nbytes
+
+
 def host_to_device(arr, device: torch.device) -> torch.Tensor:
     """Asynchronous host->device copy of a numpy array or CPU tensor. On
     CUDA the source is staged in pinned memory, so the copy never waits for
@@ -175,7 +211,7 @@ def default_table_init(table_sizes: Sequence[int], seed: int):
 
 
 class CachedEmbeddingBag:
-    """Frequency-aware software-cached EmbeddingBag (single device, host planner).
+    """Frequency-aware software-cached EmbeddingBag (single device).
 
     Cache rows are stored in ``dtype`` (f32, bf16, float8_e4m3fn or
     float8_e5m2) over the f32 host master; admits round into it as
@@ -186,7 +222,11 @@ class CachedEmbeddingBag:
     reference's: ``cuda_row_num`` (the slot count, in place of
     ``cache_ratio``), ``device_init`` ("auto", "on" or "off": never-trained
     admits synthesized on the device), ``include_last_offset`` and
-    ``set_cache_op`` for ``forward``.
+    ``set_cache_op`` for ``forward``. ``planner``: "host" (or "auto") plans
+    on the host, "device" on the device (see the module's notes), with
+    ``unique_budget`` (the plan's unique lanes, default a window's id count;
+    at most the capacity) and ``approx_evict`` (JAX's approximate victim
+    selection; the port selects exactly).
     Runs on ``device`` (default: the current CUDA device; with no GPU and no
     explicit ``device="cpu"`` this raises)."""
 
@@ -213,8 +253,16 @@ class CachedEmbeddingBag:
         optimizer: str = "sgd",
         adagrad_initial: float = 0.0,
         device_init: str = "auto",
+        planner: str = "auto",
+        unique_budget: Optional[int] = None,
+        approx_evict: bool = False,
     ):
         self.device = resolve_device(device)
+        if planner not in PLANNERS:
+            raise ValueError(f"unknown planner {planner!r}")
+        self.planner = "host" if planner == "auto" else planner
+        self.unique_budget = unique_budget
+        self.approx_evict = bool(approx_evict)
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if transfer_dtype not in TRANSFER_DTYPES:
@@ -242,6 +290,8 @@ class CachedEmbeddingBag:
         self.resident_tables = sorted(set(int(t) for t in (resident_tables or [])))
         if not all(0 <= t < len(sizes) for t in self.resident_tables):
             raise ValueError(f"resident_tables out of range: {self.resident_tables}")
+        if self.resident_tables and self.planner != "host":
+            raise ValueError("resident_tables (mixed-kernel) requires the host planner")
         goff = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         self._goff = goff
         self.resident_total = int(sum(sizes[t] for t in self.resident_tables))
@@ -283,11 +333,20 @@ class CachedEmbeddingBag:
             raise ValueError(f"unknown weight_init {weight_init!r}")
         self.table_init_s = time.perf_counter() - t0  # the host table's fill
 
-        self._dir = make_directory(self.num_embeddings, self.capacity, evict_strategy)
+        # the directory: in host memory, or (device planner) on the device
+        self._dir, self.state = None, None
+        if self.planner == "host":
+            self._dir = make_directory(self.num_embeddings, self.capacity, evict_strategy)
+        else:
+            self.state = init_cache_state(self.num_embeddings, self.capacity, self.device)
+        self.dataset_freq: Optional[torch.Tensor] = None
         self.cache_weight = torch.zeros(
             (self.capacity + self.resident_total, self.embedding_dim), dtype=dtype, device=self.device
         )
         # --- row-wise Adagrad state: tiers with the cache ---
+        if optimizer == "rowwise_adagrad" and self._dir is None:
+            raise ValueError("rowwise_adagrad on a cached bag requires the host planner (the accumulator tiers "
+                             "with the cache through the staged admit/evict paths)")
         self.optimizer = optimizer
         self.adagrad_initial = float(adagrad_initial)
         if optimizer == "rowwise_adagrad":
@@ -305,16 +364,19 @@ class CachedEmbeddingBag:
             if freq.shape != (self.num_embeddings,):
                 raise ValueError("ids_freq_mapping must have one entry per row")
             self._host_freq = freq
-            if evict_strategy == EvictionStrategy.DATASET:
+            if evict_strategy == EvictionStrategy.DATASET and self._dir is not None:
                 self._dir.set_dataset_freq(freq)
+            elif evict_strategy == EvictionStrategy.DATASET:  # int32 on the device, clipped as JAX's
+                self.dataset_freq = self.to_device(np.minimum(freq, 2**31 - 1).astype(np.int32))
         else:
             self._host_freq = None
             if evict_strategy == EvictionStrategy.DATASET:
                 raise ValueError("DATASET eviction requires ids_freq_mapping")
 
         # never-trained rows materialize on the device ("auto": wherever the
-        # host table is procedural; the port's only planner is the host one)
-        self.device_init = device_init != "off" and getattr(self.host_table, "supports_device_init", False)
+        # host table is procedural and the planner is the host one)
+        self.device_init = (device_init != "off" and getattr(self.host_table, "supports_device_init", False)
+                            and self._dir is not None)
         if device_init == "on" and not self.device_init:
             raise ValueError("device_init requires a procedural host table (uniform/virtual init) "
                              "and the host planner")
@@ -405,7 +467,16 @@ class CachedEmbeddingBag:
             return
         top = np.argpartition(freq, -k)[-k:].astype(np.int64)
         warm_freq = np.minimum(freq[top], 2**31 - 1)
-        self._dir.warmup(top, warm_freq)
+        if self._dir is not None:
+            self._dir.warmup(top, warm_freq)
+        else:  # the state built on the host, then shipped once
+            s2r = np.full((self.capacity,), -1, np.int32)
+            r2s = np.full((self.num_embeddings,), -1, np.int32)
+            s2r[:k] = top
+            r2s[top] = np.arange(k, dtype=np.int32)
+            sfreq = np.zeros((self.capacity,), np.int32)
+            sfreq[:k] = warm_freq
+            self.state = CacheState(*(self.to_device(a) for a in (s2r, r2s, sfreq)))
         t0 = time.perf_counter()
         slots = np.arange(k, dtype=np.int32)
         written = self.host_table.written_mask(top) if self.device_init else np.ones((k,), np.bool_)
@@ -514,6 +585,9 @@ class CachedEmbeddingBag:
         says it is P stacked (F, Bp) feature-major blocks, which spares the
         resident split a per-id table search; a ragged window's stream
         (``out_shape`` (-1,)) takes the search."""
+        if self._dir is None:
+            raise ValueError("staged windows require the host planner (the device planner's windows go through "
+                             "begin_prepare and finish_prepare)")
         ids_np = np.ascontiguousarray(np.asarray(ids), dtype=np.int32)
         if uniform_fbp is not None and self.resident_tables:
             Pw, Fw, Bp = uniform_fbp
@@ -639,9 +713,17 @@ class CachedEmbeddingBag:
             return
         # writebacks land in the f32 host master at >= bf16, never int8/int4
         # (a fresh quantization each evict/re-admit cycle would compound)
+        self._enqueue_gather(ws.evict_rows[mask], ws.admit_slots[mask], self.writeback_dtype, slots)
+        self._submit_writebacks()
+
+    def _enqueue_gather(self, rows: np.ndarray, slots_np: np.ndarray, out_dtype, slots=None) -> None:
+        """Enqueue the gather of the evicted ``rows`` from their slots (on the
+        device as ``slots``, else copied from ``slots_np``), in ``out_dtype``,
+        and its copy to pinned memory behind an event; the drain thread
+        writes them to the host table."""
         if slots is None:
-            slots = self.to_device(ws.admit_slots[mask].astype(np.int64))
-        vals_dev = gather_slots(self.cache_weight, slots, out_dtype=self.writeback_dtype)
+            slots = self.to_device(slots_np.astype(np.int64))
+        vals_dev = gather_slots(self.cache_weight, slots, out_dtype=out_dtype)
         host = self._pinned(vals_dev.shape, vals_dev.dtype)
         host.copy_(vals_dev, non_blocking=self._on_cuda)
         host_acc = None
@@ -653,8 +735,7 @@ class CachedEmbeddingBag:
         if self._on_cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        self._pending_wb.append((ws.evict_rows[mask], host, host_acc, event))
-        self._submit_writebacks()
+        self._pending_wb.append((rows, host, host_acc, event))
 
     def _submit_writebacks(self) -> None:
         items, self._pending_wb = self._pending_wb, []
@@ -694,10 +775,103 @@ class CachedEmbeddingBag:
         if items:
             self._do_drain(items)
 
+    # -- the device planner's windows -------------------------------------------
+    def begin_prepare(self, ids, out_shape=None) -> PreparedWindow:
+        """Plan a window on the device without moving rows (device planner):
+        check the ids' range on the host (ValueError), enqueue ``plan_ids``
+        and the remap, then the copies of the plan's scalars and index block
+        into host memory and an event after them. Waits for no device work
+        when ``ids`` are on the host. The caller then calls
+        ``finish_prepare``, after the device work that reads the slots the
+        plan evicts has been enqueued."""
+        if self._dir is not None:
+            raise ValueError("begin_prepare plans on the device: the host planner stages windows with "
+                             "begin_window_staging")
+        if isinstance(ids, torch.Tensor) and ids.device.type != "cpu":
+            ids_dev = ids.reshape(-1).to(device=self.device, dtype=torch.int32)
+            if ids_dev.numel():
+                self._check_range(np.asarray([int(x) for x in torch.aminmax(ids_dev)]))
+        else:
+            ids_np = np.asarray(ids).reshape(-1)
+            self._check_range(ids_np)
+            ids_dev = self.to_device(ids_np.astype(np.int32))
+        budget = self.unique_budget or ids_dev.shape[0]
+        events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(3)) if self._on_cuda else None
+        if events:
+            events[0].record()
+        self.state, plan = plan_ids(self.state, ids_dev, self.dataset_freq, unique_budget=budget,
+                                    strategy=self.evict_strategy, approx_evict=self.approx_evict)
+        slot_ids = remap_ids(self.state, ids_dev)
+        if events:
+            events[1].record()
+        host_scalars = self._pinned(plan.scalars.shape, torch.int32)
+        host_indices = self._pinned(plan.indices.shape, torch.int32)
+        host_scalars.copy_(plan.scalars, non_blocking=self._on_cuda)
+        host_indices.copy_(plan.indices, non_blocking=self._on_cuda)
+        if events:
+            events[2].record()
+        return PreparedWindow(slot_ids=slot_ids.reshape(out_shape) if out_shape is not None else slot_ids,
+                              plan=plan, budget=int(budget), host_scalars=host_scalars, host_indices=host_indices,
+                              events=events)
+
+    def finish_prepare(self, pw: PreparedWindow) -> None:
+        """Move a planned window's rows: wait for its readback (the event
+        ``begin_prepare`` recorded, nothing later), raise RuntimeError where
+        the window's distinct ids overflow its unique budget or the cache,
+        then enqueue, in chunks of ``buffer_size``, the gathers of the evicted
+        rows (copied to pinned memory for the drain thread) and the scatters
+        of the admitted rows fetched from the host table."""
+        if pw.events:
+            pw.events[2].synchronize()
+        scal = pw.host_scalars.numpy()
+        n_miss, n_unique, cap_ok = int(scal[0]), int(scal[1]), bool(scal[2])
+        U = min(pw.budget, self.capacity)
+        if n_unique > U:
+            raise RuntimeError(
+                f"prepare_ids overflow: {n_unique} unique ids > unique budget {U} (capacity {self.capacity}). "
+                "Reduce prefetch_num/batch or raise cache_ratio/unique_budget.")
+        if not cap_ok:
+            raise RuntimeError(f"cache capacity exhausted: working set of this prepare_ids call needs more than "
+                               f"{self.capacity} slots.")
+        self.stats.prepare_calls += 1
+        self.stats.num_hits_history.append(int(scal[3]))
+        self.stats.num_miss_history.append(n_miss)
+        if n_miss == 0:
+            self.stats.num_write_back_history.append(0)
+            self._ensure_clean(None, block=False)
+            return
+        idx = pw.host_indices.numpy()
+        admit_rows = idx[0, :n_miss].astype(np.int64)
+        admit_slots, evict_rows = idx[1, :n_miss], idx[2, :n_miss]
+        # a row evicted by an earlier window may come back now: its writeback lands first
+        self._ensure_clean(admit_rows, block=False)
+        wb_dtype = torch.bfloat16 if self.transfer_mode == "bfloat16" else None
+        chunk = self.buffer_size if self.buffer_size > 0 else n_miss
+        n_wb = 0
+        for s in range(0, n_miss, chunk):
+            e = min(s + chunk, n_miss)
+            mask = evict_rows[s:e] >= 0
+            if mask.any():
+                self._enqueue_gather(evict_rows[s:e][mask], admit_slots[s:e][mask], wb_dtype)
+                n_wb += int(mask.sum())
+            t0 = time.perf_counter()
+            with self._host_lock:
+                vals = self.host_table.gather(admit_rows[s:e])
+            scatter_admits(self.cache_weight, pw.plan.indices[1, s:e].long(),
+                           self.to_device(torch.from_numpy(vals).to(self._row_dtype)))
+            self.stats.swap_in_bytes += (e - s) * self.embedding_dim * 4
+            self.stats.swap_in_time += time.perf_counter() - t0
+        self.stats.num_write_back_history.append(n_wb)
+        self._submit_writebacks()
+
     # -- bare-module API --------------------------------------------------------
     def prepare_ids(self, ids) -> torch.Tensor:
         """Make every id resident and return the ids remapped to device
         addresses (the reference's ``cache_weight_mgr.prepare_ids``)."""
+        if self._dir is None:
+            pw = self.begin_prepare(ids, tuple(ids.shape) if isinstance(ids, torch.Tensor) else np.shape(ids))
+            self.finish_prepare(pw)
+            return pw.slot_ids
         ids_np = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids)
         ws = self.begin_window_staging(ids_np, ids_np.shape)
         self.enqueue_writebacks(ws)
@@ -755,7 +929,7 @@ class CachedEmbeddingBag:
         """Write every cached and resident row back to the host table."""
         self._drain_writebacks()
         self._flush_resident()
-        slots, rows = self._dir.resident()
+        slots, rows = self.resident()
         if slots.size == 0:
             return
         t0 = time.perf_counter()
@@ -766,6 +940,15 @@ class CachedEmbeddingBag:
             self.host_accum.scatter(rows, self.cache_accum.index_select(0, slots_dev).cpu().numpy())
         self.stats.swap_out_bytes += slots.size * self.embedding_dim * 4
         self.stats.swap_out_time += time.perf_counter() - t0
+
+    def resident(self):
+        """(slots, rows) of every cached row, as host arrays, from either
+        planner's directory."""
+        if self._dir is not None:
+            return self._dir.resident()
+        s2r = self.state.slot_to_row.cpu().numpy()
+        slots = np.flatnonzero(s2r >= 0).astype(np.int32)
+        return slots, s2r[slots].astype(np.int64)
 
     def dense_weight(self, rows: Optional[np.ndarray] = None) -> np.ndarray:
         """Logically consistent host rows (flushes first): ``rows`` of the
@@ -791,9 +974,12 @@ class CachedEmbeddingBag:
         id-frequency map (cache contents are derived state: used after a
         checkpoint load has replaced the host table)."""
         self._drain_writebacks()
-        self._dir = make_directory(self.num_embeddings, self.capacity, self.evict_strategy)
-        if self._host_freq is not None and self.evict_strategy == EvictionStrategy.DATASET:
-            self._dir.set_dataset_freq(self._host_freq)
+        if self._dir is None:
+            self.state = init_cache_state(self.num_embeddings, self.capacity, self.device)
+        else:
+            self._dir = make_directory(self.num_embeddings, self.capacity, self.evict_strategy)
+            if self._host_freq is not None and self.evict_strategy == EvictionStrategy.DATASET:
+                self._dir.set_dataset_freq(self._host_freq)
         self.cache_weight.zero_()
         if self.cache_accum is not None:
             self.cache_accum.fill_(self.adagrad_initial)

@@ -3,11 +3,11 @@ of ``cachedembedding_tpu/data/feature_counter.py``).
 
 ``GlobalFeatureCounter`` streams the npy sparse shards through a native
 bincount in the fused global id space (after ``% hash`` and the table
-offsets). ``get_id_freq_map`` loads or computes the map and caches it as
-``id_freq_map.npy`` in the dataset directory, in the JAX package's format (a
-(num_rows,) int64 array): a directory prepared by either package serves
-both. The parquet counter waits for ``data/parquet.py`` (ROADMAP Queue 1
-item 10).
+offsets). ``SampledParquetCounter`` counts a leading share of parquet files
+(the reference's PetastormCounter, over pyarrow). ``get_id_freq_map`` loads
+or computes the map and caches it as ``id_freq_map.npy`` in the dataset
+directory, in the JAX package's format (a (num_rows,) int64 array): a
+directory prepared by either package serves both.
 """
 
 from __future__ import annotations
@@ -39,6 +39,41 @@ class GlobalFeatureCounter:
                 chunk %= self.table_sizes[None, :]
                 chunk += self.offsets[None, :]
                 hostops.bincount(chunk, self.total, out=freq)
+        return freq
+
+
+class SampledParquetCounter:
+    """Id frequencies over the first ``subsample_fraction`` of the parquet
+    files (at least one), each ``cat_X`` column hashed into its table."""
+
+    def __init__(
+        self,
+        parquet_files: List[str],
+        table_sizes: Sequence[int],
+        subsample_fraction: float = 0.1,
+        cat_prefix: str = "cat_",
+    ):
+        self.files = parquet_files
+        self.table_sizes = np.asarray(table_sizes, np.int64)
+        self.offsets = np.concatenate([[0], np.cumsum(self.table_sizes)[:-1]])
+        self.total = int(self.table_sizes.sum())
+        self.subsample = subsample_fraction
+        self.cat_prefix = cat_prefix
+
+    def compute(self) -> np.ndarray:
+        from cachedembedding_tpu_torch.data.parquet import import_parquet
+
+        pq = import_parquet()
+        freq = np.zeros((self.total,), np.int64)
+        for path in self.files[: max(1, int(len(self.files) * self.subsample))]:
+            t = pq.read_table(path)
+            cat_cols = sorted((c for c in t.column_names if c.startswith(self.cat_prefix)),
+                              key=lambda c: int(c[len(self.cat_prefix):]))
+            for i, col in enumerate(cat_cols):
+                ids = t.column(col).to_numpy().astype(np.int64)
+                ids %= self.table_sizes[i]
+                ids += self.offsets[i]
+                hostops.bincount(ids, self.total, out=freq)
         return freq
 
 

@@ -239,3 +239,13 @@ def sort_plan_np(v: np.ndarray, num_rows: int):
     (perm, ids_grouped, bin_starts), the stream stably sorted by id, with the
     bins of BLOCK_ROWS rows (``hostops.sort_plan``)."""
     return hostops.sort_plan(v, num_rows, BLOCK_ROWS)
+
+
+def sort_plan(ids: torch.Tensor, num_rows: int):
+    """``sort_plan_np`` made where ``ids`` ((L,) int32, in [0, num_rows))
+    lie, by torch ops: a stable sort and a search of the bin edges, all int32,
+    and equal to ``sort_plan_np`` bit for bit. The device planner's trainer
+    makes each step's plan so on the card, where its ids are."""
+    grouped, perm = torch.sort(ids, stable=True)
+    edges = torch.arange(0, -(-num_rows // BLOCK_ROWS) + 1, dtype=ids.dtype, device=ids.device) * BLOCK_ROWS
+    return perm.to(torch.int32), grouped, torch.searchsorted(grouped, edges, out_int32=True)

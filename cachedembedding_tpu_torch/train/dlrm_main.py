@@ -25,8 +25,9 @@ Besides the JAX CLI's lines it prints, on stderr, ``run stats: {json}``: the
 kernel launches, the table's fill seconds, the frequency map's seconds, host
 and device seconds a window, the update plans' host ms a step, the peak
 device memory, the bytes of fetched admits, each window's id wire format and
-the first window's bytes by block, and under row-wise Adagrad the rows whose
-accumulator grew.
+the first window's bytes by block, with ``--planner device`` each window's
+plan device seconds and plan readback (bytes, device seconds, host wait),
+and under row-wise Adagrad the rows whose accumulator grew.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--stochastic_rounding", choices=["auto", "on", "off"], default="auto",
                    help="stochastic rounding of cache-row updates (auto = on for fp8 rows)")
     p.add_argument("--planner", choices=["auto", "host", "device"], default="auto",
-                   help="cache planner (device: ROADMAP Queue 1 item 11)")
+                   help="cache planner: native host directory vs the device state machine")
     # parallelism: ROADMAP Queue 1 item 9
     p.add_argument("--use_tablewise", action="store_true")
     p.add_argument("--use_rowwise", action="store_true")
@@ -129,8 +130,6 @@ def refuse_outside_port(args) -> None:
     for bad, flag in refusals:
         if bad:
             raise NotImplementedError(f"{flag}: multi-device training is ROADMAP Queue 1 item 9")
-    if args.planner == "device":
-        raise NotImplementedError("--planner device is ROADMAP Queue 1 item 11")
 
 
 def note_single_card(args) -> None:
@@ -358,6 +357,8 @@ def main(argv=None) -> None:
                 window_plan_s=[x for r in parts for x in r.window_plan_s],
                 window_wire=[x for r in parts for x in r.window_wire],
                 window_copy_s=[x for r in parts for x in r.window_copy_s],
+                window_plan_device_s=[x for r in parts for x in r.window_plan_device_s],
+                window_readback=[x for r in parts for x in r.window_readback],
             )
         else:
             report = trainer.train(train_data, num_iters=limit, log_every=100)
@@ -398,6 +399,8 @@ def main(argv=None) -> None:
         "swap_in_bytes": trainer.embed.stats.swap_in_bytes,
         "wire_formats": [w["format"] for r in reports for w in r.window_wire],
         "window_bytes": [w["bytes"] for r in reports for w in r.window_wire][:1],
+        "window_plan_device_s": [x for r in reports for x in r.window_plan_device_s],
+        "window_readback": [x for r in reports for x in r.window_readback],
     }
     if trainer.embed.cache_accum is not None:
         # row-wise Adagrad: rows whose accumulator grew, on the device and,

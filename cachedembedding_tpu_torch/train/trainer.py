@@ -1,6 +1,6 @@
 """Single-device trainer: cached embedding + DLRM or DeepFM dense towers
 (counterpart of ``cachedembedding_tpu/train/trainer.py``, single-device
-slice: uniform and ragged windows).
+slice: uniform and ragged windows, with the host or the device planner).
 
 Far-sighted prefetch: every ``prefetch_num`` batches form a window whose ids
 are planned once by the host directory. Per window, in order:
@@ -80,6 +80,19 @@ per-step function (``_dispatch_train``): always dense, its dense features in
 f32; JAX runs that function with SGD whatever the optimizer, so row-wise
 Adagrad there is refused.
 
+**The device planner** (``CacheConfig.planner="device"``) follows the JAX
+trainer's unstaged windows: ``begin_prepare`` of window k+1 (``plan_ids``,
+the remap and the plan's readback into pinned memory, on the card) is
+enqueued before window k's steps, and ``finish_prepare`` of k+1 (the wait on
+that readback, then the writebacks and admits) after them. The slot ids stay
+on the card; dense features and labels ship as the batches hold them, with no
+window wire. Each step's update plan is made on the card
+(``ops/binned_scatter.sort_plan``, equal to ``sort_plan_np``), and the branch
+is JAX's for that path: sparse or dense, never plan (JAX ships no plan
+there). Ragged windows take the dense ragged branch, as JAX's per-step
+function does, and ``evaluate`` plans and scores batch by batch, as JAX does
+on this path.
+
 The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
 back once, at the end. ``evaluate`` runs the same window machinery with the
@@ -97,7 +110,13 @@ import torch
 
 from cachedembedding_tpu_torch import resolve_device
 from cachedembedding_tpu_torch._native import hostops
-from cachedembedding_tpu_torch.cache.manager import CACHE_DTYPES, OPTIMIZERS, CachedEmbeddingBag, WindowStaging
+from cachedembedding_tpu_torch.cache.manager import (
+    CACHE_DTYPES,
+    OPTIMIZERS,
+    CachedEmbeddingBag,
+    PreparedWindow,
+    WindowStaging,
+)
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
 from cachedembedding_tpu_torch.jagged import Batch, concat_uniform_values
@@ -107,6 +126,7 @@ from cachedembedding_tpu_torch.ops.binned_scatter import (
     binned_adagrad_update,
     binned_scatter_add,
     binned_sgd_update,
+    sort_plan,
     sort_plan_np,
 )
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_ragged, pool_uniform
@@ -139,7 +159,6 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
     refusals = [
         (tuple(cfg.mesh_shape) != (1,) or cfg.use_tablewise,
          "the mesh (data/model parallel) is ROADMAP Queue 1 item 9"),
-        (c.planner == "device", "the device planner is ROADMAP Queue 1 item 11"),
     ]
     if cfg.compute_dtype not in _FLOAT_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} is not supported")
@@ -161,19 +180,20 @@ def bucket(n: int, lo: int = 2048) -> int:
 
 
 def update_branch(cfg: DLRMConfig, adagrad: bool, device_rows: int, ids_per_step: int,
-                  ragged: bool = False) -> str:
+                  ragged: bool = False, plans_shipped: bool = True) -> str:
     """The JAX trainer's update branch for a window ("plan", "sparse" or
     "dense", its ``_dispatch_window``). Uniform windows: the plan branch where
-    the host ships sort plans, else the sparse-gradient branch where ``accum
-    is None and (use_sparse_embed_grad or device_rows > 4 * L) and not sr``,
-    else the dense branch. Ragged windows (``ids_per_step`` is then ``Vp``):
-    the sparse branch where ``accum is None and (use_sparse_embed_grad or
-    device_rows > 4 * Vp)``, else the dense branch; JAX reads neither the
-    plan option nor stochastic rounding there."""
+    the host ships sort plans (``ship_sort_perm``, on the host planner's
+    windows: ``plans_shipped``), else the sparse-gradient branch where
+    ``accum is None and (use_sparse_embed_grad or device_rows > 4 * L) and
+    not sr``, else the dense branch. Ragged windows (``ids_per_step`` is then
+    ``Vp``): the sparse branch where ``accum is None and
+    (use_sparse_embed_grad or device_rows > 4 * Vp)``, else the dense branch;
+    JAX reads neither the plan option nor stochastic rounding there."""
     if ragged:
         sparse = not adagrad and (cfg.use_sparse_embed_grad or device_rows > 4 * ids_per_step)
         return "sparse" if sparse else "dense"
-    if cfg.cache.ship_sort_perm:
+    if cfg.cache.ship_sort_perm and plans_shipped:
         return "plan"
     if (not adagrad and (cfg.use_sparse_embed_grad or device_rows > 4 * ids_per_step)
             and not cfg.cache.rounds_stochastically):
@@ -196,6 +216,11 @@ class TrainReport:
     # packing (dense features, labels, admits, the buffer's assembly)
     window_wire: List[dict] = dataclasses.field(default_factory=list)
     window_copy_s: List[float] = dataclasses.field(default_factory=list)  # device s of each buffer copy
+    # the device planner, per window: device s of plan_ids and the remap (CUDA
+    # only), and the readback of its plan: bytes, the copies' device s (CUDA
+    # only) and the host's wait for them
+    window_plan_device_s: List[float] = dataclasses.field(default_factory=list)
+    window_readback: List[dict] = dataclasses.field(default_factory=list)
 
 
 class _Window(NamedTuple):
@@ -205,11 +230,11 @@ class _Window(NamedTuple):
     plan's perm and grouped ids are flat, step p's at ``bounds[p]:bounds[p +
     1]``."""
 
-    staging: WindowStaging
+    staging: object         # WindowStaging (host planner) or PreparedWindow (device planner)
     slot_ids: torch.Tensor  # (P, L) int32 feature-major device addresses; ragged: (P, Vp)
     dense: torch.Tensor     # (P, B, Din) float32
     labels: torch.Tensor    # (P, B) float32
-    plan: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # perm, grouped, bins
+    plan: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # perm, grouped, bins; None: made per step
     plan_s: float  # host seconds spent in the update plans
     buf: torch.Tensor = None                 # the window's device buffer
     admits: Optional[wire.AdmitLayout] = None
@@ -279,6 +304,8 @@ class CachedDLRMTrainer:
             resident_tables=resident,
             optimizer=cfg.embedding_optimizer,
             adagrad_initial=cfg.adagrad_initial,
+            planner=c.planner,
+            approx_evict=c.approx_evict,
         )
         if self.embed.device != self.device:
             raise ValueError(f"embed_override lives on {self.embed.device}, the trainer on {self.device}")
@@ -402,6 +429,11 @@ class CachedDLRMTrainer:
             at += 4 * n
         return tuple(out)
 
+    @property
+    def device_planner(self) -> bool:
+        """Whether the cache plans on the device (``planner="device"``)."""
+        return isinstance(self.embed, CachedEmbeddingBag) and self.embed.planner == "device"
+
     def _begin_window(self, batches: List[Batch], with_plan: bool = True,
                       dense_mode: Optional[str] = None) -> _Window:
         """Plan and stage a window and ship it: the remapped ids, dense
@@ -409,13 +441,16 @@ class CachedDLRMTrainer:
         admits and (``with_plan``) per-step grouping plans for the update,
         in one buffer and one host-to-device copy. A window whose batches all
         share one pooling factor and carry no offsets is uniform; any other
-        is ragged."""
+        is ragged. The device planner's windows: ``_begin_window_device``."""
         f0 = batches[0].sparse_features
         F, B, Pool = f0.num_features, f0.batch_size, f0.pooling
         if any(b.sparse_features.num_features != F or b.sparse_features.batch_size != B for b in batches):
             raise NotImplementedError("a window's batches must share their feature count and batch size")
-        if Pool is None or any(b.sparse_features.pooling != Pool or b.sparse_features.offsets is not None
-                               for b in batches):
+        ragged = Pool is None or any(b.sparse_features.pooling != Pool or b.sparse_features.offsets is not None
+                                     for b in batches)
+        if self.device_planner:
+            return self._begin_window_device(batches, ragged)
+        if ragged:
             return self._begin_window_ragged(batches, with_plan, dense_mode)
         P = len(batches)
         all_ids = concat_uniform_values(batches)
@@ -529,6 +564,46 @@ class CachedDLRMTrainer:
             in_bags=[int(x) for x in lengths.sum(axis=1)], vp=vp,
         )
 
+    def _begin_window_device(self, batches: List[Batch], ragged: bool) -> _Window:
+        """A window of the device planner (JAX's unstaged windows): the flat id
+        stream planned and remapped on the device (``begin_prepare``, which
+        also enqueues the plan's readback), the dense features and labels
+        copied as the batches hold them. A ragged window's slot ids are
+        padded on the device to (P, Vp), as on the host planner's ragged
+        windows. The update plans are made per step (``_step_plan``)."""
+        P = len(batches)
+        f0 = batches[0].sparse_features
+        F, B = f0.num_features, f0.batch_size
+        vals = [b.sparse_features.values.numpy() for b in batches]
+        dense = self.embed.to_device(torch.stack([b.dense_features for b in batches]).float())
+        labels = self.embed.to_device(torch.stack([b.labels for b in batches]).float())
+        if not ragged:
+            pw = self.embed.begin_prepare(np.concatenate(vals), (P, vals[0].shape[0]))
+            return _Window(staging=pw, slot_ids=pw.slot_ids, dense=dense, labels=labels, plan=None, plan_s=0.0)
+        pw = self.embed.begin_prepare(np.concatenate(vals))
+        counts = [v.shape[0] for v in vals]
+        bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        vp = bucket(max(counts))
+        slot_ids = torch.zeros((P, vp), dtype=torch.int32, device=self.device)
+        for p in range(P):
+            slot_ids[p, : counts[p]] = pw.slot_ids[bounds[p] : bounds[p + 1]]
+        lengths = torch.stack([b.sparse_features.lengths() for b in batches]).to(torch.int32)
+        return _Window(staging=pw, slot_ids=slot_ids, dense=dense, labels=labels, plan=None, plan_s=0.0,
+                       bounds=[int(x) for x in bounds], lengths=self.embed.to_device(lengths),
+                       in_bags=[int(x) for x in lengths.sum(dim=1)], vp=vp)
+
+    def _step_plan(self, win: _Window, p: int):
+        """Step p's update plan: the window's shipped plan, or (the device
+        planner's windows) one made here, on the ids' device, from the
+        step's stream in the order of its gathered rows ((N, F) on a uniform
+        window, the flat stream on a ragged one)."""
+        if win.plan is not None:
+            return win.step_plan(p)
+        ids = win.step_ids(p)
+        if win.bounds is None:
+            ids = ids.view(self.cfg.num_sparse_features, -1).t().reshape(-1)
+        return sort_plan(ids, self._device_rows())
+
     def _land_admits(self, win: _Window) -> None:
         """Land the window's admits from its device buffer (after the
         writebacks of its evictions were enqueued)."""
@@ -539,8 +614,12 @@ class CachedDLRMTrainer:
     def _finish_window(self, win: _Window) -> None:
         """Enqueue the window's eviction writebacks (after the previous
         window's steps, before this window's admits), their slots read from
-        the window's buffer."""
-        self.embed.enqueue_writebacks(win.staging, win.wb_slots)
+        the window's buffer; on the device planner, wait for the window's
+        plan and move its rows (``finish_prepare``)."""
+        if isinstance(win.staging, PreparedWindow):
+            self.embed.finish_prepare(win.staging)
+        else:
+            self.embed.enqueue_writebacks(win.staging, win.wb_slots)
 
     def _gathered_rows(self, win: _Window, p: int) -> torch.Tensor:
         """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype;
@@ -561,12 +640,13 @@ class CachedDLRMTrainer:
 
     def branch_of(self, win: _Window) -> str:
         """The JAX trainer's update branch for ``win`` (``update_branch``). A
-        fully resident table trains ragged batches by JAX's per-step
-        function, which is always dense."""
+        fully resident table, and the device planner, train ragged batches
+        by JAX's per-step function, which is always dense there."""
         adagrad = self.embed.cache_accum is not None
         if win.bounds is None:
-            return update_branch(self.cfg, adagrad, self._device_rows(), win.slot_ids.shape[1])
-        if not isinstance(self.embed, CachedEmbeddingBag):
+            return update_branch(self.cfg, adagrad, self._device_rows(), win.slot_ids.shape[1],
+                                 plans_shipped=not self.device_planner)
+        if not isinstance(self.embed, CachedEmbeddingBag) or self.device_planner:
             return "dense"
         return update_branch(self.cfg, adagrad, self._device_rows(), win.vp, ragged=True)
 
@@ -666,7 +746,7 @@ class CachedDLRMTrainer:
             loss = _model_loss(self.cfg.model, self.model(win.dense[p], sparse), win.labels[p])
             loss.backward()
             g_rows = rows.grad.reshape(-1, cw.shape[1])
-            perm, grouped, bins = win.step_plan(p)
+            perm, grouped, bins = self._step_plan(win, p)
             if ragged:
                 g = g_rows if g_rows.dtype == cw.dtype else astype_storage(g_rows, cw.dtype)
                 self._ragged_update(cw, g, perm, grouped, bins, slr, branch)
@@ -709,26 +789,50 @@ class CachedDLRMTrainer:
             fetched += len(window)
             return window
 
-        def stage(batches):
-            th = time.perf_counter()
+        readbacks = []
+
+        def begin(batches, th):
+            """Begin a window; returns it and the host seconds since ``th``."""
             win = self._begin_window(batches)
+            return win, time.perf_counter() - th
+
+        def finish(win, begun_s):
+            th = time.perf_counter()
+            pw = win.staging
+            wait_s = 0.0
+            if isinstance(pw, PreparedWindow) and pw.events:
+                pw.events[2].synchronize()  # the readback: what finish_prepare waits for
+                wait_s = time.perf_counter() - th
             self._finish_window(win)
+            host_s.append(begun_s + time.perf_counter() - th)
             plan_s.append(win.plan_s)
-            wires.append(win.wire)
+            if win.wire is not None:
+                wires.append(win.wire)
             if win.copy_ev is not None:
                 copy_ev.append(win.copy_ev)
-            return win, th
+            if isinstance(pw, PreparedWindow):
+                readbacks.append((pw.readback_bytes, wait_s, pw.events))
+            return win
 
         cuda = self.device.type == "cuda"
+        # the device planner's plan runs on the device, so the next window's
+        # begin goes on the stream before this window's steps (its readback
+        # would wait for them otherwise) and its finish after them
+        early = self.device_planner
         t0 = time.perf_counter()
         th = time.perf_counter()
         cur = fetch_window()
         win_cur = None
         if cur:
-            win_cur, _ = stage(cur)
-            host_s.append(time.perf_counter() - th)
+            win_cur = finish(*begin(cur, th))
         while cur:
             progresses = [0.0 if total is None else (done + i) / max(total, 1) for i in range(len(cur))]
+            nxt, win_nxt = [], None
+            if early:
+                th = time.perf_counter()
+                nxt = fetch_window()
+                if nxt:
+                    win_nxt, begun_s = begin(nxt, th)
             if cuda:
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 ev[0].record()
@@ -743,13 +847,14 @@ class CachedDLRMTrainer:
             if log_every and done // log_every != prev_done // log_every:
                 print(f"it {done}: loss={loss_chunks[-1][-1].item():.5f} "
                       f"hit_rate={self.embed.stats.hit_rate(window=pn):.4f}")
-            # plan + stage the NEXT window while the device executes this one
-            th = time.perf_counter()
-            nxt = fetch_window()
-            win_nxt = None
-            if nxt:
-                win_nxt, _ = stage(nxt)
-                host_s.append(time.perf_counter() - th)
+            if early:
+                if nxt:
+                    win_nxt = finish(win_nxt, begun_s)
+            else:  # plan + stage the next window while the device executes this one
+                th = time.perf_counter()
+                nxt = fetch_window()
+                if nxt:
+                    win_nxt = finish(*begin(nxt, th))
             cur, win_cur = nxt, win_nxt
         if cuda:
             torch.cuda.synchronize(self.device)
@@ -765,13 +870,18 @@ class CachedDLRMTrainer:
             window_plan_s=plan_s,
             window_wire=wires,
             window_copy_s=[a.elapsed_time(b) / 1e3 for a, b in copy_ev],
+            window_plan_device_s=[ev[0].elapsed_time(ev[1]) / 1e3 for _, _, ev in readbacks if ev],
+            window_readback=[{"bytes": n, "wait_s": w, "device_s": ev[1].elapsed_time(ev[2]) / 1e3 if ev else None}
+                             for n, w, ev in readbacks],
         )
 
     @torch.no_grad()
     def evaluate(self, data: Iterable[Batch]) -> dict:
         """AUROC/Accuracy evaluation through the same window machinery as
-        training (cache maintenance via staged admits), forward only. Scores
-        stay on the device and are read back in blocks."""
+        training (cache maintenance via staged admits), forward only; on the
+        device planner, a window of one batch at a time, as JAX plans and
+        scores that path. Scores stay on the device and are read back in
+        blocks."""
         metrics = StreamingMetrics()
         pending: List[torch.Tensor] = []
         pending_labels: List[np.ndarray] = []
@@ -782,7 +892,7 @@ class CachedDLRMTrainer:
                 pending.clear()
                 pending_labels.clear()
 
-        pn = max(1, self.cfg.cache.prefetch_num)
+        pn = 1 if self.device_planner else max(1, self.cfg.cache.prefetch_num)
         # as in JAX: the cache's windows ship the dense features in
         # dense_input_dtype, while a fully resident table is scored batch by
         # batch on the f32 features

@@ -116,6 +116,29 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      (``check_quantized_admits``): one window's fetched rows equal the
      dequantized host quantization cast to the rows' dtype, bit for bit,
      and rows written back hold bf16 values in the f32 host table.
+  6c. The device planner at full width (``device_planner``,
+     ``phase_device_planner``): the bf16 slice's model with
+     ``planner="device"`` and every Kaggle table cached, data through
+     ``data/dispatch.get_dataloader("custom", ..., prefetch_depth=2)``, the
+     training timed by ``utils/timer.Timer``; the cache ratio the smallest
+     of 1%, 2% and 5% that holds each window's distinct ids, counted on the
+     host. Two runs of 3 windows and an evaluation window (planned batch by
+     batch, as JAX does): DATASET eviction on the dense branch (Kernel 2 fed
+     by the update plans made on the card) and LFU with
+     use_sparse_embed_grad on the sparse branch (Kernel 5). Gates: each
+     window's ``plan_ids`` on the card bit-equal to the same function on CPU
+     copies of the state and ids (the new state's three arrays, the plan's
+     indices and scalars), each step's update plan bit-equal to
+     ``sort_plan_np`` of its ids read back, the update entry once a step and
+     no other, finite losses, a hit rate in (0, 1], the flush; then
+     ``plan_ids`` under eviction with tied frequencies, card against CPU
+     (``check_plan_ties``: the runs' 1% cache evicts nothing in 3 windows),
+     and on a small bag an out-of-range id (ValueError) and an overfull
+     window (a RuntimeError naming the capacity). It prints per run host
+     and device s a window, ``plan_ids`` device ms a window, the plan's
+     readback bytes, device ms and host wait, the update plan's device ms a
+     step, examples/s and peak memory, beside the bf16 slice's host-planner
+     numbers from the same call.
   7. The bare module on the card: a CachedEmbeddingBag with fp8 rows,
      prepare_ids then lookup over seeded ids that together exceed its
      capacity, equal to the host rows through the storage cast, pooled.
@@ -159,7 +182,8 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      adagrad resident`` (``--embedding_optimizer rowwise_adagrad
      --learning_rate 0.1``, cached bf16 rows and the resident table with
      its 135 MB of accumulators), ``cli int8`` and ``cli int4``
-     (``--transfer_dtype``: quantized admit payloads, bf16 writebacks). Each must give finite losses, val/test
+     (``--transfer_dtype``: quantized admit payloads, bf16 writebacks) and
+     ``cli device`` (``--planner device``: plans on the card). Each must give finite losses, val/test
      AUROC above 0.5 over 32,768 examples, a hit rate in (0, 1] where it
      caches, Kernel 1 launches and one Kernel 2 launch a step (its Adagrad
      epilogue under Adagrad) and no other; the Adagrad runs accumulators
@@ -184,8 +208,8 @@ their own bound and the device time of the unfused chain it replaced.
 Phase 5 counts both of Kernel 4's entries: the fused one 24 times on the
 fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
 each kernel's launches on every path (the two slices, the two fp8 windows,
-the 1TB run, the ragged path and the five CLI runs, whose processes report
-their counts in their ``run stats`` line).
+the wire and device-planner runs, the 1TB run, the ragged path and the CLI
+runs, whose processes report their counts in their ``run stats`` line).
 Phase 11 adds Kernels 1 and 2's times on the resident table
 (``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 6
 Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
@@ -202,8 +226,9 @@ its bytes bound; the run-shape cases are under ``run_cases``. Each kernel's ``la
 are its main path's (MAIN_PATH), summed over its entries where two wrappers
 launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
-Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...}``
-line, the card's name and power limit, then a ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
+Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...,
+"device_planner": ...}`` line, the card's name and power limit, then a
+``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
 
 ``--kernel5-against`` runs the build and phases 9 and 10 only, with their
@@ -340,9 +365,10 @@ def check_flush(tr, tag: str) -> int:
 
     emb = tr.embed
     emb.flush()
-    slots, rows = emb._dir.resident()
+    slots, rows = emb.resident()
     pick = np.random.default_rng(0).choice(slots.shape[0], min(4096, slots.shape[0]), replace=False)
-    res_pick = np.random.default_rng(1).choice(emb.resident_total, min(4096, emb.resident_total), replace=False)
+    res_pick = (np.random.default_rng(1).choice(emb.resident_total, min(4096, emb.resident_total), replace=False)
+                if emb.resident_total else np.zeros((0,), np.int64))
     addrs = np.concatenate([slots[pick].astype(np.int64), emb.capacity + res_pick])
     host_rows = np.concatenate([rows[pick], emb._res_rows[res_pick]])
     addrs_dev = torch.from_numpy(addrs).to(emb.device)
@@ -1431,6 +1457,10 @@ def phase_slice(cfg, device):
     log(f"{tag} host s/window {[round(x, 4) for x in rep.window_host_s]}; "
         f"device s/window {[round(x, 4) for x in rep.window_device_s]}")
     log(f"{tag} eval of {ev['count']} examples in {eval_s:.2f} s: auroc {ev['auroc']:.4f}")
+    SLICE_NUMBERS[cfg.cache.cache_dtype] = {
+        "host_s_window": rep.window_host_s, "device_s_window": rep.window_device_s,
+        "plan_host_ms_step": 1e3 * sum(rep.window_plan_s) / steps, "examples_per_s": rep.examples_per_s,
+        "peak_gib": peak / 2**30, "hit_rate": rep.hit_rate}
     log(f"{tag} kernel launches {launches}")
     if losses.shape != (steps,) or not np.isfinite(losses).all():
         raise AssertionError(f"{tag} losses not finite: {losses}")
@@ -2396,6 +2426,273 @@ def phase_wire(device) -> tuple:
     return launches, numbers
 
 
+DEVICE_PLANNER_RATIOS = (0.01, 0.02, 0.05)  # the run takes the smallest that holds its counted windows
+DEVICE_PLANNER_WINDOWS = 3
+# run -> (LFU eviction, use_sparse_embed_grad, the update entry it launches once a step)
+DEVICE_PLANNER_RUNS = {"device_planner dataset": (False, False, "binned_sgd"),
+                       "device_planner lfu sparse": (True, True, "ordered_scatter_add")}
+SLICE_NUMBERS: dict = {}  # phase_slice's numbers by row dtype, printed beside the device planner's
+
+
+def pinned_copy(t):
+    """An asynchronous copy of ``t`` into pinned host memory, in stream order."""
+    import torch
+
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda).copy_(t, non_blocking=t.is_cuda)
+
+
+def device_planner_config(ratio: float, lfu: bool, sparse: bool):
+    """The bf16 slice's model at full width (Kaggle tables, D = 128, batch
+    16,384, prefetch 8, bf16 rows and compute) with the device planner and
+    every table cached (``resident_threshold=0``; the device planner takes
+    no resident region)."""
+    import dataclasses
+
+    cfg = slice_config("bfloat16")
+    cfg.use_sparse_embed_grad = sparse
+    cfg.cache = dataclasses.replace(cfg.cache, planner="device", resident_threshold=0, cache_ratio=ratio,
+                                    use_lfu_eviction=lfu)
+    return cfg
+
+
+def synthetic_distinct(sizes, B: int, P: int, windows: int, seed: int) -> list:
+    """Distinct ids of each of the first ``windows`` windows of P batches of
+    the slice's synthetic stream (``seed``)."""
+    import numpy as np
+
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+
+    ds = SyntheticLongTailDataset(sizes, B, P * windows, skew=0.5, seed=seed)
+    return [int(np.unique(np.concatenate([ds.make_batch(w * P + i).sparse_features.values.numpy()
+                                          for i in range(P)])).size) for w in range(windows)]
+
+
+def check_device_planner_errors(device) -> None:
+    """On a small device-planner bag on the card: an id out of range raises
+    ValueError before the plan, and a window of more distinct ids than slots
+    raises a RuntimeError that names the capacity."""
+    import numpy as np
+
+    from cachedembedding_tpu_torch.cache.manager import CachedEmbeddingBag
+
+    bag = CachedEmbeddingBag(1000, 16, cuda_row_num=8, planner="device", warmup_ratio=0.0, device=device)
+    try:
+        try:
+            bag.prepare_ids(np.array([3, 1000], np.int32))
+            raise AssertionError("[device_planner] an out-of-range id was accepted")
+        except ValueError as e:
+            log(f"[device_planner] out-of-range id: ValueError({e})")
+        try:
+            bag.prepare_ids(np.arange(9, dtype=np.int32))
+            raise AssertionError("[device_planner] 9 distinct ids were accepted by 8 slots")
+        except RuntimeError as e:
+            if "capacity 8" not in str(e) and "8 slots" not in str(e):
+                raise AssertionError(f"[device_planner] the capacity error does not name the capacity: {e}")
+            log(f"[device_planner] over capacity: RuntimeError({e})")
+        slots = bag.prepare_ids(np.arange(8, dtype=np.int32))
+        if sorted(slots.cpu().tolist()) != list(range(8)):
+            raise AssertionError(f"[device_planner] a full window after the errors got slots {slots.tolist()}")
+    finally:
+        bag.close()
+
+
+def check_plan_ties(device, windows: int = 8) -> dict:
+    """``plan_ids`` under eviction on the card against the CPU, bit for bit:
+    LFU and DATASET chains over a 1,000,000-row domain and a 20,000-slot
+    directory, windows of 100,000 Zipf ids (about 13,000 distinct, so from
+    the second window on every miss evicts a resident row), frequencies in
+    [0, 4) so that most victims tie with others. The phase's own runs at a
+    1% cache evict nothing in their windows; this holds the victim order
+    over equal frequencies of resident rows. Returns the rows evicted."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy, init_cache_state, plan_ids
+
+    N, C, L = 1_000_000, 20_000, 100_000
+    rng = np.random.default_rng(17)
+    freq = torch.from_numpy(rng.integers(0, 4, N).astype(np.int32))
+    evicted = {}
+    for strat in (EvictionStrategy.LFU, EvictionStrategy.DATASET):
+        cpu, card = init_cache_state(N, C), init_cache_state(N, C, device)
+        n = 0
+        for w in range(windows):
+            ids = torch.from_numpy((rng.zipf(1.2, L) * 7919 % N).astype(np.int32))
+            cpu, plan = plan_ids(cpu, ids, freq, unique_budget=L, strategy=strat)
+            card, plan_c = plan_ids(card, ids.to(device), freq.to(device), unique_budget=L, strategy=strat)
+            for what, a, b in (*zip(("slot_to_row", "row_to_slot", "slot_freq"), cpu, card),
+                               ("indices", plan.indices, plan_c.indices), ("scalars", plan.scalars, plan_c.scalars)):
+                if not torch.equal(a, b.cpu()):
+                    raise AssertionError(f"[device_planner] {strat.name} window {w}: plan_ids {what} differs")
+            if not int(plan.scalars[1]) <= C:
+                raise AssertionError(f"[device_planner] {int(plan.scalars[1])} distinct ids exceed {C} slots")
+            n += int((plan.indices[2] >= 0).sum())
+        if n == 0:
+            raise AssertionError(f"[device_planner] {strat.name} chain evicted nothing")
+        evicted[strat.name] = n
+    log(f"[device_planner] plan_ids under eviction with tied frequencies, {windows} windows each, card equal to "
+        f"CPU bit for bit; rows evicted {evicted}")
+    return evicted
+
+
+def phase_device_planner(device) -> tuple:
+    """The device planner at full width (``device_planner``): two runs of
+    DEVICE_PLANNER_WINDOWS windows and one evaluation window (planned batch
+    by batch, as JAX does), each through ``dispatch.get_dataloader("custom",
+    ..., prefetch_depth=2)`` and timed by ``utils.timer.Timer``, with the
+    launch counts zeroed just before: DATASET eviction on the dense branch
+    (Kernel 2 fed by the plans made on the card) and LFU with
+    use_sparse_embed_grad on the sparse branch (Kernel 5). The cache ratio
+    is the smallest of DEVICE_PLANNER_RATIOS that holds every window's
+    distinct ids, counted on the host. Gates: each training window's
+    plan_ids on the card bit-equal to the same function on CPU copies of the
+    state and ids (the new state's three arrays, the plan's indices and
+    scalars), each step's update plan bit-equal to ``sort_plan_np`` of its
+    ids read back, the update entry launched once a step and no other,
+    finite losses, a hit rate in (0, 1], the flush; then the error paths on
+    a small bag. Returns each run's launch counts and numbers."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.cache.state import CacheState, plan_ids
+    from cachedembedding_tpu_torch.data import dispatch
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.ops.binned_scatter import sort_plan, sort_plan_np
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+    from cachedembedding_tpu_torch.utils.timer import Timer
+
+    t_phase = time.perf_counter()
+    cfg0 = slice_config("bfloat16")
+    sizes, B, P = cfg0.num_embeddings_per_feature, cfg0.batch_size, cfg0.cache.prefetch_num
+    steps = DEVICE_PLANNER_WINDOWS * P
+    distinct = synthetic_distinct(sizes, B, P, DEVICE_PLANNER_WINDOWS, 7)
+    eval_distinct = max(synthetic_distinct(sizes, B, 1, P, 8))
+    ratio = next((r for r in DEVICE_PLANNER_RATIOS if int(r * sum(sizes)) >= max(distinct + [eval_distinct])), None)
+    log(f"[device_planner] distinct ids a window {distinct}, an eval batch at most {eval_distinct}: cache ratio "
+        f"{ratio} ({int((ratio or 0) * sum(sizes))} slots of {sum(sizes)} rows)")
+    if ratio is None:
+        raise AssertionError("[device_planner] no cache ratio of DEVICE_PLANNER_RATIOS holds the windows")
+    paths, numbers = {}, {"cache_ratio": ratio, "distinct_ids_a_window": distinct}
+    for run, (lfu, sparse, entry) in DEVICE_PLANNER_RUNS.items():
+        tag = f"[{run}]"
+        cfg = device_planner_config(ratio, lfu, sparse)
+        freq = SyntheticLongTailDataset(sizes, B, steps, skew=0.5, seed=7).id_freq_map()
+        t0 = time.perf_counter()
+        tr = CachedDLRMTrainer(cfg, id_freq_map=freq, device=device)
+        emb = tr.embed
+        torch.cuda.synchronize()
+        log(f"{tag} trainer built in {time.perf_counter() - t0:.1f} s: capacity {emb.capacity}, "
+            f"{emb.evict_strategy.name} eviction, directory on the card "
+            f"({sum(t.nbytes for t in emb.state) / 2**20:.1f} MiB)")
+        state0 = tuple(t.cpu() for t in emb.state)
+        freq_cpu = emb.dataset_freq.cpu() if emb.dataset_freq is not None else None
+        windows, update_plans, branches = [], [], set()
+        begin_prepare, step_plan, branch_of = emb.begin_prepare, tr._step_plan, tr.branch_of
+
+        def begin_and_keep(ids, out_shape=None):
+            pw = begin_prepare(ids, out_shape)
+            windows.append((np.asarray(ids), pw, tuple(pinned_copy(t) for t in emb.state)))
+            return pw
+
+        def step_plan_and_keep(win, p):
+            plan = step_plan(win, p)
+            update_plans.append((pinned_copy(win.step_ids(p)), *(pinned_copy(t) for t in plan)))
+            return plan
+
+        def branch_and_keep(win):
+            branch = branch_of(win)
+            branches.add(branch)
+            return branch
+
+        emb.begin_prepare, tr._step_plan, tr.branch_of = begin_and_keep, step_plan_and_keep, branch_and_keep
+        train = dispatch.get_dataloader("custom", "train", B, table_sizes=sizes, num_batches=steps,
+                                        prefetch_depth=2, skew=0.5, seed=7)
+        timer = Timer(device=device)
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_launch_counts()
+        timer.start()
+        rep = tr.train(train, num_iters=steps)
+        train_s = timer.stop()
+        emb.begin_prepare, tr._step_plan, tr.branch_of = begin_prepare, step_plan, branch_of
+        timer.start()
+        ev = tr.evaluate(dispatch.get_dataloader("custom", "val", B, table_sizes=sizes, num_batches=P,
+                                                 prefetch_depth=2, skew=0.5, seed=7))
+        eval_s = timer.stop()
+        paths[run] = launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        losses = np.asarray(rep.losses)
+        if losses.shape != (steps,) or not np.isfinite(losses).all():
+            raise AssertionError(f"{tag} losses not finite: {losses}")
+        if not 0.0 < rep.hit_rate <= 1.0 or ev["count"] != P * B or not np.isfinite(ev["auroc"]):
+            raise AssertionError(f"{tag} hit rate {rep.hit_rate}, eval {ev}")
+        if branches != {"sparse" if sparse else "dense"}:
+            raise AssertionError(f"{tag} update branches {branches}")
+        check_update_launches(tag, launches, steps, entry)
+        if launches["gather_rows"] != steps + P:
+            raise AssertionError(f"{tag} kernel launches {launches}")
+        # the plans on the card against the same function on the CPU
+        t1 = time.perf_counter()
+        st = CacheState(*state0)
+        if len(windows) != DEVICE_PLANNER_WINDOWS:
+            raise AssertionError(f"{tag} {len(windows)} windows planned, expected {DEVICE_PLANNER_WINDOWS}")
+        for w, (ids, pw, new) in enumerate(windows):
+            st, plan = plan_ids(st, torch.from_numpy(ids.astype(np.int32)), freq_cpu, unique_budget=pw.budget,
+                                strategy=emb.evict_strategy)
+            for what, a, b in (("slot_to_row", st[0], new[0]), ("row_to_slot", st[1], new[1]),
+                               ("slot_freq", st[2], new[2]), ("indices", plan.indices, pw.host_indices),
+                               ("scalars", plan.scalars, pw.host_scalars)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{tag} window {w}: plan_ids {what} on the card differs from the CPU's")
+        F = len(sizes)
+        for s, (ids, perm, grouped, bins) in enumerate(update_plans):
+            want = sort_plan_np(ids.numpy().reshape(F, -1).T, emb.device_rows)
+            if not all(np.array_equal(a.numpy(), b) for a, b in zip((perm, grouped, bins), want)):
+                raise AssertionError(f"{tag} step {s}: the update plan made on the card differs from sort_plan_np")
+        if len(update_plans) != steps:
+            raise AssertionError(f"{tag} {len(update_plans)} update plans for {steps} steps")
+        gate_s = time.perf_counter() - t1
+        stream = update_plans[0][0].to(device).reshape(F, -1).t().reshape(-1)
+        upd_ms = device_median_ms(lambda: sort_plan(stream, emb.device_rows))
+        check_flush(tr, tag)
+        rb = rep.window_readback
+        res = {
+            "capacity": emb.capacity, "host_s_window": rep.window_host_s, "device_s_window": rep.window_device_s,
+            "plan_ids_device_ms_window": [1e3 * x for x in rep.window_plan_device_s],
+            "readback_device_ms_window": [1e3 * r["device_s"] for r in rb if r["device_s"] is not None],
+            "readback_wait_ms_window": [1e3 * r["wait_s"] for r in rb], "readback_bytes": rb[0]["bytes"],
+            "update_plan_device_ms_step": upd_ms, "timer_train_s": train_s, "timer_eval_s": eval_s,
+            "examples_per_s": rep.examples_per_s, "timer_examples_per_s": steps * B / train_s,
+            "peak_gib": peak / 2**30, "hit_rate": rep.hit_rate, "auroc": ev["auroc"],
+            "writebacks": sum(emb.stats.num_write_back_history), "gate_cpu_s": gate_s,
+        }
+        numbers[run] = res
+        log(f"{tag} loss per window {[float(x) for x in losses.reshape(-1, P).mean(axis=1)]}; hit rate "
+            f"{rep.hit_rate:.4f}; {res['writebacks']} writebacks; eval auroc {ev['auroc']:.4f}; kernel launches "
+            f"{launches}")
+        log(f"{tag} host s/window {[round(x, 4) for x in rep.window_host_s]}; device s/window "
+            f"{[round(x, 4) for x in rep.window_device_s]}; plan_ids device ms/window "
+            f"{[round(x, 3) for x in res['plan_ids_device_ms_window']]}; readback {res['readback_bytes']} bytes, "
+            f"device ms {[round(x, 3) for x in res['readback_device_ms_window']]}, host wait ms "
+            f"{[round(x, 3) for x in res['readback_wait_ms_window']]}; update plan {upd_ms:.3f} device ms/step; "
+            f"{rep.examples_per_s:.0f} examples/s ({train_s:.2f} s by Timer for {steps} steps); peak device "
+            f"memory {peak / 2**30:.2f} GiB")
+        log(f"{tag} every window's plan_ids equal to the CPU's and every step's update plan equal to "
+            f"sort_plan_np ({gate_s:.1f} s of CPU checks)")
+        tr.close()
+        del tr, emb, windows, update_plans
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "bfloat16" in SLICE_NUMBERS:
+        log(f"[device_planner] beside the bf16 slice's host planner in this call: {json.dumps(SLICE_NUMBERS)}")
+        numbers["host_planner_bf16_slice"] = SLICE_NUMBERS["bfloat16"]
+    numbers["evicted_under_ties"] = check_plan_ties(device)
+    check_device_planner_errors(device)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"[device_planner] phase done in {numbers['seconds']:.1f} s")
+    return paths, numbers
+
+
 def check_quantized_admits(device) -> dict:
     """int8 and int4 admit payloads on the card, at phase 2's small width
     with a 2.5% cache (evictions and re-admissions): in every window with
@@ -2522,7 +2819,9 @@ ADAGRAD_FLAGS = ["--embedding_optimizer", "rowwise_adagrad", "--learning_rate", 
 CLI_RUNS = {"cli cached": ["--use_cache"], "cli resident": [],
             "cli deepfm": ["--use_cache", "--model", "deepfm", "--learning_rate", "0.1"],
             "cli adagrad": ["--use_cache", *ADAGRAD_FLAGS], "cli adagrad resident": ADAGRAD_FLAGS,
-            "cli int8": ["--use_cache", "--transfer_dtype", "int8"], "cli int4": ["--use_cache", "--transfer_dtype", "int4"]}
+            "cli int8": ["--use_cache", "--transfer_dtype", "int8"],
+            "cli int4": ["--use_cache", "--transfer_dtype", "int4"],
+            "cli device": ["--use_cache", "--planner", "device"]}
 CHECKPOINT_TABLE_CAP = 20_000  # the checkpoint round trip's tables: Kaggle's, capped at this many rows
 CLI_TAIL = 0.2  # P(rank >= r) ~ r^-CLI_TAIL: 426,827 distinct training ids, above the 1% cache's 337,625
 
@@ -2595,6 +2894,10 @@ def run_cli(name: str, data_dir, extra) -> dict:
         f"{[round(x, 4) for x in stats['window_device_s']]}; kernel launches {stats['kernel_launches']}")
     log(f"[{name}] fetched admits {stats['swap_in_bytes']} f32 bytes; id wire {stats['wire_formats']}; first "
         f"window bytes {stats['window_bytes']}")
+    if stats["window_plan_device_s"]:
+        log(f"[{name}] plan_ids device ms/window {[round(1e3 * x, 3) for x in stats['window_plan_device_s']]}; "
+            f"readback {stats['window_readback'][0]['bytes']} bytes, host wait ms "
+            f"{[round(1e3 * r['wait_s'], 3) for r in stats['window_readback']]}")
     losses = stats["losses"]
     if len(losses) != CLI_TRAIN_BATCHES or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[{name}] losses not finite: {losses}")
@@ -3043,6 +3346,9 @@ def run_phases(procs: dict) -> int:
     quantized_admits = check_quantized_admits(device)
     gc.collect()
     torch.cuda.empty_cache()
+    launches_dp, device_planner = phase_device_planner(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches_1tb, k5 = phase_terabyte(device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3061,7 +3367,7 @@ def run_phases(procs: dict) -> int:
     kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
 
     paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "wire": launches_wire,
-             "1tb sparse": launches_1tb,
+             **launches_dp, "1tb sparse": launches_1tb,
              "ragged": launches_ragged, **cli["launches"]}
     for k in kernels:
         name = k["name"]
@@ -3072,7 +3378,8 @@ def run_phases(procs: dict) -> int:
         if len(entries) > 1:
             k["launches_by_entry"] = {e: {path: counts[e] for path, counts in paths.items()} for e in entries}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits}))
+    print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits,
+                      "device_planner": device_planner}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """The port's command line (``train/dlrm_main.py``) against the JAX package's
 on the same Criteo-format npy files, on the CPU: the same flags and defaults,
 the same config, the same AUROC and losses (row-wise Adagrad, the sparse
-gradient, fp8 rows with rounding off and float8_e5m2 rows included), a
-refusal naming its ROADMAP item for every flag outside the port, and the note
+gradient, fp8 rows with rounding off, float8_e5m2 rows and the device
+planner included), a refusal naming its ROADMAP item for every flag outside
+the port (and JAX's own refusal of ``--planner device`` with row-wise
+Adagrad), and the note
 on stderr where several GPUs are visible and ``--world_size`` is unset."""
 
 import dataclasses
@@ -103,7 +105,9 @@ def _as_e5m2(build_config):
     ([*CACHED, "--use_sparse_embed_grad"], "exact order"),
     ([*CACHED, "--cache_dtype", "float8_e4m3fn", "--stochastic_rounding", "off"], "fp8"),
     ([*CACHED, "--cache_dtype", "float8_e5m2"], "fp8"),
-], ids=["f32", "resident", "deepfm", "bf16", "adagrad", "use_sparse_embed_grad", "e4m3_rounding_off", "e5m2"])
+    ([*CACHED, "--cache_dtype", "float32", "--planner", "device"], "f32"),
+], ids=["f32", "resident", "deepfm", "bf16", "adagrad", "use_sparse_embed_grad", "e4m3_rounding_off", "e5m2",
+        "planner_device"])
 def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
     """Both mains on the same files, one epoch with val/test: f32 rows give
     AUROC within 1e-4 and the losses within rtol 1e-5; the CLI's default
@@ -140,11 +144,20 @@ def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
 
 @pytest.mark.parametrize("flag,item", [
     (["--use_tablewise"], 9), (["--use_rowwise"], 9), (["--multihost"], 9), (["--world_size", "2"], 9),
-    (["--planner", "device"], 11),
 ])
 def test_refused_flags_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
         port_main.main(["--platform", "cpu", *flag])
+
+
+def test_device_planner_refusals_match_jax(tmp_path):
+    """--planner device with row-wise Adagrad: both mains raise the bag's
+    ValueError (the accumulators tier with the host planner's staging)."""
+    argv = small_argv(write_dataset(tmp_path / "criteo_kaggle"), *CACHED, "--planner", "device",
+                      "--embedding_optimizer", "rowwise_adagrad")
+    for main in (jax_main.main, port_main.main):
+        with pytest.raises(ValueError, match="requires the host planner"):
+            main(argv)
 
 
 @pytest.mark.parametrize("world_size,cards,noted", [

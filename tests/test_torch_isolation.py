@@ -1,5 +1,6 @@
-"""The port stands alone: importing all of it (the data layer, the resident
-baseline, the utilities, DeepFM and the command line included) loads neither
+"""The port stands alone: importing all of it (the data layer with every
+source, the device planner, the resident baseline, the utilities, DeepFM and
+the command line included) loads neither
 jax nor any module of the JAX package; its entry points refuse to run
 silently on the CPU; and its kernel wrappers take their plain versions only
 for CPU tensors."""
@@ -33,10 +34,11 @@ for n in names:
 bad = [k for k in sys.modules
        if k in ("jax", "cachedembedding_tpu") or k.startswith(("jax.", "cachedembedding_tpu."))]
 print(len(names), bad)
-assert len(names) >= 26, names
+assert len(names) >= 40, names
 assert "cachedembedding_tpu_torch.ops.rounding" in names, names
 new = ["data.npy_dataset", "data.feature_counter", "data.criteo", "data.avazu", "baselines.full_resident",
-       "utils.misc", "utils.checkpoint", "models.deepfm", "train.dlrm_main"]
+       "utils.misc", "utils.checkpoint", "models.deepfm", "train.dlrm_main", "ops.unique", "data.random_rec",
+       "data.transform", "data.prefetch", "data.parquet", "data.dispatch", "utils.timer"]
 missing = [m for m in new if "cachedembedding_tpu_torch." + m not in names]
 assert not missing, missing
 assert not bad, bad

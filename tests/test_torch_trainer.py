@@ -182,15 +182,14 @@ def test_refuses_outside_the_slice():
                 dense_arch_layer_sizes=(16,), over_arch_layer_sizes=(8, 1), batch_size=8)
     for kw, cache_kw, item in [
         ({"mesh_shape": (2,)}, {}, 9),
-        ({}, {"planner": "device"}, 11),
     ]:
         cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, **cache_kw}))
         with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
             port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu")
     # DeepFM, the JAX CLI's default ship_sort_perm=False, row-wise Adagrad,
     # the sparse gradient, fp8 rows with rounding off, e5m2 rows, the gather
-    # interaction, int8/int4 dense inputs and transfers and every id wire
-    # are in the port
+    # interaction, int8/int4 dense inputs and transfers, every id wire and
+    # the device planner are in the port
     for kw, cache_kw in [({"model": "deepfm"}, {}), ({}, {"ship_sort_perm": False}),
                          ({"interaction_impl": "gather"}, {}),
                          ({"embedding_optimizer": "rowwise_adagrad"}, {}), ({"use_sparse_embed_grad": True}, {}),
@@ -198,7 +197,7 @@ def test_refuses_outside_the_slice():
                          ({}, {"cache_dtype": "float8_e5m2"}),
                          ({"dense_input_dtype": "int8"}, {}), ({"dense_input_dtype": "int4"}, {}),
                          ({}, {"transfer_dtype": "int8"}), ({}, {"transfer_dtype": "int4"}),
-                         ({}, {"id_wire": "ranktier"}), ({}, {"id_wire": "plain"})]:
+                         ({}, {"id_wire": "ranktier"}), ({}, {"id_wire": "plain"}), ({}, {"planner": "device"})]:
         cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, "cache_ratio": 0.5, **cache_kw}))
         port_trainer_mod.CachedDLRMTrainer(cfg, device="cpu").close()
     # fp8 rows with rounding on ("auto" or "on") are in the slice
