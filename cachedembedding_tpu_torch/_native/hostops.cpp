@@ -196,12 +196,14 @@ inline uint32_t mix32(uint32_t x) {
 // package's generators compute (g++ -march=native and XLA both contract it);
 // std::fma makes it independent of the compiler's contraction choice, and
 // ops/synth_rows.py computes the same single rounding on the device.
+// Columns [col0, col0 + dim) of the row: bit-equal to slicing the full row
+// (a column-sharded table keeps only its ranks' columns).
 inline void gen_row_canonical(int64_t row_id, uint32_t seed, float bound,
-                              float* out, int64_t dim) {
+                              float* out, int64_t dim, int64_t col0 = 0) {
   const uint32_t h0 = mix32(static_cast<uint32_t>(row_id) * 0x9e3779b1U + seed);
   const float scale = 2.0f * bound * (1.0f / 16777216.0f);
   for (int64_t j = 0; j < dim; ++j) {
-    const uint32_t h = mix32(h0 ^ (static_cast<uint32_t>(j) * 0x85ebca77U + 1U));
+    const uint32_t h = mix32(h0 ^ (static_cast<uint32_t>(col0 + j) * 0x85ebca77U + 1U));
     out[j] = std::fma(static_cast<float>(h >> 8), scale, -bound);
   }
 }
@@ -211,12 +213,12 @@ inline void gen_row_canonical(int64_t row_id, uint32_t seed, float bound,
 extern "C" {
 
 // Initialize rows [start_row, start_row + n) of a table slab with the
-// canonical generator (multithreaded).
+// canonical generator (multithreaded): columns [col0, col0 + dim) of each row.
 void fill_rows_canonical(float* buf, int64_t start_row, int64_t n, int64_t dim,
-                         uint32_t seed, float bound) {
+                         uint32_t seed, float bound, int64_t col0) {
   parallel_for(n, 1 << 14, [=](int64_t lo, int64_t hi) {
     for (int64_t i = lo; i < hi; ++i) {
-      gen_row_canonical(start_row + i, seed, bound, buf + i * dim, dim);
+      gen_row_canonical(start_row + i, seed, bound, buf + i * dim, dim, col0);
     }
   });
 }
@@ -234,13 +236,14 @@ namespace {
 
 struct Overlay {
   int64_t dim;
+  int64_t col0;         // first column of the rows it holds and generates
   uint64_t seed;
   uint64_t mask;        // slots - 1 (power of two)
   int64_t used;
   std::vector<int64_t> keys;   // -1 = empty
   std::vector<float> rows;     // slots * dim
 
-  explicit Overlay(int64_t d, uint64_t s, uint64_t slots) : dim(d), seed(s) {
+  explicit Overlay(int64_t d, int64_t c0, uint64_t s, uint64_t slots) : dim(d), col0(c0), seed(s) {
     uint64_t cap = 64;
     while (cap < slots) cap <<= 1;
     mask = cap - 1;
@@ -267,7 +270,7 @@ inline uint64_t probe(const Overlay& t, int64_t key) {
 }
 
 void overlay_grow(Overlay& t) {
-  Overlay bigger(t.dim, t.seed, (t.mask + 1) * 2);
+  Overlay bigger(t.dim, t.col0, t.seed, (t.mask + 1) * 2);
   for (uint64_t s = 0; s <= t.mask; ++s) {
     if (t.keys[s] == -1) continue;
     uint64_t ns = probe(bigger, t.keys[s]);
@@ -282,8 +285,8 @@ void overlay_grow(Overlay& t) {
 
 extern "C" {
 
-void* overlay_create(int64_t dim, uint64_t seed, int64_t capacity_hint) {
-  return new Overlay(dim, seed, static_cast<uint64_t>(capacity_hint * 2));
+void* overlay_create(int64_t dim, int64_t col0, uint64_t seed, int64_t capacity_hint) {
+  return new Overlay(dim, col0, seed, static_cast<uint64_t>(capacity_hint * 2));
 }
 
 void overlay_free(void* h) { delete static_cast<Overlay*>(h); }
@@ -309,7 +312,7 @@ void overlay_gather_f32(void* h, const int64_t* ids, const float* bounds,
       std::memcpy(out + i * t.dim, &t.rows[s * t.dim], t.dim * sizeof(float));
     } else {
       gen_row_canonical(ids[i], static_cast<uint32_t>(t.seed), bounds[i],
-                        out + i * t.dim, t.dim);
+                        out + i * t.dim, t.dim, t.col0);
     }
   }
 }

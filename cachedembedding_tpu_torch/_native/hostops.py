@@ -29,8 +29,8 @@ _PROTOTYPES = [
     ("scatter_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
     ("sort_plan_i32", [_P, _I64, _I64, _I64, _P, _P, _P], None),
     ("bincount_i64", [_P, _P, _I64, _I64], None),
-    ("fill_rows_canonical", [_P, _I64, _I64, _I64, ctypes.c_uint32, ctypes.c_float], None),
-    ("overlay_create", [_I64, ctypes.c_uint64, _I64], _P),
+    ("fill_rows_canonical", [_P, _I64, _I64, _I64, ctypes.c_uint32, ctypes.c_float, _I64], None),
+    ("overlay_create", [_I64, _I64, ctypes.c_uint64, _I64], _P),
     ("overlay_free", [_P], None),
     ("overlay_used", [_P], _I64),
     ("overlay_keys", [_P, _P], None),
@@ -103,14 +103,16 @@ def scatter_rows(table: np.ndarray, idx: np.ndarray, values: np.ndarray) -> None
     )
 
 
-def fill_rows_canonical(buf: np.ndarray, start_row: int, seed: int, bound: float) -> None:
+def fill_rows_canonical(buf: np.ndarray, start_row: int, seed: int, bound: float, col_start: int = 0) -> None:
     """Init rows [start_row, start_row+len(buf)) of a float32 table slab with
-    the canonical generator (device-reproducible, see ops/synth_rows.py)."""
+    the canonical generator (device-reproducible, see ops/synth_rows.py):
+    columns [col_start, col_start + buf.shape[1]) of each row, bit-equal to
+    slicing the full row."""
     _f32_c(buf, "buf")
     n, dim = buf.shape
     load_lib().fill_rows_canonical(
         buf.ctypes.data, start_row, n, dim,
-        ctypes.c_uint32(seed & 0xFFFFFFFF), ctypes.c_float(bound),
+        ctypes.c_uint32(seed & 0xFFFFFFFF), ctypes.c_float(bound), int(col_start),
     )
 
 

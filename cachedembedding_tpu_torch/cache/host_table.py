@@ -120,7 +120,7 @@ class OverlayAccumStore:
 
     def __init__(self, initial: float = 0.0, capacity_hint: int = 1 << 16):
         self._lib = hostops.load_lib()
-        self._h = self._lib.overlay_create(1, 0, capacity_hint)
+        self._h = self._lib.overlay_create(1, 0, 0, capacity_hint)
         self.initial = float(initial)
 
     def written_mask(self, idx: np.ndarray) -> np.ndarray:
@@ -164,12 +164,16 @@ class OverlayAccumStore:
 
 
 class VirtualHostTable:
+    """``dim`` columns from ``col_start`` of each row (a column-sharded
+    table keeps its rank's columns only)."""
+
     def __init__(
         self,
         table_sizes: Sequence[int],
         dim: int,
         seed: int = 0,
         capacity_hint: int = 1 << 20,
+        col_start: int = 0,
     ):
         self.table_sizes = np.asarray(table_sizes, np.int64)
         self.table_offsets = np.concatenate([[0], np.cumsum(self.table_sizes)])
@@ -178,7 +182,7 @@ class VirtualHostTable:
         self.seed = seed
         self._bounds = table_bounds(table_sizes)
         self._lib = hostops.load_lib()
-        self._h = self._lib.overlay_create(dim, seed, capacity_hint)
+        self._h = self._lib.overlay_create(dim, int(col_start), seed, capacity_hint)
 
     supports_device_init = True
 

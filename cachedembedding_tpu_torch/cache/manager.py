@@ -55,7 +55,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,22 +94,23 @@ PLANNERS = ("auto", "host", "device")
 TRANSFER_DTYPES = ("float32", "bfloat16", "int8", "int4")
 
 
-def _quant_rows_host(rows: np.ndarray):
+def _quant_rows_host(rows: np.ndarray, absmax: Optional[np.ndarray] = None):
     """Per-row symmetric int8 quantization of host rows for the wire:
-    (q (n, D) int8, scales (n,) f32)."""
+    (q (n, D) int8, scales (n,) f32). ``absmax``: each row's largest |x|
+    where ``rows`` holds only some of its columns."""
     rows = np.asarray(rows, np.float32)
-    absmax = np.abs(rows).max(axis=1)
+    absmax = np.abs(rows).max(axis=1, initial=0.0) if absmax is None else absmax
     scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
     q = np.clip(np.round(rows / scale[:, None]), -127, 127).astype(np.int8)
     return q, scale
 
 
-def _quant_rows_host4(rows: np.ndarray):
+def _quant_rows_host4(rows: np.ndarray, absmax: Optional[np.ndarray] = None):
     """Per-row symmetric 4-bit quantization, nibble-packed in element pairs
     (element 2k in the low nibble), biased by 8: (packed (n, D/2) uint8,
-    scales (n,) f32)."""
+    scales (n,) f32). ``absmax`` as for ``_quant_rows_host``."""
     rows = np.asarray(rows, np.float32)
-    absmax = np.abs(rows).max(axis=1)
+    absmax = np.abs(rows).max(axis=1, initial=0.0) if absmax is None else absmax
     scale = np.where(absmax > 0, absmax / 7.0, 1.0).astype(np.float32)
     q = (np.clip(np.round(rows / scale[:, None]), -7, 7) + 8).astype(np.uint8)
     return (q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8), scale
@@ -197,14 +198,15 @@ def host_to_device(arr, device: torch.device) -> torch.Tensor:
     return src.to(device, non_blocking=True)
 
 
-def default_table_init(table_sizes: Sequence[int], seed: int):
+def default_table_init(table_sizes: Sequence[int], seed: int, col_start: int = 0):
     """Per-table U(-1/sqrt(n), 1/sqrt(n)) init by the canonical per-(row, col,
-    seed) hash, so dense tables, virtual tables and the device agree."""
+    seed) hash, so dense tables, virtual tables and the device agree; a slab
+    narrower than the rows holds their columns from ``col_start``."""
 
     def init(host_weight: np.ndarray) -> None:
         off = 0
         for n in table_sizes:
-            hostops.fill_rows_canonical(host_weight[off : off + n], off, seed, float(n) ** -0.5)
+            hostops.fill_rows_canonical(host_weight[off : off + n], off, seed, float(n) ** -0.5, col_start)
             off += n
 
     return init
@@ -226,7 +228,9 @@ class CachedEmbeddingBag:
     on the host, "device" on the device (see the module's notes), with
     ``unique_budget`` (the plan's unique lanes, default a window's id count;
     at most the capacity) and ``approx_evict`` (JAX's approximate victim
-    selection; the port selects exactly).
+    selection; the port selects exactly). ``columns`` = (start, end): the
+    columns of every row that this bag stores, on the device and in its host
+    table (a column-sharded bag's, ``parallel/column.py``; default all).
     Runs on ``device`` (default: the current CUDA device; with no GPU and no
     explicit ``device="cpu"`` this raises)."""
 
@@ -256,8 +260,13 @@ class CachedEmbeddingBag:
         planner: str = "auto",
         unique_budget: Optional[int] = None,
         approx_evict: bool = False,
+        columns: Optional[Tuple[int, int]] = None,
     ):
         self.device = resolve_device(device)
+        self.col_start, col_end = columns if columns is not None else (0, int(embedding_dim))
+        if not 0 <= self.col_start < col_end <= embedding_dim:
+            raise ValueError(f"columns {columns} outside [0, {embedding_dim})")
+        self.dim_stored = col_end - self.col_start  # the columns this bag stores
         if planner not in PLANNERS:
             raise ValueError(f"unknown planner {planner!r}")
         self.planner = "host" if planner == "auto" else planner
@@ -267,8 +276,8 @@ class CachedEmbeddingBag:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if transfer_dtype not in TRANSFER_DTYPES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
-        if transfer_dtype == "int4" and embedding_dim % 2:
-            raise ValueError("int4 transfers require an even embedding_dim")
+        if transfer_dtype == "int4" and self.dim_stored % 2:
+            raise ValueError("int4 transfers require an even embedding_dim (and an even count of stored columns)")
         if device_init not in ("auto", "on", "off"):
             raise ValueError(f"unknown device_init {device_init!r}")
         dtype = CACHE_DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
@@ -318,16 +327,16 @@ class CachedEmbeddingBag:
         t0 = time.perf_counter()
         if weight_init == "virtual":
             self.host_table = VirtualHostTable(
-                self.table_sizes, self.embedding_dim, seed=seed,
-                capacity_hint=max(4 * self.capacity, 1 << 16),
+                self.table_sizes, self.dim_stored, seed=seed,
+                capacity_hint=max(4 * self.capacity, 1 << 16), col_start=self.col_start,
             )
         elif weight_init == "uniform":
-            arr = np.empty((self.num_embeddings, self.embedding_dim), np.float32)
-            default_table_init(self.table_sizes, seed)(arr)
+            arr = np.empty((self.num_embeddings, self.dim_stored), np.float32)
+            default_table_init(self.table_sizes, seed, self.col_start)(arr)
             self.host_table = DenseHostTable(arr, procedural_seed=seed, table_sizes=self.table_sizes)
         elif weight_init == "zeros":
             self.host_table = DenseHostTable(
-                np.zeros((self.num_embeddings, self.embedding_dim), np.float32)
+                np.zeros((self.num_embeddings, self.dim_stored), np.float32)
             )
         else:
             raise ValueError(f"unknown weight_init {weight_init!r}")
@@ -341,7 +350,7 @@ class CachedEmbeddingBag:
             self.state = init_cache_state(self.num_embeddings, self.capacity, self.device)
         self.dataset_freq: Optional[torch.Tensor] = None
         self.cache_weight = torch.zeros(
-            (self.capacity + self.resident_total, self.embedding_dim), dtype=dtype, device=self.device
+            (self.capacity + self.resident_total, self.dim_stored), dtype=dtype, device=self.device
         )
         # --- row-wise Adagrad state: tiers with the cache ---
         if optimizer == "rowwise_adagrad" and self._dir is None:
@@ -488,7 +497,7 @@ class CachedEmbeddingBag:
                 self.to_device(slots[fresh].astype(np.int64)),
                 self.to_device(top[fresh]),
                 self.to_device(self.host_table.row_bounds(top[fresh]).astype(np.float32)),
-                self._seed,
+                self._seed, col_start=self.col_start,
             )
             self.stats.synth_rows += n_fresh
         if n_fresh < k:
@@ -515,7 +524,7 @@ class CachedEmbeddingBag:
                 self.to_device(addrs[fresh]),
                 self.to_device(rows[fresh]),
                 self.to_device(self.host_table.row_bounds(rows[fresh]).astype(np.float32)),
-                self._seed,
+                self._seed, col_start=self.col_start,
             )
         if written.any():
             vals = self.host_table.gather(rows[written])
@@ -529,10 +538,16 @@ class CachedEmbeddingBag:
         if self.cache_accum is not None:
             self.cache_accum.index_copy_(0, addrs_dev, self.to_device(self.host_accum.gather(rows)))
 
-    def _check_range(self, ids_np: np.ndarray) -> None:
+    def _check_range(self, ids_np: np.ndarray, device_planner: bool = False) -> None:
+        """ValueError on an id outside [0, num_embeddings), in the JAX
+        package's words for each planner."""
         if ids_np.size:
             lo, hi = int(ids_np.min()), int(ids_np.max())
             if lo < 0 or hi >= self.num_embeddings:
+                if device_planner:
+                    raise ValueError(
+                        f"id out of range: {lo if lo < 0 else hi} not in [0, {self.num_embeddings}) \u2014 "
+                        "check table-size/hash configuration")
                 raise ValueError(
                     f"embedding ids out of range [0, {self.num_embeddings}): min={lo} max={hi}"
                 )
@@ -600,7 +615,7 @@ class CachedEmbeddingBag:
         self.stats.num_hits_history.append(hp.n_hit_unique)
         n_miss = int(hp.admit_rows.shape[0])
         self.stats.num_miss_history.append(n_miss)
-        D = self.embedding_dim
+        D = self.dim_stored
         empty_i = np.zeros((0,), np.int32)
         empty_f = np.zeros((0,), np.float32)
         if n_miss == 0:
@@ -637,7 +652,7 @@ class CachedEmbeddingBag:
             vals = np.zeros((0, D), np.float32)
         payload, scales = self._payload(vals)
         if w_rows.shape[0]:
-            self.stats.swap_in_bytes += w_rows.shape[0] * D * 4
+            self.stats.swap_in_bytes += w_rows.shape[0] * self.embedding_dim * 4
             self.stats.swap_in_time += time.perf_counter() - t0
         return WindowStaging(
             slot_ids=slot_full.reshape(out_shape),
@@ -648,14 +663,19 @@ class CachedEmbeddingBag:
             admit_slots=hp.admit_slots, evict_rows=hp.evict_rows,
         )
 
+    def _row_absmax(self, vals: np.ndarray) -> Optional[np.ndarray]:
+        """Each fetched row's largest |x| over all its columns, where this bag
+        stores only some of them (``parallel/column.py``); None otherwise."""
+        return None
+
     def _payload(self, vals: np.ndarray):
         """Fetched f32 host rows in the transfer mode: (payload tensor, f32
         per-row scales, empty unless int8/int4)."""
         if self.transfer_mode == "int8":
-            q, scales = _quant_rows_host(vals)
+            q, scales = _quant_rows_host(vals, self._row_absmax(vals))
             return torch.from_numpy(q), scales
         if self.transfer_mode == "int4":
-            q, scales = _quant_rows_host4(vals)
+            q, scales = _quant_rows_host4(vals, self._row_absmax(vals))
             return torch.from_numpy(q), scales
         t = torch.from_numpy(np.ascontiguousarray(vals, np.float32))
         return (t.to(torch.bfloat16) if self.transfer_mode == "bfloat16" else t), np.zeros((0,), np.float32)
@@ -684,7 +704,7 @@ class CachedEmbeddingBag:
         payloads, the f32 accumulators under Adagrad)."""
         if synth is not None:
             slots, rows, bounds = synth
-            scatter_synth_admits(self.cache_weight, slots, rows, bounds, self._seed)
+            scatter_synth_admits(self.cache_weight, slots, rows, bounds, self._seed, col_start=self.col_start)
             if self.cache_accum is not None:
                 self.cache_accum.index_fill_(0, slots, self.adagrad_initial)
         if fetch is not None:
@@ -790,10 +810,10 @@ class CachedEmbeddingBag:
         if isinstance(ids, torch.Tensor) and ids.device.type != "cpu":
             ids_dev = ids.reshape(-1).to(device=self.device, dtype=torch.int32)
             if ids_dev.numel():
-                self._check_range(np.asarray([int(x) for x in torch.aminmax(ids_dev)]))
+                self._check_range(np.asarray([int(x) for x in torch.aminmax(ids_dev)]), device_planner=True)
         else:
             ids_np = np.asarray(ids).reshape(-1)
-            self._check_range(ids_np)
+            self._check_range(ids_np, device_planner=True)
             ids_dev = self.to_device(ids_np.astype(np.int32))
         budget = self.unique_budget or ids_dev.shape[0]
         events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(3)) if self._on_cuda else None

@@ -44,12 +44,16 @@ def synth_rows(
     bounds: torch.Tensor,  # (n,) float32 per-row init bound (1/sqrt(table_size))
     seed: int,
     dim: int,
+    col_start: int = 0,
 ) -> torch.Tensor:
-    """(n, dim) float32 == the canonical host generator's rows."""
+    """(n, dim) float32 == the canonical host generator's rows: columns
+    [col_start, col_start + dim) of each row, bit-equal to slicing the full
+    row (a column-sharded cache synthesizes only its rank's columns)."""
     dev = rows.device
     r = rows.to(torch.int64) & _M32
     h0 = _mix32((r * 0x9E3779B1 + (seed & _M32)) & _M32)
-    j = (torch.arange(dim, dtype=torch.int64, device=dev) * 0x85EBCA77 + 1) & _M32
+    cols = torch.arange(col_start, col_start + dim, dtype=torch.int64, device=dev)
+    j = (cols * 0x85EBCA77 + 1) & _M32
     h = _mix32(h0[:, None] ^ j[None, :])
     b = bounds.to(torch.float32)
     scale = (2.0 * b) * (1.0 / 16777216.0)  # exact: powers of two
@@ -64,12 +68,14 @@ def scatter_synth_admits(
     bounds: torch.Tensor,  # (n,) float32
     seed: int,
     chunk: int = 1 << 17,
+    col_start: int = 0,
 ) -> None:
     """Admit never-trained rows: generate on the device, land them in their
     cache slots in place, cast to the cache dtype as ``jnp.astype`` casts.
-    Chunked to bound the (n, D) int64 hash transients."""
+    The cache's columns start at ``col_start`` of the full row. Chunked to
+    bound the (n, D) int64 hash transients."""
     D = cache_weight.shape[1]
     for s in range(0, rows.shape[0], chunk):
         e = min(s + chunk, rows.shape[0])
-        vals = synth_rows(rows[s:e], bounds[s:e], seed, D)
+        vals = synth_rows(rows[s:e], bounds[s:e], seed, D, col_start)
         index_copy_storage_(cache_weight, slots[s:e], vals)

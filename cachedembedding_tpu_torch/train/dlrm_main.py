@@ -1,21 +1,25 @@
-"""Training command line for one device (counterpart of
+"""Training command line (counterpart of
 ``cachedembedding_tpu/train/dlrm_main.py``): every flag of the JAX CLI, with
 the same defaults.
 
     python -m cachedembedding_tpu_torch.train.dlrm_main --dataset_dir /data/criteo_kaggle \\
         --kaggle --use_cache --use_freq --cache_ratio 0.01 --warmup_ratio 0.7 --buffer_size 50000
 
-It runs on the current CUDA device; ``--platform cpu`` runs it on the CPU
-(without it and with no GPU it raises). With no ``--dataset_dir`` it trains on
+It runs on the CUDA devices; ``--platform cpu`` runs it on the CPU (without
+it and with no GPU it raises). ``--world_size`` ranks train one column-wise
+mesh (``parallel/column.py``, ``train/mesh_window.py``), as the JAX CLI
+does with more than one device: unset, it means every visible CUDA device
+(1 under ``--platform cpu``); more than the visible cards raises. With more
+than one rank the command spawns them itself (one process a rank, NCCL on
+the card, gloo on the CPU, a file rendezvous), unless a launcher such as
+``torchrun`` started it; only rank 0 prints. With no ``--dataset_dir`` it trains on
 procedural long-tail batches. Without ``--use_cache`` the whole table lives on
 the device (``baselines/full_resident.py``, f32 rows), with its row-wise
 Adagrad accumulators under ``--embedding_optimizer rowwise_adagrad`` (the
 JAX CLI builds its resident table without them, so there it trains with
 SGD). ``--cache_dtype`` also takes ``float8_e5m2``, which the JAX trainer
-stores but the JAX CLI does not offer. Flags that name a multi-device layout,
-and options the port does not run yet, raise ``NotImplementedError`` naming
-their ROADMAP item; with ``--world_size`` unset and several GPUs visible, it
-says on stderr that it trains on one (the JAX CLI would use them all).
+stores but the JAX CLI does not offer. The table-wise, row-wise and
+multi-host layouts raise ``NotImplementedError`` naming their ROADMAP item.
 ``--profile_dir`` writes a ``torch.profiler`` trace there;
 ``--memory_fraction`` caps this process's share of device memory;
 ``--pin_memory`` and ``--use_overlap`` are accepted (host payloads are
@@ -92,7 +96,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use_tablewise", action="store_true")
     p.add_argument("--use_rowwise", action="store_true")
     p.add_argument("--fused_op", choices=["all_to_all", "gather_scatter"], default="all_to_all")
-    p.add_argument("--world_size", type=int, default=None, help="devices to use (1 in this port)")
+    p.add_argument("--world_size", type=int, default=None,
+                   help="ranks of the column-wise mesh (default: every visible device)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
@@ -119,29 +124,39 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def refuse_outside_port(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for every flag
-    this single-device port does not run yet."""
+    """Raise NotImplementedError, naming the ROADMAP item, for every layout
+    flag the port does not run yet."""
     refusals = [
         (args.use_tablewise, "--use_tablewise"),
         (args.use_rowwise, "--use_rowwise"),
         (args.multihost, "--multihost"),
-        (args.world_size is not None and args.world_size > 1, f"--world_size {args.world_size}"),
     ]
     for bad, flag in refusals:
         if bad:
-            raise NotImplementedError(f"{flag}: multi-device training is ROADMAP Queue 1 item 9")
+            raise NotImplementedError(f"{flag}: this multi-device layout is ROADMAP Queue 1 item 9")
 
 
-def note_single_card(args) -> None:
-    """With ``--world_size`` unset the JAX CLI trains on every visible
-    device; this port trains on one: say so, in one line on stderr."""
+def resolve_world_size(args) -> int:
+    """The mesh's ranks, as the JAX CLI resolves them (its ``--world_size
+    or len(jax.devices())``): ``--world_size``, else the launcher's world
+    size, else every visible CUDA device, and 1 under ``--platform cpu``.
+    On the card, more ranks than visible cards raise."""
     import torch
 
-    n = torch.cuda.device_count()
-    if args.world_size is None and n > 1:
-        print(f"note: {n} CUDA devices are visible and --world_size is unset: this port trains on one card, "
-              "where the JAX CLI would use every visible device (multi-device training is ROADMAP Queue 1 "
-              "item 9)", file=sys.stderr)
+    from cachedembedding_tpu_torch.parallel.mesh import launched
+
+    cpu = args.platform == "cpu"
+    if args.world_size is not None:
+        n = int(args.world_size)
+    elif launched():
+        n = int(os.environ["WORLD_SIZE"])
+    else:
+        n = 1 if cpu else torch.cuda.device_count()
+    if n < 1:
+        raise ValueError(f"--world_size {n}: at least one rank")
+    if not cpu and n > max(torch.cuda.device_count(), 1):
+        raise ValueError(f"--world_size {n}: {torch.cuda.device_count()} CUDA devices are visible")
+    return n
 
 
 def build_config(args):
@@ -253,11 +268,14 @@ def resolve_platform(args):
     return resolve_device(None if args.platform in (None, "gpu") else args.platform)
 
 
-def build_trainer(args, cfg, freq, device):
-    """The cached trainer with ``--use_cache``, else the trainer over the
-    fully device-resident table (f32 rows, as the JAX CLI builds it)."""
+def build_trainer(args, cfg, freq, device, mesh=None):
+    """The cached trainer with ``--use_cache`` or on a mesh (as in JAX),
+    else the trainer over the fully device-resident table (f32 rows, as the
+    JAX CLI builds it)."""
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
+    if mesh is not None:
+        return CachedDLRMTrainer(cfg, id_freq_map=freq, mesh=mesh)
     if args.use_cache:
         return CachedDLRMTrainer(cfg, id_freq_map=freq, device=device)
     from cachedembedding_tpu_torch.baselines.full_resident import FullyResidentEmbeddingBag
@@ -275,15 +293,61 @@ def _limited(data, lim):
 
 
 def main(argv=None) -> None:
+    """Parse, resolve the world size, then train on one device, or spawn the
+    mesh's ranks (each runs ``run``), or, under a launcher, be one of them."""
+    import torch.distributed as dist
+
+    from cachedembedding_tpu_torch.parallel.mesh import launched, make_mesh
+
+    args = parse_args(argv)
+    refuse_outside_port(args)
+    device = resolve_platform(args)
+    world = resolve_world_size(args)
+    if world == 1 and not launched():
+        return run(args, device)
+    if launched() or dist.is_initialized():
+        return run(args, device, make_mesh(world, device.type))
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    with tempfile.TemporaryDirectory(prefix="dlrm_main_") as root:
+        mp.start_processes(_rank_main, args=(world, os.path.join(root, "rendezvous"), argv), nprocs=world,
+                           start_method="spawn")
+
+
+def _rank_main(rank: int, world: int, rendezvous: str, argv) -> None:
+    """A spawned rank of the command line: join the mesh, then ``run``."""
+    from cachedembedding_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+
+    args = parse_args(argv)
+    mesh = make_mesh(world, "cpu" if args.platform == "cpu" else "cuda", init_method=f"file://{rendezvous}",
+                     rank=rank)
+    try:
+        run(args, mesh.device, mesh)
+    finally:
+        destroy_mesh(mesh)
+
+
+def run(args, device, mesh=None) -> None:
+    """Train and evaluate, as one device or as one rank of ``mesh`` (every
+    rank runs it; only rank 0 prints)."""
+    import contextlib
+
+    if mesh is not None and mesh.rank != 0:
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet), contextlib.redirect_stderr(quiet):
+            return _run(args, device, mesh)
+    return _run(args, device, mesh)
+
+
+def _run(args, device, mesh) -> None:
     import torch
+    import torch.distributed as dist
 
     from cachedembedding_tpu_torch.ops import launch_counts
     from cachedembedding_tpu_torch.utils.misc import get_mem_info
 
-    args = parse_args(argv)
-    refuse_outside_port(args)
-    note_single_card(args)
-    device = resolve_platform(args)
     if device.type == "cuda":
         if args.memory_fraction is not None:
             torch.cuda.set_per_process_memory_fraction(args.memory_fraction, device)
@@ -293,12 +357,18 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     cached_freq = bool(args.use_freq and args.dataset_dir
                        and os.path.exists(os.path.join(args.dataset_dir, "id_freq_map.npy")))
+    if mesh is not None and mesh.rank != 0:
+        dist.barrier(group=mesh.host_group)  # rank 0 counts and writes id_freq_map.npy first
     freq = get_freq(args, cfg)
+    if mesh is not None and mesh.rank == 0:
+        dist.barrier(group=mesh.host_group)
     freq_s = time.perf_counter() - t0
     if freq is not None:
         print(f"id_freq_map: {'loaded' if cached_freq else 'computed'} in {freq_s:.2f} s", file=sys.stderr)
+    if mesh is not None:
+        print(f"mesh: {mesh.size} devices, column-wise hybrid", file=sys.stderr)
 
-    trainer = build_trainer(args, cfg, freq, device)
+    trainer = build_trainer(args, cfg, freq, device, mesh)
     print(f"table filled in {trainer.embed.table_init_s:.2f} s", file=sys.stderr)
     print(get_mem_info("after model init", device), file=sys.stderr)
 
@@ -319,7 +389,7 @@ def main(argv=None) -> None:
         return
 
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and (mesh is None or mesh.rank == 0):
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])

@@ -93,6 +93,14 @@ there). Ragged windows take the dense ragged branch, as JAX's per-step
 function does, and ``evaluate`` plans and scores batch by batch, as JAX does
 on this path.
 
+**The column-wise mesh** (``mesh=``, a ``parallel/mesh.py`` process group):
+the cache is a ``parallel/column.py::ParallelCachedEmbeddingBag`` whose rank
+stores D/w columns of every row; every rank plans the global batch's windows
+alike, keeps its batch rows of the dense features and labels (int4 dense
+inputs floor at int8 there, as in JAX), and runs each window's steps through
+``train/mesh_window.py``. The dense LR is not scaled by the world size. As
+in JAX, ragged windows on a mesh raise ``NotImplementedError``.
+
 The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
 back once, at the end. ``evaluate`` runs the same window machinery with the
@@ -133,7 +141,8 @@ from cachedembedding_tpu_torch.ops.embedding_bag import pool_ragged, pool_unifor
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
 from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_scatter_add_
 from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sgd_round_
-from cachedembedding_tpu_torch.train import wire
+from cachedembedding_tpu_torch.parallel.multiproc import put_addressable, shard_bounds
+from cachedembedding_tpu_torch.train import mesh_window, wire
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
 
 _EVAL_READBACK_STEPS = 32  # eval scores stay on the device this many steps
@@ -157,9 +166,10 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
     if cfg.interaction_impl not in ("bmm", "gather"):
         raise ValueError(f"unknown interaction_impl {cfg.interaction_impl!r}")
     refusals = [
-        (tuple(cfg.mesh_shape) != (1,) or cfg.use_tablewise,
-         "the mesh (data/model parallel) is ROADMAP Queue 1 item 9"),
+        (cfg.use_tablewise, "the table-wise layout (use_tablewise) is ROADMAP Queue 1 item 9"),
     ]
+    if cfg.fused_op not in mesh_window.FUSED_OPS:
+        raise ValueError(f"unknown fused_op {cfg.fused_op!r}")
     if cfg.compute_dtype not in _FLOAT_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} is not supported")
     if cfg.dense_input_dtype not in DENSE_INPUT_DTYPES:
@@ -271,22 +281,39 @@ def _model_probs(model: str, out: torch.Tensor) -> torch.Tensor:
 class CachedDLRMTrainer:
     """Cached DLRM or DeepFM training and evaluation on one device (default:
     the current CUDA device, or ``embed_override``'s; pass ``device="cpu"``
-    to run on the CPU)."""
+    to run on the CPU), or, with ``mesh``, this rank's part of a
+    column-wise mesh on the mesh's device. ``cfg.mesh_shape`` builds no
+    mesh: without one it scales the dense LR, as in JAX."""
 
     def __init__(self, cfg: DLRMConfig, id_freq_map: Optional[np.ndarray] = None, device=None,
-                 embed_override=None):
+                 embed_override=None, mesh=None):
         _refuse_outside_slice(cfg, cached=embed_override is None)
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"the mesh's rank runs on {mesh.device}, not {device}")
+            device = mesh.device
         if device is None and embed_override is not None:
             device = embed_override.device
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
         c = cfg.cache
         resident = (
             [i for i, n in enumerate(cfg.num_embeddings_per_feature) if n <= c.resident_threshold]
             if c.resident_threshold > 0 else None
         )
         use_dataset = not c.use_lfu_eviction and c.use_freq and id_freq_map is not None
-        self.embed = embed_override if embed_override is not None else CachedEmbeddingBag(
+        bag_cls, bag_kw = CachedEmbeddingBag, {}
+        if mesh is not None:
+            from cachedembedding_tpu_torch.parallel.column import ParallelCachedEmbeddingBag
+
+            if embed_override is not None and not (isinstance(embed_override, ParallelCachedEmbeddingBag)
+                                                   and embed_override.mesh is mesh):
+                raise ValueError("on a mesh the embedding is a ParallelCachedEmbeddingBag over that mesh")
+            if cfg.batch_size % mesh.size:
+                raise ValueError(f"batch {cfg.batch_size} does not split evenly over {mesh.size} ranks")
+            bag_cls, bag_kw = ParallelCachedEmbeddingBag, {"mesh": mesh}
+        self.embed = embed_override if embed_override is not None else bag_cls(
             cfg.total_num_embeddings,
             cfg.embedding_dim,
             mode=cfg.reduction_mode,
@@ -306,6 +333,7 @@ class CachedDLRMTrainer:
             adagrad_initial=cfg.adagrad_initial,
             planner=c.planner,
             approx_evict=c.approx_evict,
+            **bag_kw,
         )
         if self.embed.device != self.device:
             raise ValueError(f"embed_override lives on {self.embed.device}, the trainer on {self.device}")
@@ -336,7 +364,8 @@ class CachedDLRMTrainer:
                 seed=cfg.seed,
                 device=self.device,
             )
-        self.data_parallel_size = int(np.prod(cfg.mesh_shape))
+        # the mesh sums its ranks' losses of the global mean: no LR scaling there
+        self.data_parallel_size = 1 if mesh is not None else int(np.prod(cfg.mesh_shape))
         # the stateful id wire of uniform windows (train/wire.py)
         self.wire = wire.WindowWire(c.id_wire, c.escape_pack, self._rt_dict_features(), self._device_rows())
         # f32 rows: the rounding branch is cw - slr * g, Kernel 2's function
@@ -382,10 +411,28 @@ class CachedDLRMTrainer:
     def _dense_mode(self, dense_mode: Optional[str], ragged: bool) -> str:
         """The dense wire of a window: ``dense_input_dtype``, but f32 for a
         fully resident table's ragged windows, which JAX trains by its
-        per-step function on the f32 features."""
+        per-step function on the f32 features, and int8 for int4 on a mesh
+        (JAX's floor there: int4's per-feature ranges would not survive the
+        batch split of its wire)."""
         if dense_mode is None and ragged and not isinstance(self.embed, CachedEmbeddingBag):
             return "float32"
-        return dense_mode or self.cfg.dense_input_dtype
+        mode = dense_mode or self.cfg.dense_input_dtype
+        return "int8" if mode == "int4" and self.mesh is not None else mode
+
+    def _local_rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` (all of them off a mesh)."""
+        return slice(0, n) if self.mesh is None else slice(*shard_bounds(n, self.mesh))
+
+    def _dense_parts(self, batches: List[Batch], dmode: str) -> list:
+        """The dense block of a window's wire: this rank's batch rows, int8
+        quantized with the range of the global window's features, as JAX's
+        mesh quantizes before it splits the batch."""
+        dense = self._dense_np(batches)
+        rows = self._local_rows(dense.shape[1])
+        if dmode == "int8" and self.mesh is not None:
+            q, meta = wire.quant_dense_window(dense)
+            return [meta.view(np.uint8), np.ascontiguousarray(q[:, rows]).reshape(-1)]
+        return wire.dense_wire(dense[:, rows], dmode)
 
     def _ship(self, parts: dict, tail: list):
         """Assemble a window's blocks, then ``tail`` at an aligned offset, into
@@ -448,6 +495,9 @@ class CachedDLRMTrainer:
             raise NotImplementedError("a window's batches must share their feature count and batch size")
         ragged = Pool is None or any(b.sparse_features.pooling != Pool or b.sparse_features.offsets is not None
                                      for b in batches)
+        if ragged and self.mesh is not None:
+            raise NotImplementedError("mesh-windowed training requires uniform pooling (Criteo/Avazu shapes); "
+                                      "ragged batches run via the per-batch hybrid path")
         if self.device_planner:
             return self._begin_window_device(batches, ragged)
         if ragged:
@@ -462,9 +512,10 @@ class CachedDLRMTrainer:
         encode_s = time.perf_counter() - t0
         dmode = self._dense_mode(dense_mode, False)
         t0 = time.perf_counter()
-        labels, lbits = wire.label_wire(torch.stack([b.labels for b in batches]).numpy(), True)
+        rows = self._local_rows(B)
+        labels, lbits = wire.label_wire(torch.stack([b.labels for b in batches]).numpy()[:, rows], True)
         admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
-        parts = {"ids": [ids_bytes], "dense": wire.dense_wire(self._dense_np(batches), dmode),
+        parts = {"ids": [ids_bytes], "dense": self._dense_parts(batches, dmode),
                  "labels": [labels], "admits": admit_parts}
         pack_s = time.perf_counter() - t0
         plan_parts, plan_s = [], 0.0
@@ -480,8 +531,9 @@ class CachedDLRMTrainer:
         buf, tail_at, ev = self._ship(parts, plan_parts + wb)
         pack_s += time.perf_counter() - t0
         slot_ids, a = wire.decode_window_ids(buf, P, L, id_spec)
-        dense, b = wire.unpack_dense(buf, a, P, B, self.cfg.dense_in_features, dmode)
-        labels_dev, c = wire.unpack_labels(buf, b, P, B, lbits)
+        b_local = rows.stop - rows.start
+        dense, b = wire.unpack_dense(buf, a, P, b_local, self.cfg.dense_in_features, dmode)
+        labels_dev, c = wire.unpack_labels(buf, b, P, b_local, lbits)
         tail = self._tail_views(buf, tail_at, [p.shape for p in plan_parts + wb])
         return _Window(staging=ws, slot_ids=slot_ids, dense=dense, labels=labels_dev,
                        plan=tail[:3] if with_plan else None, plan_s=plan_s,
@@ -575,8 +627,12 @@ class CachedDLRMTrainer:
         f0 = batches[0].sparse_features
         F, B = f0.num_features, f0.batch_size
         vals = [b.sparse_features.values.numpy() for b in batches]
-        dense = self.embed.to_device(torch.stack([b.dense_features for b in batches]).float())
-        labels = self.embed.to_device(torch.stack([b.labels for b in batches]).float())
+        dense = torch.stack([b.dense_features for b in batches]).float()
+        labels = torch.stack([b.labels for b in batches]).float()
+        if self.mesh is None:
+            dense, labels = self.embed.to_device(dense), self.embed.to_device(labels)
+        else:  # this rank's batch rows
+            dense, labels = put_addressable(self.mesh, dense, 1), put_addressable(self.mesh, labels, 1)
         if not ragged:
             pw = self.embed.begin_prepare(np.concatenate(vals), (P, vals[0].shape[0]))
             return _Window(staging=pw, slot_ids=pw.slot_ids, dense=dense, labels=labels, plan=None, plan_s=0.0)
@@ -643,9 +699,9 @@ class CachedDLRMTrainer:
         fully resident table, and the device planner, train ragged batches
         by JAX's per-step function, which is always dense there."""
         adagrad = self.embed.cache_accum is not None
-        if win.bounds is None:
+        if win.bounds is None:  # JAX ships no plans to the device planner's or the mesh's windows
             return update_branch(self.cfg, adagrad, self._device_rows(), win.slot_ids.shape[1],
-                                 plans_shipped=not self.device_planner)
+                                 plans_shipped=not self.device_planner and self.mesh is None)
         if not isinstance(self.embed, CachedEmbeddingBag) or self.device_planner:
             return "dense"
         return update_branch(self.cfg, adagrad, self._device_rows(), win.vp, ragged=True)
@@ -718,6 +774,8 @@ class CachedDLRMTrainer:
     def _dispatch_window(self, win: _Window, progresses: List[float]) -> torch.Tensor:
         """Land the admits and enqueue every step of the window. Returns the
         (P,) per-step losses (device tensor, not yet read back)."""
+        if self.mesh is not None:
+            return mesh_window.train_window(self, win, progresses)
         ragged = win.bounds is not None
         resident = not isinstance(self.embed, CachedEmbeddingBag)
         if ragged and resident and self.embed.cache_accum is not None:
@@ -911,9 +969,12 @@ class CachedDLRMTrainer:
             win = self._begin_window(window, with_plan=False, dense_mode=eval_dense)
             self._finish_window(win)
             self._land_admits(win)
-            for p in range(len(window)):
-                sparse = self._pooled(win, p, self._gathered_rows(win, p), self.embed.cache_weight.dtype)
-                pending.append(_model_probs(self.cfg.model, self.model(win.dense[p], sparse)))
+            if self.mesh is not None:  # each step's scores of the global batch, on every rank
+                pending += mesh_window.eval_window(self, win)
+            else:
+                for p in range(len(window)):
+                    sparse = self._pooled(win, p, self._gathered_rows(win, p), self.embed.cache_weight.dtype)
+                    pending.append(_model_probs(self.cfg.model, self.model(win.dense[p], sparse)))
             pending_labels.append(np.concatenate([b.labels.numpy() for b in window]))
             if len(pending) >= _EVAL_READBACK_STEPS:
                 drain()

@@ -350,8 +350,9 @@ def apply_packed_admits(embed, buf: torch.Tensor, lay: AdmitLayout) -> None:
     """Decode a window's admits from its device buffer and land them
     (``embed.land_admits``; JAX ``_apply_packed_admits``): synthesized rows
     first, then fetched rows with their payload (f32, bf16, int8 or int4,
-    dequantized to f32 and cast to the rows' dtype) and accumulators."""
-    D = embed.embedding_dim
+    dequantized to f32 and cast to the rows' dtype) and accumulators. The
+    payload rows hold the columns the bag stores (``dim_stored``)."""
+    D = embed.dim_stored
     c = lay.offset
     synth = fetch = None
     if lay.sb:

@@ -15,7 +15,12 @@ either package reads the other's checkpoints:
   accum.npz          for a virtual host table, the written rows' (``rows``,
                      ``vals``)
 
-Saving flushes the cache first. Loading restores the dense weights, the table
+Saving flushes the cache first. On a column-wise mesh
+(``parallel/column.py``) every rank flushes its columns; rank 0 creates the
+full-width ``host_table.npy`` and, after a barrier, each rank writes its own
+columns into it (a virtual table's written rows are gathered to rank 0), and
+only rank 0 writes the rest. So a checkpoint of w ranks loads into one card
+and the other way round: each rank reads its columns. Loading restores the dense weights, the table
 and the accumulators; the cache is derived state and warms again from the
 id-frequency map as at a cold start (``CachedEmbeddingBag.reset_cache``),
 its warm rows carrying their restored accumulators. As in the JAX package, a
@@ -37,6 +42,7 @@ from cachedembedding_tpu_torch.baselines.full_resident import FullyResidentEmbed
 from cachedembedding_tpu_torch.cache.host_table import DenseAccumStore, DenseHostTable, VirtualHostTable
 from cachedembedding_tpu_torch.models import deepfm, dlrm
 from cachedembedding_tpu_torch.ops.rounding import astype_storage
+from cachedembedding_tpu_torch.parallel.multiproc import replicate_fn
 
 FORMAT_VERSION = 1
 _ROWS_PER_COPY = 1 << 20  # rows moved between the device table and the file at a time
@@ -72,13 +78,42 @@ def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix: str = ""):
     return {k: _unflatten_like(v, flat, (f"{prefix}/['{k}']" if prefix else f".{k}")) for k, v in template.items()}
 
 
-def save_checkpoint(path: str, trainer, extra: Optional[Dict[str, Any]] = None) -> None:
-    """Flush ``trainer``'s embedding and write its checkpoint to ``path``."""
-    os.makedirs(path, exist_ok=True)
-    embed = trainer.embed
-    embed.flush()
-    params = _model_module(trainer).params_to_jax(trainer.model)
-    np.savez(os.path.join(path, "dense_params.npz"), **_flatten(params))
+def _save_columns(path: str, embed) -> str:
+    """A column-wise mesh's host table (every rank calls this): the dense
+    full-width ``host_table.npy`` with each rank's columns written by that
+    rank, or a virtual table's written rows, gathered to rank 0. Returns the
+    table kind."""
+    import torch.distributed as dist
+
+    mesh = embed.mesh
+    c0, c1 = embed.col_start, embed.col_start + embed.dim_stored
+    ht = embed.host_table
+    file = os.path.join(path, "host_table.npy")
+    if isinstance(ht, DenseHostTable):
+        if mesh.rank == 0:
+            np.lib.format.open_memmap(file, mode="w+", dtype=np.float32,
+                                      shape=(embed.num_embeddings, embed.embedding_dim)).flush()
+        dist.barrier(group=mesh.host_group)
+        out = np.load(file, mmap_mode="r+")
+        for s in range(0, out.shape[0], _ROWS_PER_COPY):
+            out[s : s + _ROWS_PER_COPY, c0:c1] = ht.array[s : s + _ROWS_PER_COPY]
+        out.flush()
+        del out
+        dist.barrier(group=mesh.host_group)
+        return "dense"
+    if not isinstance(ht, VirtualHostTable):
+        raise TypeError(f"unknown host table {type(ht)}")
+    rows = np.sort(ht.written_rows())  # the same rows on every rank: each writes back the same evictions
+    local = torch.from_numpy(ht.gather(rows) if rows.size else np.zeros((0, ht.dim), np.float32))
+    vals = replicate_fn(mesh, axis=1)(local)
+    if mesh.rank == 0:
+        np.savez(os.path.join(path, "overlay.npz"), rows=rows, vals=vals.numpy())
+    return "virtual"
+
+
+def _save_table(path: str, embed) -> str:
+    """One process's host table (or the resident table, read off the
+    device) into ``path``. Returns the table kind."""
     if isinstance(embed, FullyResidentEmbeddingBag):
         out = np.lib.format.open_memmap(os.path.join(path, "host_table.npy"), mode="w+", dtype=np.float32,
                                         shape=tuple(embed.cache_weight.shape))
@@ -94,11 +129,29 @@ def save_checkpoint(path: str, trainer, extra: Optional[Dict[str, Any]] = None) 
         table_kind = "dense"
     elif isinstance(embed.host_table, VirtualHostTable):
         rows = embed.host_table.written_rows()
-        vals = embed.host_table.gather(rows) if rows.size else np.zeros((0, embed.embedding_dim), np.float32)
+        vals = embed.host_table.gather(rows) if rows.size else np.zeros((0, embed.host_table.dim), np.float32)
         np.savez(os.path.join(path, "overlay.npz"), rows=rows, vals=vals)
         table_kind = "virtual"
     else:
         raise TypeError(f"unknown host table {type(embed.host_table)}")
+    return table_kind
+
+
+def save_checkpoint(path: str, trainer, extra: Optional[Dict[str, Any]] = None) -> None:
+    """Flush ``trainer``'s embedding and write its checkpoint to ``path``
+    (on a mesh every rank calls it)."""
+    os.makedirs(path, exist_ok=True)
+    embed = trainer.embed
+    embed.flush()
+    mesh = getattr(embed, "mesh", None)
+    if mesh is None:
+        table_kind = _save_table(path, embed)
+    else:
+        table_kind = _save_columns(path, embed)
+        if mesh.rank != 0:  # the dense weights, accumulators and meta are replicated
+            return
+    params = _model_module(trainer).params_to_jax(trainer.model)
+    np.savez(os.path.join(path, "dense_params.npz"), **_flatten(params))
     if getattr(embed, "host_accum", None) is not None:
         st = embed.host_accum.save_state()
         if st["kind"] == "dense":
@@ -147,17 +200,18 @@ def load_checkpoint(path: str, trainer) -> int:
         _load_accum(path, embed)
     else:
         ht = embed.host_table
+        cols = slice(embed.col_start, embed.col_start + embed.dim_stored)  # a mesh rank's columns
         if kind == "dense":
             if not isinstance(ht, DenseHostTable):
                 raise ValueError("a dense checkpoint table into a virtual host table")
-            np.copyto(ht.array, np.load(os.path.join(path, "host_table.npy"), mmap_mode="r"))
+            np.copyto(ht.array, np.load(os.path.join(path, "host_table.npy"), mmap_mode="r")[:, cols])
             ht.mark_all_written()  # restored values are arbitrary: no row holds its init
         else:
             if not isinstance(ht, VirtualHostTable):
                 raise ValueError("a virtual checkpoint table into a dense host table")
             ov = np.load(os.path.join(path, "overlay.npz"))
             if ov["rows"].size:
-                ht.scatter(ov["rows"], ov["vals"])
+                ht.scatter(ov["rows"], np.ascontiguousarray(ov["vals"][:, cols]))
         _load_accum(path, embed)  # before the cache warms, so that warm rows carry theirs
         embed.reset_cache()
     trainer._step_idx = meta["step"]

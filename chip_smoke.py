@@ -193,7 +193,26 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      epilogue on the resident table's first training step, in this process
      (gates in ``check_resident_kernels`` and ``check_resident_adagrad``),
      and checkpoint round trips on small tables, SGD and Adagrad
-     (``check_checkpoint_round_trip``).
+     (``check_checkpoint_round_trip``). Then the baseline command line,
+     ``python -m cachedembedding_tpu_torch.baselines.dlrm_main``, on the
+     same dataset (``phase_baseline``, BASELINE_RUNS): ``--plan_only`` (the
+     plan printed, nothing trained), ``--kernel hbm`` (the 17.29 GB f32
+     table) and ``--kernel auto --hbm_gb 8`` (24 tables resident in one
+     mixed bag, the two largest cached): finite losses, val AUROC above 0.5,
+     Kernels 1 and 2 launched (the sparse branch of f32 rows), and the mixed
+     bag's resident tables the plan's HBM_FULL tables.
+  12. The column-wise mesh (``mesh``, ``phase_mesh``: ``chip_smoke.py
+     --mesh`` in its own process, ``mesh_child``): a mesh of one rank over
+     NCCL trains the bf16 slice's configuration (without shipped plans, as
+     JAX ships none to a mesh) beside the one-card trainer on the same
+     data: 3 windows on the dense branch (Kernels 1, 2), 1 with
+     use_sparse_embed_grad (Kernel 5), 1 of float8_e4m3fn rows with
+     stochastic rounding (Kernels 3, 4), each with one evaluation window and
+     a flush. Losses, flushed rows and AUROC bit-equal to the one-card run,
+     each update kernel launched once a step and no other, a hit rate in
+     (0, 1]; then ``--world_size 2`` on one visible card raises. Last, a
+     pinned 256 MB host-to-device copy (``measure_host_link``), the sharding
+     planner's ``Topology.host_link_bytes_per_s``.
 
 Phases 4 and 6 time each kernel beside its bound, its plain version and a
 PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
@@ -209,7 +228,8 @@ Phase 5 counts both of Kernel 4's entries: the fused one 24 times on the
 fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
 each kernel's launches on every path (the two slices, the two fp8 windows,
 the wire and device-planner runs, the 1TB run, the ragged path and the CLI
-runs, whose processes report their counts in their ``run stats`` line).
+runs, whose processes report their counts in their ``run stats`` line,
+the baseline runs, and the mesh's three runs summed).
 Phase 11 adds Kernels 1 and 2's times on the resident table
 (``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 6
 Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
@@ -227,7 +247,10 @@ are its main path's (MAIN_PATH), summed over its entries where two wrappers
 launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...,
-"device_planner": ...}`` line, the card's name and power limit, then a
+"device_planner": ...}`` line, a ``{"mesh": ..., "baseline": ...,
+"host_link": ..., "bf16_slice": ...}`` line (the mesh and one-card runs'
+host and device s a window, examples/s and peak memory beside the bf16
+slice's), the card's name and power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
 
@@ -3235,6 +3258,7 @@ def phase_cli(device) -> dict:
         if freq_path.stat().st_mtime_ns != mtime:
             raise AssertionError("id_freq_map.npy was written again")
         log(f"[cli] id_freq_map.npy computed once by the first run and reused by the other {len(runs) - 1}")
+        baseline = phase_baseline(data_dir)
         torch.cuda.empty_cache()
         k1, k2, ka = check_resident_kernels(data_dir, device)
         gc.collect()
@@ -3245,8 +3269,250 @@ def phase_cli(device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     secs = time.perf_counter() - t0
     log(f"[cli] phase done in {secs:.1f} s")
-    return {"launches": {name: r["stats"]["kernel_launches"] for name, r in runs.items()},
+    launches = {name: r["stats"]["kernel_launches"] for name, r in runs.items()}
+    launches.update({name: r["launches"] for name, r in baseline.items() if "launches" in r})
+    return {"launches": launches, "baseline": baseline,
             "gather_rows": k1, "binned_sgd": k2, "binned_adagrad": ka, "checkpoint": ckpt, "seconds": secs}
+
+
+BASELINE_FLAGS = ["--batch_size", str(CLI_BATCH), "--limit_train_batches", str(CLI_TRAIN_BATCHES),
+                  "--limit_val_batches", "2", "--use_freq"]
+# --hbm_gb 16 (the JAX command line's default) holds every Kaggle table
+# (8.05 GiB of bf16 rows under its 9.6 GiB budget); at 8 the planner demotes
+# the two largest to CACHED and keeps the other 24 HBM_FULL
+BASELINE_RUNS = {"baseline plan_only": ["--kernel", "auto", "--hbm_gb", "8", "--plan_only"],
+                 "baseline hbm": ["--kernel", "hbm"],
+                 "baseline auto": ["--kernel", "auto", "--hbm_gb", "8"]}
+
+
+def run_baseline(name: str, data_dir, extra) -> dict:
+    """One run of the baseline command, ``python -m
+    cachedembedding_tpu_torch.baselines.dlrm_main``, in its own process.
+    Returns its plan, validation AUROC and ``run stats``; checks the gates:
+    the plan printed, and for training runs finite losses, AUROC above 0.5,
+    Kernel 1 and Kernel 2 (the sparse branch of f32 rows) launched, and the
+    mixed bag's resident tables the plan's HBM_FULL tables."""
+    import re
+
+    argv = [sys.executable, "-m", "cachedembedding_tpu_torch.baselines.dlrm_main", "--dataset_dir", str(data_dir),
+            *BASELINE_FLAGS, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{name}] exit {proc.returncode}: {proc.stderr[-4000:]}")
+    out, err = proc.stdout, proc.stderr
+    lines = out.splitlines()
+    plan = [ln for ln in lines if ln.startswith(("EmbeddingShardingPlan", "table ", "t", "HBM/device"))]
+    kernels = [ln.split()[4] for ln in plan if re.match(r"t\d+ ", ln)]
+    log(f"[{name}] {' '.join(argv[1:])}: {wall:.1f} s wall")
+    for ln in plan:
+        log(f"[{name}]   {ln}")
+    if not (plan and plan[0].startswith("EmbeddingShardingPlan") and len(kernels) == 26):
+        raise AssertionError(f"[{name}] no plan printed:\n{out[-3000:]}")
+    res = {"wall_s": wall, "kernels": kernels}
+    if "--plan_only" in extra:
+        if "val:" in out:
+            raise AssertionError(f"[{name}] --plan_only trained")
+        return res
+    auroc = float(re.search(r"val: auroc=([0-9.]+)", out).group(1))
+    stats = json.loads(re.search(r"run stats: (\{.*\})", err).group(1))
+    res.update(auroc=auroc, stats=stats, examples_per_s=stats["examples_per_s"])
+    log(f"[{name}] {len(stats['losses'])} steps at {stats['examples_per_s']:.0f} examples/s; val auroc "
+        f"{auroc:.4f}; peak device memory {stats['peak_device_bytes'] / 2**30:.2f} GiB; host s/window "
+        f"{[round(x, 4) for x in stats['window_host_s']]}; device s/window "
+        f"{[round(x, 4) for x in stats['window_device_s']]}; kernel launches {stats['kernel_launches']}")
+    if len(stats["losses"]) != CLI_TRAIN_BATCHES or not all(math.isfinite(x) for x in stats["losses"]):
+        raise AssertionError(f"[{name}] losses: {stats['losses']}")
+    if not auroc > 0.5:
+        raise AssertionError(f"[{name}] val auroc {auroc}")
+    k = stats["kernel_launches"]
+    if k["gather_rows"] < CLI_TRAIN_BATCHES:
+        raise AssertionError(f"[{name}] kernel launches {k}")
+    check_update_launches(f"[{name}]", k, CLI_TRAIN_BATCHES, "binned_sgd")
+    if "auto" in extra:
+        full = [i for i, kern in enumerate(kernels) if kern == "hbm_full"]
+        if not (stats["resident_tables"] == stats["plan_hbm_full_tables"] == full and 0 < len(full) < 26):
+            raise AssertionError(f"[{name}] resident tables {stats['resident_tables']}, the plan's HBM_FULL "
+                                 f"{stats['plan_hbm_full_tables']} ({full} printed)")
+        log(f"[{name}] the mixed bag holds the plan's {len(full)} HBM_FULL tables whole; "
+            f"{26 - len(full)} cached")
+    return res
+
+
+def phase_baseline(data_dir) -> dict:
+    """Phase 11b: the baseline command line on the CLI phase's dataset:
+    the plan alone, the resident table (``hbm``) and the plan executed
+    (``auto``)."""
+    runs = {name: run_baseline(name, data_dir, extra) for name, extra in BASELINE_RUNS.items()}
+    return {name: {k: v for k, v in r.items() if k != "stats"} | (
+        {"launches": r["stats"]["kernel_launches"], "peak_gib": r["stats"]["peak_device_bytes"] / 2**30,
+         "host_s_window": r["stats"]["window_host_s"], "device_s_window": r["stats"]["window_device_s"]}
+        if "stats" in r else {}) for name, r in runs.items()}
+
+
+HOST_LINK_BYTES = 256 << 20
+
+
+def measure_host_link(device) -> dict:
+    """The pinned host-to-device copy rate of 256 MB (median of 5 copies,
+    CUDA events): the planner's ``Topology.host_link_bytes_per_s``."""
+    import torch
+
+    src = torch.ones(HOST_LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(HOST_LINK_BYTES, dtype=torch.uint8, device=device)
+    times = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    if not bool((dst[:: 1 << 20] == 1).all()):
+        raise AssertionError("[host_link] the copy did not land")
+    ms = sorted(times[1:])[2]
+    rate = HOST_LINK_BYTES / (ms / 1e3)
+    log(f"[host_link] pinned host-to-device copy of {HOST_LINK_BYTES} B: {ms:.4f} ms, {rate / 1e9:.2f} GB/s")
+    del src, dst
+    return {"bytes": HOST_LINK_BYTES, "ms": ms, "bytes_per_s": rate}
+
+
+# the mesh phase's runs: (windows, cache rows, use_sparse_embed_grad, update entries)
+MESH_RUNS = {"dense": (3, "bfloat16", False, ("binned_sgd",)),
+             "sparse": (1, "bfloat16", True, ("ordered_scatter_add",)),
+             "fp8 rounding": (1, FP8, False, ("binned_scatter_add", "stochastic_sgd_round"))}
+MESH_SAMPLE_ROWS = 65_536
+
+
+def mesh_run_config(cache_dtype: str, sparse: bool):
+    """The bf16 slice's configuration (Kaggle tables, D = 128, batch 16,384,
+    1% cache, prefetch 8, resident tables <= 500k rows) without sort plans
+    shipped: JAX ships none to a mesh window, so the one-card run takes the
+    same branch by JAX's rule."""
+    import dataclasses
+
+    cfg = slice_config(cache_dtype)
+    cfg.use_sparse_embed_grad = sparse
+    cfg.cache = dataclasses.replace(cfg.cache, ship_sort_perm=False)
+    return cfg
+
+
+def mesh_one_run(cfg, steps: int, device, mesh) -> dict:
+    """Train ``steps`` steps, evaluate one window and flush, on one card or
+    on ``mesh``, with the launch counts zeroed just before. Returns what the
+    gates compare."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+
+    P = cfg.cache.prefetch_num
+    sizes = cfg.num_embeddings_per_feature
+    train = SyntheticLongTailDataset(sizes, cfg.batch_size, steps, skew=0.5, seed=7)
+    test = SyntheticLongTailDataset(sizes, cfg.batch_size, P, skew=0.5, seed=8)
+    tr = (CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device) if mesh is None
+          else CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), mesh=mesh))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    rep = tr.train(train, num_iters=steps)
+    ev = tr.evaluate(test)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ids = np.unique(np.concatenate([b.sparse_features.values.numpy() for b in train]))
+    rows = np.sort(np.random.default_rng(0).choice(ids, min(MESH_SAMPLE_ROWS, ids.size), replace=False))
+    out = dict(losses=np.asarray(rep.losses), auroc=ev["auroc"], count=ev["count"], hit_rate=rep.hit_rate,
+               rows=np.asarray(tr.embed.dense_weight(rows)), launches=launches,
+               host_s_window=rep.window_host_s, device_s_window=rep.window_device_s,
+               examples_per_s=rep.examples_per_s, peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_child() -> int:
+    """``chip_smoke.py --mesh``: the mesh phase's process. A column-wise mesh
+    of one rank over NCCL (``parallel/mesh.make_mesh(1)``) trains the bf16
+    slice's configuration through ``CachedDLRMTrainer(mesh=...)`` beside the
+    one-card trainer on the same data: 3 windows on the dense branch, 1 with
+    use_sparse_embed_grad, 1 of float8_e4m3fn rows with stochastic rounding.
+    Gates: losses, flushed rows (a sample of the trained ids) and the
+    evaluation window's AUROC bit-equal to the one-card run's (at one rank
+    the collectives are identities and the loss factor 1.0), every update
+    kernel of the path launched once a step and no other, Kernel 1 launched,
+    a hit rate in (0, 1]; then ``--world_size 2`` on one visible card raises.
+    Prints one JSON line of its numbers last."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    from cachedembedding_tpu_torch.train import dlrm_main
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    device = mesh.device  # the one-card runs too
+    log(f"[mesh] make_mesh(1): rank {mesh.rank} of {mesh.size} on {mesh.device}, "
+        f"{torch.distributed.get_backend()} backend")
+    out = {}
+    for name, (windows, dtype, sparse, entries) in MESH_RUNS.items():
+        cfg = mesh_run_config(dtype, sparse)
+        steps = windows * cfg.cache.prefetch_num
+        one = mesh_one_run(cfg, steps, device, None)
+        got = mesh_one_run(cfg, steps, device, mesh)
+        tag = f"[mesh {name}]"
+        for key in ("losses", "rows"):
+            if not np.array_equal(got[key], one[key]):
+                raise AssertionError(f"{tag} {key} differ from the one-card run's: "
+                                     f"{int((got[key] != one[key]).sum())} of {got[key].size}")
+        if got["auroc"] != one["auroc"] or got["count"] != one["count"]:
+            raise AssertionError(f"{tag} evaluation {got['auroc']} over {got['count']}, one card {one['auroc']}")
+        if not np.isfinite(got["losses"]).all() or not 0.0 < got["hit_rate"] <= 1.0:
+            raise AssertionError(f"{tag} losses {got['losses']}, hit rate {got['hit_rate']}")
+        check_update_launches(tag, got["launches"], steps, *entries)
+        if got["launches"]["gather_rows"] < steps:
+            raise AssertionError(f"{tag} kernel launches {got['launches']}")
+        log(f"{tag} {steps} steps: losses, {got['rows'].shape[0]} flushed rows and the evaluation's AUROC "
+            f"({got['auroc']:.6f}) bit-equal to the one-card run; hit rate {got['hit_rate']:.4f}; kernel launches "
+            f"{got['launches']}")
+        for who, r in (("mesh", got), ("one card", one)):
+            log(f"{tag} {who}: host s/window {[round(x, 4) for x in r['host_s_window']]}; device s/window "
+                f"{[round(x, 4) for x in r['device_s_window']]}; {r['examples_per_s']:.0f} examples/s; peak "
+                f"{r['peak_gib']:.2f} GiB")
+        out[name] = {who: {k: r[k] for k in ("host_s_window", "device_s_window", "examples_per_s", "peak_gib",
+                                             "hit_rate", "launches")} for who, r in (("mesh", got), ("one", one))}
+    destroy_mesh(mesh)
+    if torch.cuda.device_count() == 1:
+        try:
+            dlrm_main.resolve_world_size(dlrm_main.parse_args(["--world_size", "2"]))
+        except ValueError as e:
+            log(f"[mesh] --world_size 2 on one card raises: {e}")
+        else:
+            raise AssertionError("[mesh] --world_size 2 on one visible card did not raise")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_child": out}), flush=True)
+    return 0
+
+
+def phase_mesh() -> dict:
+    """Phase 12: ``mesh_child`` in its own process (its process group and
+    CUDA context end with it). Returns its numbers."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--mesh"], capture_output=True, text=True, timeout=900)
+    for ln in proc.stdout.splitlines()[:-1]:
+        log(ln)
+    if proc.returncode != 0:
+        raise AssertionError(f"[mesh] exit {proc.returncode}: {proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.splitlines()[-1])["mesh_child"]
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase done in {res['wall_s']:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -3259,6 +3525,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--unsorted-plan"]:  # phase 8's child process
         return refuse_unsorted_plan(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh"]:  # phase 12's child process
+        return mesh_child()
     if sys.argv[1:2] == ["--kernel5-against"]:
         return run_kernel5_against(sys.argv[2:])
     procs = {}
@@ -3362,13 +3630,20 @@ def run_phases(procs: dict) -> int:
     torch.cuda.empty_cache()
     phase_bare_module(device)
     cli = phase_cli(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh()
+    host_link = measure_host_link(device)
     kernels[0]["on_resident_table"] = cli["gather_rows"]
     kernels[1]["on_resident_table"] = cli["binned_sgd"]
     kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
 
+    # the mesh path: its three runs' launches summed
+    launches_mesh = {e: sum(r["mesh"]["launches"][e] for r in mesh.values() if isinstance(r, dict) and "mesh" in r)
+                     for e in launches_bf16}
     paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "wire": launches_wire,
              **launches_dp, "1tb sparse": launches_1tb,
-             "ragged": launches_ragged, **cli["launches"]}
+             "ragged": launches_ragged, **cli["launches"], "mesh": launches_mesh}
     for k in kernels:
         name = k["name"]
         entries = KERNEL_ENTRIES.get(name, (name,))
@@ -3380,6 +3655,8 @@ def run_phases(procs: dict) -> int:
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits,
                       "device_planner": device_planner}))
+    print(json.dumps({"mesh": mesh, "baseline": cli["baseline"], "host_link": host_link,
+                      "bf16_slice": SLICE_NUMBERS.get("bfloat16")}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """The port's command line (``train/dlrm_main.py``) against the JAX package's
 on the same Criteo-format npy files, on the CPU: the same flags and defaults,
 the same config, the same AUROC and losses (row-wise Adagrad, the sparse
-gradient, fp8 rows with rounding off, float8_e5m2 rows and the device
-planner included), a refusal naming its ROADMAP item for every flag outside
-the port (and JAX's own refusal of ``--planner device`` with row-wise
-Adagrad), and the note
-on stderr where several GPUs are visible and ``--world_size`` is unset."""
+gradient, fp8 rows with rounding off, float8_e5m2 rows, the device planner
+and a column-wise mesh of two ranks included), a refusal naming its ROADMAP
+item for every layout flag outside the port (and JAX's own refusal of
+``--planner device`` with row-wise Adagrad), and ``--world_size`` resolved
+as JAX resolves it."""
 
 import dataclasses
 import re
@@ -143,11 +143,33 @@ def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--use_tablewise"], 9), (["--use_rowwise"], 9), (["--multihost"], 9), (["--world_size", "2"], 9),
+    (["--use_tablewise"], 9), (["--use_rowwise"], 9), (["--multihost"], 9),
 ])
 def test_refused_flags_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
         port_main.main(["--platform", "cpu", *flag])
+
+
+def test_world_size_two_on_cpu_matches_jax(tmp_path, capfd):
+    """``--world_size 2 --platform cpu``: the port spawns two gloo ranks that
+    train one column-wise mesh, and only rank 0 prints; JAX's main builds a
+    mesh of two of its devices. Cached bf16 rows on the dense branch: AUROC
+    within 2e-2 (the tolerance of the one-device bf16 case above)."""
+    d = write_dataset(tmp_path / "criteo_kaggle")
+    argv = small_argv(d, *CACHED)
+    i = argv.index("--world_size")
+    argv[i + 1] = "2"
+    jax_main.main(argv)
+    want = _metrics(capfd.readouterr().out)
+    port_main.main(argv)
+    captured = capfd.readouterr()
+    got = _metrics(captured.out)
+    assert set(got) == set(want) == {"val", "test"}
+    for stage in ("val", "test"):
+        assert got[stage][1] == want[stage][1] == 160
+        assert abs(got[stage][0] - want[stage][0]) <= 2e-2, (stage, got, want)
+    assert captured.out.count("epoch 0 val: auroc=") == 1  # rank 0 alone prints
+    assert captured.err.count("mesh: 2 devices, column-wise hybrid") == 1 and "run stats: {" in captured.err
 
 
 def test_device_planner_refusals_match_jax(tmp_path):
@@ -160,22 +182,22 @@ def test_device_planner_refusals_match_jax(tmp_path):
             main(argv)
 
 
-@pytest.mark.parametrize("world_size,cards,noted", [
-    (None, 2, True), (None, 1, False), ("1", 4, False),
+@pytest.mark.parametrize("world_size,cards,ranks", [
+    (None, 2, 2), (None, 1, 1), ("1", 4, 1),
 ], ids=["unset_two_cards", "unset_one_card", "set"])
-def test_single_card_note(tmp_path, capsys, monkeypatch, world_size, cards, noted):
-    """With --world_size unset and more than one CUDA device visible, the
-    port says on stderr, in one line, that it trains on one card where the
-    JAX CLI would use every visible device (ROADMAP Queue 1 item 9)."""
+def test_single_card_note(monkeypatch, world_size, cards, ranks):
+    """--world_size resolves as in JAX (``args.world_size or
+    len(jax.devices())``): unset, every visible CUDA device on the card, and
+    one rank under --platform cpu; more ranks than visible cards raise. (The
+    one-line note that the port trained on one card went with the mesh.)"""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    argv = small_argv(write_dataset(tmp_path / "criteo_kaggle"), "--limit_train_batches", "1")
-    i = argv.index("--world_size")
-    del argv[i : i + 2]
-    port_main.main(argv + (["--world_size", world_size] if world_size else []))
-    lines = [ln for ln in capsys.readouterr().err.splitlines() if "--world_size is unset" in ln]
-    assert len(lines) == int(noted)
-    if noted:
-        assert f"{cards} CUDA devices" in lines[0] and "ROADMAP Queue 1 item 9" in lines[0]
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    extra = ["--world_size", world_size] if world_size else []
+    assert port_main.resolve_world_size(port_main.parse_args(extra)) == ranks
+    assert port_main.resolve_world_size(port_main.parse_args(extra + ["--platform", "cpu"])) == 1
+    with pytest.raises(ValueError, match=f"--world_size {cards + 1}: {cards} CUDA devices are visible"):
+        port_main.resolve_world_size(port_main.parse_args(["--world_size", str(cards + 1)]))
 
 
 def test_default_platform_needs_a_gpu():

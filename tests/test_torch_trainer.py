@@ -181,7 +181,7 @@ def test_refuses_outside_the_slice():
     base = dict(num_embeddings_per_feature=[10, 20], embedding_dim=16, dense_in_features=4,
                 dense_arch_layer_sizes=(16,), over_arch_layer_sizes=(8, 1), batch_size=8)
     for kw, cache_kw, item in [
-        ({"mesh_shape": (2,)}, {}, 9),
+        ({"use_tablewise": True}, {}, 9),
     ]:
         cfg = DLRMConfig(**base, **kw, cache=CacheConfig(**{"ship_sort_perm": True, **cache_kw}))
         with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
@@ -189,7 +189,13 @@ def test_refuses_outside_the_slice():
     # DeepFM, the JAX CLI's default ship_sort_perm=False, row-wise Adagrad,
     # the sparse gradient, fp8 rows with rounding off, e5m2 rows, the gather
     # interaction, int8/int4 dense inputs and transfers, every id wire and
-    # the device planner are in the port
+    # the device planner are in the port; and mesh_shape, which builds no
+    # mesh in JAX either (its trainer takes mesh=, tests/test_torch_mesh.py):
+    # without one it scales the dense LR by its size, as JAX's does
+    tr = port_trainer_mod.CachedDLRMTrainer(
+        DLRMConfig(**base, mesh_shape=(2,), cache=CacheConfig(ship_sort_perm=True, cache_ratio=0.5)), device="cpu")
+    assert tr.mesh is None and tr.data_parallel_size == 2 and tr._lrs(0.0) == (1.0, 2.0)
+    tr.close()
     for kw, cache_kw in [({"model": "deepfm"}, {}), ({}, {"ship_sort_perm": False}),
                          ({"interaction_impl": "gather"}, {}),
                          ({"embedding_optimizer": "rowwise_adagrad"}, {}), ({"use_sparse_embed_grad": True}, {}),
