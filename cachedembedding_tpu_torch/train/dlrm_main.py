@@ -18,8 +18,14 @@ the device (``baselines/full_resident.py``, f32 rows), with its row-wise
 Adagrad accumulators under ``--embedding_optimizer rowwise_adagrad`` (the
 JAX CLI builds its resident table without them, so there it trains with
 SGD). ``--cache_dtype`` also takes ``float8_e5m2``, which the JAX trainer
-stores but the JAX CLI does not offer. The table-wise, row-wise and
-multi-host layouts raise ``NotImplementedError`` naming their ROADMAP item.
+stores but the JAX CLI does not offer. ``--use_tablewise`` trains the
+table-wise layout (``run_hybrid``: ``models/hybrid.HybridParallelDLRM`` over
+a mesh of ``--world_size`` ranks, one rank too), window by window, then
+validates and tests after each epoch, as the JAX CLI's ``run_hybrid`` does;
+like it, it trains DLRM towers with plain SGD on f32 cache rows and f32
+admits, and says on stderr which of the flags it ignores were set
+(``TABLEWISE_IGNORES``). The row-wise and multi-host layouts raise
+``NotImplementedError`` naming their ROADMAP item.
 ``--profile_dir`` writes a ``torch.profiler`` trace there;
 ``--memory_fraction`` caps this process's share of device memory;
 ``--pin_memory`` and ``--use_overlap`` are accepted (host payloads are
@@ -97,7 +103,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use_rowwise", action="store_true")
     p.add_argument("--fused_op", choices=["all_to_all", "gather_scatter"], default="all_to_all")
     p.add_argument("--world_size", type=int, default=None,
-                   help="ranks of the column-wise mesh (default: every visible device)")
+                   help="ranks of the mesh (default: every visible device)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
@@ -127,7 +133,6 @@ def refuse_outside_port(args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every layout
     flag the port does not run yet."""
     refusals = [
-        (args.use_tablewise, "--use_tablewise"),
         (args.use_rowwise, "--use_rowwise"),
         (args.multihost, "--multihost"),
     ]
@@ -330,9 +335,10 @@ def _rank_main(rank: int, world: int, rendezvous: str, argv) -> None:
         destroy_mesh(mesh)
 
 
-def run(args, device, mesh=None) -> None:
+def run(args, device, mesh=None):
     """Train and evaluate, as one device or as one rank of ``mesh`` (every
-    rank runs it; only rank 0 prints)."""
+    rank runs it; only rank 0 prints). Returns ``run_hybrid``'s result under
+    ``--use_tablewise``, else None."""
     import contextlib
 
     if mesh is not None and mesh.rank != 0:
@@ -341,7 +347,7 @@ def run(args, device, mesh=None) -> None:
     return _run(args, device, mesh)
 
 
-def _run(args, device, mesh) -> None:
+def _run(args, device, mesh):
     import torch
     import torch.distributed as dist
 
@@ -365,6 +371,8 @@ def _run(args, device, mesh) -> None:
     freq_s = time.perf_counter() - t0
     if freq is not None:
         print(f"id_freq_map: {'loaded' if cached_freq else 'computed'} in {freq_s:.2f} s", file=sys.stderr)
+    if args.use_tablewise:
+        return run_hybrid(args, cfg, freq, device, mesh, freq_s)
     if mesh is not None:
         print(f"mesh: {mesh.size} devices, column-wise hybrid", file=sys.stderr)
 
@@ -481,6 +489,153 @@ def _run(args, device, mesh) -> None:
             st = host.save_state()
             stats["accum_positive_host_rows"] = int((st["arr" if st["kind"] == "dense" else "vals"] > 0).sum())
     print(f"run stats: {json.dumps(stats)}", file=sys.stderr)
+
+
+# flags that --use_tablewise reads nowhere, as JAX's run_hybrid reads none of them
+TABLEWISE_IGNORES = ("model", "cache_dtype", "embedding_optimizer", "transfer_dtype", "stochastic_rounding",
+                     "planner", "use_sparse_embed_grad", "fused_op", "checkpoint_dir", "profile_dir", "inspect_time",
+                     "validation_freq_within_epoch")
+
+
+def note_ignored_flags(args) -> None:
+    """Print one stderr line naming the flags of TABLEWISE_IGNORES that were
+    set to other than their defaults, where there are any."""
+    defaults = vars(parse_args([]))
+    set_ = [f"--{k} {getattr(args, k)}" for k in TABLEWISE_IGNORES if getattr(args, k) != defaults[k]]
+    if set_:
+        print(f"--use_tablewise ignores {', '.join(set_)}: it trains DLRM towers with plain SGD on f32 cache rows "
+              "and f32 admits, as the JAX CLI's run_hybrid does", file=sys.stderr)
+
+
+def run_hybrid(args, cfg, freq, device, mesh=None, freq_s: Optional[float] = None) -> dict:
+    """``--use_tablewise``: the table-wise layout over ``mesh`` (where it is
+    None, a mesh of one rank, made here and destroyed at the end unless a
+    process group was there already), trained window by window (each window planned once on every rank and trained
+    step by step), with val and test AUROC and accuracy after each epoch,
+    printed in the JAX CLI's words. Returns the model (still open), the
+    losses, each epoch's metrics and the numbers of its ``run stats``
+    line."""
+    import torch
+    import torch.distributed as dist
+
+    from cachedembedding_tpu_torch.models.hybrid import HybridParallelDLRM
+    from cachedembedding_tpu_torch.ops import launch_counts
+    from cachedembedding_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
+    from cachedembedding_tpu_torch.utils.misc import get_mem_info
+
+    own_mesh = mesh is None and not dist.is_initialized()
+    if mesh is None:
+        mesh = make_mesh(1, device.type)
+    try:
+        note_ignored_flags(args)
+        n = mesh.size
+        print(f"mesh: {n} devices, tablewise hybrid", file=sys.stderr)
+        model = HybridParallelDLRM(cfg, mesh=mesh, id_freq_map=freq)
+        print(model.model_stats("HybridParallelDLRM"), file=sys.stderr)
+        print(f"table filled in {model.embed.table_init_s:.2f} s", file=sys.stderr)
+        print(get_mem_info("after model init", device), file=sys.stderr)
+        offsets = np.concatenate([[0], np.cumsum(cfg.num_embeddings_per_feature)]).astype(np.int64)
+        pn = max(1, cfg.cache.prefetch_num)
+        cuda = device.type == "cuda"
+        host_s: list = []
+        events: list = []
+
+        def ids_bf(b):
+            f = b.sparse_features
+            vals = np.asarray(f.values)
+            return vals.reshape(f.num_features, f.batch_size).T - offsets[:-1][None, :]
+
+        def fetch(it, k):
+            out = []
+            for _ in range(k):
+                try:
+                    out.append(next(it))
+                except StopIteration:
+                    break
+            return out
+
+        def run_windows(data, limit, train: bool, progress_total=None):
+            """A windowed pass: (the per-step losses, or the metrics; the
+            steps done)."""
+            it = iter(data)
+            metrics = StreamingMetrics()
+            losses = []
+            done = 0
+            while True:
+                th = time.perf_counter()
+                want = pn if limit is None else min(pn, limit - done)
+                if want <= 0:
+                    break
+                window = fetch(it, want)
+                if not window:
+                    break
+                slot_ids, plans = model.embed.begin_prepare_window([ids_bf(b) for b in window])
+                model.embed.finish_prepare(plans)
+                dense_P = np.stack([np.asarray(b.dense_features) for b in window])
+                if train:
+                    lr = cfg.learning_rate
+                    if progress_total and cfg.change_lr and done / max(progress_total, 1) >= cfg.lr_change_point:
+                        lr = cfg.lr_after
+                    lrs = [lr] * len(window)
+                    labels_P = np.stack([np.asarray(b.labels) for b in window])
+                    host_s.append(time.perf_counter() - th)
+                    if cuda:
+                        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                    losses.append(model.train_window(dense_P, slot_ids, labels_P, lrs, lrs))
+                    if cuda:
+                        ev[1].record()
+                        events.append(ev)
+                else:
+                    probs = model.eval_window(dense_P, slot_ids)
+                    metrics.update(probs.reshape(-1).cpu().numpy(),
+                                   np.concatenate([np.asarray(b.labels) for b in window]))
+                done += len(window)
+            if train:
+                return (torch.cat(losses).cpu().tolist() if losses else []), done
+            return metrics.compute(), done
+
+        limit = args.limit_train_batches
+        all_losses, epochs, examples_per_s = [], [], []
+        for epoch in range(cfg.epochs):
+            t0 = time.perf_counter()
+            train_losses, n_it = run_windows(get_data(args, cfg, "train"), limit, train=True, progress_total=limit)
+            dt = time.perf_counter() - t0
+            all_losses += train_losses
+            examples_per_s.append(n_it * cfg.batch_size / dt)
+            print(f"hybrid[{n}dev,tablewise] epoch {epoch}: {n_it} iters in {dt:.0f}s "
+                  f"({n_it / dt:.2f} it/s, {n_it * cfg.batch_size / dt:.0f} ex/s), "
+                  f"final loss={train_losses[-1]:.5f}" if train_losses else "no data")
+            model.embed.print_comm_stats()
+            metrics = {}
+            for stage, lim in [("val", args.limit_val_batches), ("test", args.limit_test_batches)]:
+                m, _ = run_windows(get_data(args, cfg, stage), lim, train=False)
+                metrics[stage] = m
+                print(f"hybrid[{n}dev,tablewise] epoch {epoch} {stage}: "
+                      f"auroc={m['auroc']:.9f} accuracy={m['accuracy']:.9f} over {m['count']}")
+            epochs.append(metrics)
+        if cuda:
+            torch.cuda.synchronize(device)
+        print(get_mem_info("after training", device), file=sys.stderr)
+        stats = {
+            "kernel_launches": launch_counts(),
+            "table_init_s": model.embed.table_init_s,
+            "freq_s": freq_s if freq is not None else None,
+            "examples_per_s": examples_per_s,
+            "losses": all_losses,
+            "hit_rate": model.embed.stats.hit_rate(),
+            "window_host_s": host_s,
+            "window_device_s": [a.elapsed_time(b) / 1e3 for a, b in events],
+            "peak_device_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "swap_in_bytes": model.embed.stats.swap_in_bytes,
+            "swap_out_bytes": model.embed.stats.swap_out_bytes,
+        }
+        print(f"run stats: {json.dumps(stats)}", file=sys.stderr)
+        return {"model": model, "metrics": epochs, **stats}
+    finally:
+        if own_mesh:
+            destroy_mesh(mesh)
 
 
 if __name__ == "__main__":

@@ -153,9 +153,9 @@ _SEED_MUL = 0x9E3779B9  # per-step rounding seeds: uint32(step) * this + p, as i
 
 
 def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for every option
-    the port does not run yet (the cache's storage options only where the
-    cache is used)."""
+    """Raise ValueError for an unknown option (the cache's storage options
+    only where the cache is used), and NotImplementedError for the
+    table-wise layout, which ``models/hybrid.HybridParallelDLRM`` trains."""
     c = cfg.cache
     if cfg.model not in ("dlrm", "deepfm"):
         raise ValueError(f"unknown model {cfg.model!r}")
@@ -166,7 +166,9 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
     if cfg.interaction_impl not in ("bmm", "gather"):
         raise ValueError(f"unknown interaction_impl {cfg.interaction_impl!r}")
     refusals = [
-        (cfg.use_tablewise, "the table-wise layout (use_tablewise) is ROADMAP Queue 1 item 9"),
+        # JAX's trainer ignores use_tablewise (its CLI routes the flag to run_hybrid first)
+        (cfg.use_tablewise, "the table-wise layout (use_tablewise) trains through "
+                            "models/hybrid.HybridParallelDLRM, not CachedDLRMTrainer"),
     ]
     if cfg.fused_op not in mesh_window.FUSED_OPS:
         raise ValueError(f"unknown fused_op {cfg.fused_op!r}")

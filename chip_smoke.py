@@ -213,6 +213,25 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      (0, 1]; then ``--world_size 2`` on one visible card raises. Last, a
      pinned 256 MB host-to-device copy (``measure_host_link``), the sharding
      planner's ``Topology.host_link_bytes_per_s``.
+  13. The table-wise layout (``tablewise``, ``phase_tablewise``: ``chip_smoke.py
+     --tablewise DATA_DIR`` in its own process, ``tablewise_child``, run by
+     the CLI phase on its dataset): a mesh of one rank over NCCL. The users'
+     command with ``--use_tablewise`` (``CLI_FLAGS``: Kaggle's 26 tables,
+     368,774 f32 cache rows from ``min(int(0.01 n) + 2000, n)`` a table plus
+     the pad slot, a 17.29 GB host table) in this process: 24 steps (3
+     windows of 8) and 2 + 2 evaluation batches; finite losses, a hit rate in
+     (0, 1], val and test AUROC above 0.5, Kernel 1 launched once a training
+     and once an evaluation step and Kernel 2 once a training step, no other
+     update kernel; then the flush: 65,536 sampled cached rows read from the
+     cache equal in the host table after it, some of them trained. Its losses
+     beside ``cli resident``'s, with no gate: at these flags the JAX
+     package's two runs differ too (the resident trainer ships dense inputs
+     in bf16, the table-wise step takes them in f32), and with f32 dense
+     inputs they are equal (``tests/test_torch_cli.py::
+     test_tablewise_against_the_resident_run``). Then a small table-wise case
+     (TABLEWISE_SLICE) and three ``hybrid_train_step`` steps with each fused
+     op on the card against the same on the CPU (the gates in
+     ``tablewise_child``'s docstring), and ``dryrun_hybrid_train_step(1)``.
 
 Phases 4 and 6 time each kernel beside its bound, its plain version and a
 PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
@@ -229,7 +248,7 @@ fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
 each kernel's launches on every path (the two slices, the two fp8 windows,
 the wire and device-planner runs, the 1TB run, the ragged path and the CLI
 runs, whose processes report their counts in their ``run stats`` line,
-the baseline runs, and the mesh's three runs summed).
+the baseline runs, the mesh's three runs summed, and the table-wise run).
 Phase 11 adds Kernels 1 and 2's times on the resident table
 (``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 6
 Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
@@ -248,11 +267,18 @@ launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...,
 "device_planner": ...}`` line, a ``{"mesh": ..., "baseline": ...,
-"host_link": ..., "bf16_slice": ...}`` line (the mesh and one-card runs'
-host and device s a window, examples/s and peak memory beside the bf16
-slice's), the card's name and power limit, then a
+"host_link": ..., "bf16_slice": ..., "cli": ..., "tablewise": ...}`` line
+(the mesh, one-card, CLI and table-wise runs' host and device s a window,
+examples/s and peak memory beside the bf16 slice's), the card's name and
+power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
+
+``--tablewise-worlds 1,4`` runs the build, writes the CLI phase's dataset
+and runs the command line with ``--use_tablewise`` at each world size in
+turn (one card a rank: four cards for 4), printing the card, then one JSON
+line of each run's losses, AUROC, host and device s a window, examples/s,
+peak memory and loss difference from the first run; no ``ok`` line.
 
 ``--kernel5-against`` runs the build and phases 9 and 10 only, with their
 gates, and times each of Kernel 5's entries on its step, as it is and cast
@@ -3222,9 +3248,10 @@ def check_checkpoint_round_trip(data_dir, ckpt_root, device, adagrad: bool = Fal
 def phase_cli(device) -> dict:
     """Phase 11: the users' command line at full Criteo-Kaggle width on a
     written dataset (cached, resident and DeepFM runs, each its own
-    process), Kernels 1 and 2 on the resident table, and the checkpoint
-    round trip. Returns each run's kernel launches by path and the kernels'
-    resident-table entries."""
+    process), Kernels 1 and 2 on the resident table, the checkpoint round
+    trip, then the table-wise phase on the same dataset. Returns each run's
+    kernel launches by path, the kernels' resident-table entries and the
+    table-wise phase's numbers."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3265,13 +3292,20 @@ def phase_cli(device) -> dict:
         torch.cuda.empty_cache()
         ckpt = {"sgd": check_checkpoint_round_trip(data_dir, root, device),
                 "adagrad": check_checkpoint_round_trip(data_dir, root, device, adagrad=True)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        tablewise = phase_tablewise(data_dir, runs["cli resident"]["stats"]["losses"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     secs = time.perf_counter() - t0
     log(f"[cli] phase done in {secs:.1f} s")
     launches = {name: r["stats"]["kernel_launches"] for name, r in runs.items()}
     launches.update({name: r["launches"] for name, r in baseline.items() if "launches" in r})
-    return {"launches": launches, "baseline": baseline,
+    launches["tablewise"] = tablewise["cli"]["launches"]
+    numbers = {name: {"host_s_window": r["stats"]["window_host_s"], "device_s_window": r["stats"]["window_device_s"],
+                      "examples_per_s": r["examples_per_s"], "peak_gib": r["stats"]["peak_device_bytes"] / 2**30,
+                      "auroc": {k: v[0] for k, v in r["metrics"].items()}} for name, r in runs.items()}
+    return {"launches": launches, "baseline": baseline, "tablewise": tablewise, "numbers": numbers,
             "gather_rows": k1, "binned_sgd": k2, "binned_adagrad": ka, "checkpoint": ckpt, "seconds": secs}
 
 
@@ -3515,6 +3549,350 @@ def phase_mesh() -> dict:
     return res
 
 
+# the table-wise phase's small card-vs-CPU case, beside REFERENCE_SLICES
+# (it needs a process group, so it runs in the table-wise child): Kaggle's
+# hand-tuned map at one rank, tables of 50-20,000 rows with n // 16 cache
+# rows each (1,522 slots: the reference's floor of 2,000 rows a table would
+# hold every row the 24 steps touch, 2,768 of them), DATASET eviction after
+# a 70% warmup, batch 256, windows of 4, f32 compute
+TABLEWISE_SLICE = dict(tables=[50, 300, 4000, 20000], batch=256, prefetch=4, skew=0.2, steps=24, eval=4)
+TABLEWISE_SAMPLE_ROWS = 65_536
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def tablewise_small_run(mesh) -> dict:
+    """TABLEWISE_SLICE on ``mesh``'s device through ``parallel/tablewise``:
+    the windows planned, staged and trained (``tablewise_window_step``), one
+    evaluation window (``tablewise_eval_step``), a flush. Returns what the
+    card-vs-CPU gates compare and the run's launch counts."""
+    import numpy as np
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.models.dlrm import DLRM
+    from cachedembedding_tpu_torch.parallel import tablewise as tw
+    from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
+
+    s = TABLEWISE_SLICE
+    tables, B, P = s["tables"], s["batch"], s["prefetch"]
+    train = SyntheticLongTailDataset(tables, B, s["steps"], dense_in_features=13, skew=s["skew"], seed=7,
+                                     global_ids=False)
+    test = SyntheticLongTailDataset(tables, B, s["eval"], dense_in_features=13, skew=s["skew"], seed=99,
+                                    global_ids=False)
+    configs = tw.prepare_tablewise_config(tables, 0.0, train.id_freq_map(), "criteo_kaggle", 1)
+    for c in configs:
+        c.cuda_row_num = c.num_embeddings // 16
+    emb = tw.ParallelCachedEmbeddingBagTablewise(configs, 16, mesh, warmup_ratio=0.7,
+                                                 evict_strategy=EvictionStrategy.DATASET)
+    model = DLRM(16, len(tables), 13, (32, 16), (64, 32, 1), device=mesh.device)
+    kw = dict(feature_perm=emb.feature_select_perm(), f_max=emb.F_max, global_batch=B)
+    step, score = tw.tablewise_window_step(mesh, **kw), tw.tablewise_eval_step(mesh, **kw)
+
+    def window(batches):
+        slot_ids, plans = emb.begin_prepare_window(
+            [b.sparse_features.values.numpy().reshape(len(tables), B).T for b in batches])
+        emb.finish_prepare(plans)
+        return slot_ids, np.stack([b.dense_features.numpy() for b in batches])
+
+    batches = list(train)
+    zero_launch_counts()
+    losses = []
+    for w in range(0, len(batches), P):
+        slot_ids, dense = window(batches[w: w + P])
+        labels = np.stack([b.labels.numpy() for b in batches[w: w + P]])
+        losses.append(step(model, emb.cache_weight, slot_ids, emb._to_device(dense), emb._to_device(labels),
+                           [1.0] * P, [1.0] * P))
+    evb = list(test)
+    slot_ids, dense = window(evb)
+    probs = score(model, emb.cache_weight, slot_ids, emb._to_device(dense))
+    _sync(mesh.device)
+    launches = ops.launch_counts()
+    metrics = StreamingMetrics()
+    metrics.update(probs.reshape(-1).cpu().numpy(), np.concatenate([b.labels.numpy() for b in evb]))
+    emb.flush()
+    touched = np.unique(np.concatenate([b.sparse_features.values.numpy().reshape(len(tables), B).T
+                                        + np.cumsum([0] + tables[:-1]) for b in batches]))
+    st = emb.stats
+    return dict(losses=np.concatenate([x.cpu().numpy() for x in losses]), auroc=metrics.compute()["auroc"],
+                rows=emb.host_tables[0].gather(touched), launches=launches,
+                weights=[p.detach().cpu().numpy() for p in model.parameters()],
+                counts=(st.num_hits_history, st.num_miss_history, st.swap_in_bytes, st.swap_out_bytes))
+
+
+def tablewise_hybrid_step(mesh, fused_op: str) -> dict:
+    """Three ``parallel/hybrid.hybrid_train_step`` steps on ``mesh`` (one
+    rank) on ``tests/test_parallel.py``'s inputs: losses, the shard, the
+    dense weights."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.models.dlrm import DLRM
+    from cachedembedding_tpu_torch.parallel.hybrid import hybrid_train_step
+
+    rng = np.random.default_rng(0)
+    Bg, F, D, Din, C = 16, 3, 32, 5, 64
+    dev = mesh.device
+    model = DLRM(D, F, Din, (8, D), (8, 4, 1), seed=0, device=dev)
+    cw = torch.from_numpy(rng.normal(size=(C, D)).astype(np.float32) * 0.1).to(dev)
+    step = hybrid_train_step(mesh, num_features=F, global_batch=Bg, fused_op=fused_op)
+    losses = []
+    for _ in range(3):
+        dense = torch.from_numpy(rng.random((Bg, Din)).astype(np.float32)).to(dev)
+        labels = torch.from_numpy(rng.integers(0, 2, Bg).astype(np.float32)).to(dev)
+        ids = torch.from_numpy(rng.integers(0, C, (F * Bg,)).astype(np.int32)).to(dev)
+        losses.append(float(step(model, cw, dense, ids, labels, 0.05, 0.05)))
+    return dict(losses=np.asarray(losses), cache=cw.cpu().numpy(),
+                weights=[p.detach().cpu().numpy() for p in model.parameters()])
+
+
+def tablewise_full_width(data_dir, device) -> dict:
+    """The users' command, ``dlrm_main.main`` with ``--use_tablewise`` on the
+    written Criteo-Kaggle dataset, in this process (so on the one-rank mesh
+    it made), with the launch counts zeroed just before; then the flush
+    gate on the model it returns. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.train import dlrm_main
+
+    argv = ["--dataset_dir", str(data_dir), *CLI_FLAGS, "--use_tablewise"]
+    tag = "[tablewise cli]"
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = dlrm_main.main(argv)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    losses, m = res["losses"], res["metrics"][0]
+    emb = res["model"].embed
+    log(f"{tag} {' '.join(argv)}: {wall:.1f} s in this process")
+    if len(losses) != CLI_TRAIN_BATCHES or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} losses {losses}")
+    if not 0.0 < res["hit_rate"] <= 1.0:
+        raise AssertionError(f"{tag} hit rate {res['hit_rate']}")
+    for stage in ("val", "test"):
+        if not m[stage]["auroc"] > 0.5 or m[stage]["count"] != 2 * CLI_BATCH:
+            raise AssertionError(f"{tag} {stage}: {m[stage]}")
+    if device.type == "cuda":  # (a rehearsal on the CPU runs the plain versions)
+        if launches["gather_rows"] != CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES:
+            raise AssertionError(f"{tag} Kernel 1 launched {launches['gather_rows']} times, expected one a training "
+                                 f"and an evaluation step ({CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES}): {launches}")
+        check_update_launches(tag, launches, CLI_TRAIN_BATCHES, "binned_sgd")
+    # the flush: a sample of the cached rows, read from the cache before it,
+    # must be in the host table after it, and some of them must be trained
+    slots, rows = emb.dirs[0].resident()
+    real = rows != emb.pad_row
+    slots, rows = slots[real], rows[real]
+    pick = np.sort(np.random.default_rng(0).choice(slots.size, min(TABLEWISE_SAMPLE_ROWS, slots.size), replace=False))
+    held = emb.cache_weight[torch.from_numpy(slots[pick].astype(np.int64)).to(device)].cpu().numpy()
+    before = emb.host_tables[0].gather(rows[pick])
+    emb.flush()
+    after = emb.host_tables[0].gather(rows[pick])
+    moved = int((after != before).any(axis=1).sum())
+    if not np.array_equal(after, held) or moved == 0:
+        raise AssertionError(f"{tag} flush: {int((after != held).any(axis=1).sum())} of {pick.size} sampled rows "
+                             f"differ from the cache's, {moved} moved")
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    out = dict(wall_s=wall, losses=losses, auroc={s: m[s]["auroc"] for s in ("val", "test")},
+               hit_rate=res["hit_rate"], launches=launches, host_s_window=res["window_host_s"],
+               device_s_window=res["window_device_s"], examples_per_s=res["examples_per_s"][0], peak_gib=peak,
+               table_init_s=res["table_init_s"], freq_s=res["freq_s"], swap_in_bytes=res["swap_in_bytes"],
+               swap_out_bytes=res["swap_out_bytes"], cache_rows=int(emb.C_max), flush_rows=int(pick.size),
+               flush_trained_rows=moved)
+    log(f"{tag} {CLI_TRAIN_BATCHES} steps, val auroc {out['auroc']['val']:.4f}, test auroc {out['auroc']['test']:.4f}; "
+        f"hit rate {res['hit_rate']:.4f}; {emb.C_max} f32 cache rows; table filled in {res['table_init_s']:.2f} s; "
+        f"kernel launches {launches}")
+    log(f"{tag} flush: {pick.size} sampled cached rows equal in the host table, {moved} of them trained")
+    log(f"{tag} host s/window {[round(x, 4) for x in out['host_s_window']]}; device s/window "
+        f"{[round(x, 4) for x in out['device_s_window']]}; {out['examples_per_s']:.0f} examples/s; peak "
+        f"{peak if peak is None else round(peak, 3)} GiB; swap in {res['swap_in_bytes']} B, out "
+        f"{res['swap_out_bytes']} B")
+    return out
+
+
+def tablewise_child(data_dir, device_type: str = "cuda") -> int:
+    """``chip_smoke.py --tablewise DATA_DIR``: the table-wise phase's
+    process, on a mesh of one rank (NCCL on the card) and, for the CPU
+    runs it is held against, a mesh of the same rank over the mesh's gloo
+    host group. (1) The users' command at full Criteo-Kaggle width
+    (``tablewise_full_width``); (2) TABLEWISE_SLICE on the card and on the
+    CPU: cache counts equal with writebacks, losses within rtol 1e-4, the
+    evaluation's AUROC within 1e-4, dense weights within rtol 1e-4 / atol
+    1e-7, flushed rows within 1e-5 (f32 sums in another order; reference
+    slice a's gates), the card's Kernel 1 once a step (the evaluation
+    window's 4 included) and Kernel 2 once a training step; (3) the
+    hybrid step, each fused op, 3 steps on the card and on the CPU: losses
+    within rtol 1e-5, the shard and the dense weights within rtol 1e-4 /
+    atol 1e-6 (JAX's tolerances for a mesh against one device); (4)
+    ``dryrun_hybrid_train_step(1)``. Prints one JSON line of its numbers
+    last."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.parallel.hybrid import dryrun_hybrid_train_step
+    from cachedembedding_tpu_torch.parallel.mesh import Mesh, destroy_mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, device_type)
+    cpu = Mesh(group=mesh.host_group, host_group=mesh.host_group, rank=0, size=1, device=torch.device("cpu"))
+    log(f"[tablewise] make_mesh(1): rank {mesh.rank} of {mesh.size} on {mesh.device}, "
+        f"{torch.distributed.get_backend()} backend")
+    out = {"cli": tablewise_full_width(data_dir, mesh.device)}
+    gc.collect()
+
+    tag = "[tablewise small]"
+    got, ref = tablewise_small_run(mesh), tablewise_small_run(cpu)
+    steps = TABLEWISE_SLICE["steps"]
+    if got["counts"] != ref["counts"] or got["counts"][3] == 0:
+        raise AssertionError(f"{tag} cache counts {got['counts']} vs the CPU's {ref['counts']} (or no writeback)")
+    if mesh.device.type == "cuda":
+        check_update_launches(tag, got["launches"], steps, "binned_sgd")
+        if got["launches"]["gather_rows"] != steps + TABLEWISE_SLICE["eval"]:
+            raise AssertionError(f"{tag} kernel launches {got['launches']}")
+    loss_rel = float(np.max(np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])))
+    row_err = float(np.abs(got["rows"] - ref["rows"]).max())
+    if (not np.isfinite(got["losses"]).all() or loss_rel > 1e-4 or abs(got["auroc"] - ref["auroc"]) > 1e-4
+            or row_err > 1e-5 or not all(np.allclose(a, b, rtol=1e-4, atol=1e-7)
+                                         for a, b in zip(got["weights"], ref["weights"]))):
+        raise AssertionError(f"{tag} card vs CPU: loss max rel {loss_rel:.2e}, auroc {got['auroc']} vs "
+                             f"{ref['auroc']}, flushed rows max abs {row_err:.2e}")
+    out["small"] = dict(loss_max_rel=loss_rel, rows_max_abs=row_err, auroc=(got["auroc"], ref["auroc"]),
+                        writeback_bytes=got["counts"][3])
+    log(f"{tag} card vs CPU: counts equal ({got['counts'][3]} writeback bytes); loss max rel diff {loss_rel:.2e}; "
+        f"{got['rows'].shape[0]} flushed rows max abs diff {row_err:.2e}; auroc {got['auroc']:.6f} vs "
+        f"{ref['auroc']:.6f}")
+
+    for op in ("all_to_all", "gather_scatter"):
+        tag = f"[tablewise hybrid_train_step {op}]"
+        zero_launch_counts()
+        got = tablewise_hybrid_step(mesh, op)
+        launches = ops.launch_counts()
+        ref = tablewise_hybrid_step(cpu, op)
+        rel = float(np.max(np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])))
+        if rel > 1e-5 or not np.allclose(got["cache"], ref["cache"], rtol=1e-4, atol=1e-6) or not all(
+                np.allclose(a, b, rtol=1e-4, atol=1e-6) for a, b in zip(got["weights"], ref["weights"])):
+            raise AssertionError(f"{tag} card vs CPU: loss max rel {rel:.2e}, shard max abs "
+                                 f"{float(np.abs(got['cache'] - ref['cache']).max()):.2e}")
+        if mesh.device.type == "cuda":
+            check_update_launches(tag, launches, 3, "binned_sgd")
+            if launches["gather_rows"] != 3:
+                raise AssertionError(f"{tag} kernel launches {launches}")
+        out[f"hybrid_{op}"] = dict(loss_max_rel=rel, cache_max_abs=float(np.abs(got["cache"] - ref["cache"]).max()))
+        log(f"{tag} 3 steps, card vs CPU: loss max rel diff {rel:.2e}, shard max abs diff "
+            f"{out[f'hybrid_{op}']['cache_max_abs']:.2e}")
+    out["dryrun_loss"] = dryrun_hybrid_train_step(1, device_type)
+    log(f"[tablewise] dryrun_hybrid_train_step(1): loss {out['dryrun_loss']:.6f}")
+    destroy_mesh(mesh)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"tablewise_child": out}), flush=True)
+    return 0
+
+
+def phase_tablewise(data_dir, resident_losses) -> dict:
+    """Phase 13: ``tablewise_child`` in its own process (its process group
+    and CUDA context end with it), on the CLI phase's dataset. Returns its
+    numbers, with its losses' largest relative difference from ``cli
+    resident``'s (no gate: see ``tests/test_torch_cli.py::
+    test_tablewise_against_the_resident_run``)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--tablewise", str(data_dir)], capture_output=True, text=True,
+                          timeout=900)
+    for ln in proc.stdout.splitlines()[:-1]:
+        log(ln)
+    if proc.returncode != 0:
+        raise AssertionError(f"[tablewise] exit {proc.returncode}: {proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.splitlines()[-1])["tablewise_child"]
+    tw, rl = np.asarray(res["cli"]["losses"]), np.asarray(resident_losses)
+    res["cli"]["vs_resident_loss_max_rel"] = float(np.max(np.abs(tw - rl) / np.abs(rl)))
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"[tablewise] losses against cli resident's (bf16 dense inputs there, f32 here; no gate): max rel diff "
+        f"{res['cli']['vs_resident_loss_max_rel']:.2e}")
+    log(f"[tablewise] phase done in {res['wall_s']:.1f} s")
+    return res
+
+
+def run_tablewise_cli(name: str, data_dir, extra) -> dict:
+    """One ``--use_tablewise`` run of the users' command in its own process
+    (its ranks spawned by the command itself). Returns what rank 0 printed:
+    the epoch line's examples/s, val/test metrics and its ``run stats``."""
+    import re
+
+    argv = [sys.executable, "-m", "cachedembedding_tpu_torch.train.dlrm_main", "--dataset_dir", str(data_dir),
+            *CLI_FLAGS, "--use_tablewise", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{name}] exit {proc.returncode}: {proc.stderr[-4000:]}")
+    epoch = re.search(r"tablewise\] epoch 0: (\d+) iters .*?\(([0-9.]+) it/s, (\d+) ex/s\)", proc.stdout)
+    metrics = {s: (float(a), int(c)) for s, a, c in
+               re.findall(r"epoch 0 (val|test): auroc=([0-9.]+) accuracy=[0-9.]+ over (\d+)", proc.stdout)}
+    stats = json.loads(re.search(r"run stats: (\{.*\})", proc.stderr).group(1))
+    if not epoch or set(metrics) != {"val", "test"} or not all(math.isfinite(x) for x in stats["losses"]):
+        raise AssertionError(f"[{name}] unexpected output:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[{name}] {wall:.1f} s wall; {epoch.group(1)} steps at {epoch.group(3)} examples/s; val auroc "
+        f"{metrics['val'][0]:.6f}, test auroc {metrics['test'][0]:.6f}; host s/window "
+        f"{[round(x, 4) for x in stats['window_host_s']]}; device s/window "
+        f"{[round(x, 4) for x in stats['window_device_s']]}; peak device bytes {stats['peak_device_bytes']}")
+    return dict(wall_s=wall, examples_per_s=float(epoch.group(3)), metrics=metrics, stats=stats)
+
+
+def run_tablewise_worlds(args) -> int:
+    """``--tablewise-worlds 1,4``: the build, the CLI phase's dataset, then
+    the users' command with ``--use_tablewise`` at each world size in turn
+    (Kaggle's hand-tuned map at each; every rank its own card), on the same
+    stream. Prints the card's name and power limit, then one JSON line: each
+    run's losses, AUROC, host and device s a window, examples/s, peak
+    memory, and each run's largest loss difference from the first's. No
+    gate but the runs' own; not the smoke run: no ``ok`` line."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from cachedembedding_tpu_torch import _build
+
+    if len(args) != 1:
+        print("chip_smoke: --tablewise-worlds takes one comma-separated list", file=sys.stderr)
+        return 2
+    worlds = [int(x) for x in args[0].split(",")]
+    phase_build()
+    smi = card_name()
+    root = Path(tempfile.mkdtemp(prefix="cli_", dir=_build.BUILD_DIR))
+    try:
+        data_dir = write_cli_dataset(Path(tempfile.mkdtemp(prefix="criteo_kaggle_", dir=root)))
+        runs = {w: run_tablewise_cli(f"tablewise world {w}", data_dir, ["--world_size", str(w)]) for w in worlds}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first = np.asarray(runs[worlds[0]]["stats"]["losses"])
+    out = {}
+    for w, r in runs.items():
+        st = r["stats"]
+        out[w] = dict(losses=st["losses"], auroc={k: v[0] for k, v in r["metrics"].items()},
+                      host_s_window=st["window_host_s"], device_s_window=st["window_device_s"],
+                      examples_per_s=r["examples_per_s"], peak_device_bytes=st["peak_device_bytes"],
+                      loss_max_rel_vs_first=float(np.max(np.abs(np.asarray(st["losses"]) - first) / np.abs(first))))
+    print(smi)
+    print(json.dumps({"tablewise_worlds": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3527,6 +3905,10 @@ def main() -> int:
         return refuse_unsorted_plan(sys.argv[2])
     if sys.argv[1:2] == ["--mesh"]:  # phase 12's child process
         return mesh_child()
+    if sys.argv[1:2] == ["--tablewise"]:  # phase 13's child process
+        return tablewise_child(sys.argv[2])
+    if sys.argv[1:2] == ["--tablewise-worlds"]:
+        return run_tablewise_worlds(sys.argv[2:])
     if sys.argv[1:2] == ["--kernel5-against"]:
         return run_kernel5_against(sys.argv[2:])
     procs = {}
@@ -3656,7 +4038,7 @@ def run_phases(procs: dict) -> int:
     print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits,
                       "device_planner": device_planner}))
     print(json.dumps({"mesh": mesh, "baseline": cli["baseline"], "host_link": host_link,
-                      "bf16_slice": SLICE_NUMBERS.get("bfloat16")}))
+                      "bf16_slice": SLICE_NUMBERS.get("bfloat16"), "cli": cli["numbers"], "tablewise": cli["tablewise"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

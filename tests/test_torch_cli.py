@@ -1,11 +1,11 @@
 """The port's command line (``train/dlrm_main.py``) against the JAX package's
 on the same Criteo-format npy files, on the CPU: the same flags and defaults,
 the same config, the same AUROC and losses (row-wise Adagrad, the sparse
-gradient, fp8 rows with rounding off, float8_e5m2 rows, the device planner
-and a column-wise mesh of two ranks included), a refusal naming its ROADMAP
-item for every layout flag outside the port (and JAX's own refusal of
-``--planner device`` with row-wise Adagrad), and ``--world_size`` resolved
-as JAX resolves it."""
+gradient, fp8 rows with rounding off, float8_e5m2 rows, the device planner,
+a column-wise mesh of two ranks and the table-wise layout on one and two
+ranks included), a refusal naming its ROADMAP item for every layout flag
+outside the port (and JAX's own refusal of ``--planner device`` with
+row-wise Adagrad), and ``--world_size`` resolved as JAX resolves it."""
 
 import dataclasses
 import re
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import cachedembedding_tpu.models.hybrid as jax_hybrid_mod
 import cachedembedding_tpu.train.trainer as jax_trainer_mod
 import cachedembedding_tpu_torch.train.trainer as port_trainer_mod
 import torch_parity as tp
@@ -143,7 +144,7 @@ def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--use_tablewise"], 9), (["--use_rowwise"], 9), (["--multihost"], 9),
+    (["--use_rowwise"], 9), (["--multihost"], 9),
 ])
 def test_refused_flags_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
@@ -229,3 +230,141 @@ def test_checkpoint_resume_and_mid_epoch_validation(tmp_path, capsys):
                               "--limit_train_batches", "3"))
     out = capsys.readouterr().out
     assert re.findall(r"^it (\d): loss=", out, re.M) == ["2", "3"] and "inspect: " in out
+
+
+TABLEWISE = ["--use_tablewise", "--use_freq", "--cache_ratio", "0.1"]
+
+
+def _record_jax_windows(monkeypatch, sink):
+    """Record the losses of JAX's ``run_hybrid`` (its model's windows)."""
+    train_window = jax_hybrid_mod.HybridParallelDLRM.train_window
+
+    def recording(self, *a, **k):
+        out = train_window(self, *a, **k)
+        sink.extend(np.asarray(out).tolist())
+        return out
+
+    monkeypatch.setattr(jax_hybrid_mod.HybridParallelDLRM, "train_window", recording)
+
+
+def _run_stats(err: str) -> dict:
+    import json
+
+    return json.loads(re.search(r"run stats: (\{.*\})", err).group(1))
+
+
+@pytest.mark.parametrize("world", ["1", "2"])
+def test_tablewise_matches_jax(tmp_path, capfd, monkeypatch, world):
+    """``--use_tablewise --platform cpu`` against JAX's ``run_hybrid`` on the
+    same files, at one rank (in this process, a gloo group of one) and two
+    (spawned ranks; Kaggle's hand-tuned map puts tables 0 and 2 on rank 0,
+    table 1 on rank 1): the 24 losses within rtol 1e-5, val and test AUROC
+    within 1e-4 (f32 rows: the f32 CLI case's tolerances), the same counts,
+    and the cache statistics line JAX prints."""
+    d = write_dataset(tmp_path / "criteo_kaggle")
+    argv = small_argv(d, *TABLEWISE)
+    argv[argv.index("--world_size") + 1] = world
+    jl = []
+    _record_jax_windows(monkeypatch, jl)
+    jax_main.main(argv)
+    want_out = capfd.readouterr().out
+    want = _metrics(want_out)
+    res = port_main.main(argv)
+    captured = capfd.readouterr()
+    got = _metrics(captured.out)
+    pl = _run_stats(captured.err)["losses"]
+    assert set(got) == set(want) == {"val", "test"} and len(pl) == len(jl) == 24 and np.isfinite(pl).all()
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    for stage in ("val", "test"):
+        assert got[stage][1] == want[stage][1] == 160
+        assert abs(got[stage][0] - want[stage][0]) <= 1e-4, (stage, got, want)
+    comm = [ln for ln in captured.out.splitlines() if ln.startswith("CacheStats")]
+    assert comm and comm[0].split(" swap_in")[0] == [ln for ln in want_out.splitlines()
+                                                    if ln.startswith("CacheStats")][0].split(" swap_in")[0]
+    assert captured.out.count(f"hybrid[{world}dev,tablewise] epoch 0 val: auroc=") == 1  # rank 0 alone prints
+    if world == "1":  # the result the command returns in this process
+        assert res["losses"] == pl and res["model"].embed.world == 1 and 0.0 < res["hit_rate"] <= 1.0
+
+
+def test_tablewise_ignores_flags_as_jax(tmp_path, capfd, monkeypatch):
+    """The table-wise layout trains DLRM towers with plain SGD on f32 rows
+    and f32 admits whatever --model, --cache_dtype, --embedding_optimizer
+    and --transfer_dtype say, in JAX and in the port: the same losses with
+    and without them, and the port names them on one stderr line."""
+    d = write_dataset(tmp_path / "criteo_kaggle")
+    odd = ["--model", "deepfm", "--cache_dtype", "float32", "--embedding_optimizer", "rowwise_adagrad",
+           "--transfer_dtype", "int8"]
+    runs, jl = {}, []
+    _record_jax_windows(monkeypatch, jl)
+    for name, extra in (("plain", []), ("odd", odd)):
+        jax_main.main(small_argv(d, *TABLEWISE, *extra))
+        res = port_main.main(small_argv(d, *TABLEWISE, *extra))
+        runs[name] = (list(jl), res["losses"], capfd.readouterr().err)
+        jl.clear()
+    assert runs["odd"][0] == runs["plain"][0] and runs["odd"][1] == runs["plain"][1]
+    line = [ln for ln in runs["odd"][2].splitlines() if ln.startswith("--use_tablewise ignores")]
+    assert len(line) == 1 and all(f"--{k} " in line[0] for k in
+                                  ("model", "cache_dtype", "embedding_optimizer", "transfer_dtype"))
+    assert "--use_tablewise ignores" not in runs["plain"][2]
+
+
+def test_tablewise_takes_the_kaggle_map_for_any_dataset(cpu_devices):
+    """Without a dataset name the table-wise model takes Criteo-Kaggle's
+    hand-tuned map, its first F entries, in JAX and in the port: the
+    synthetic stream's 4 tables on 2 ranks are [0, 1, 0, 1]."""
+    from cachedembedding_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from cachedembedding_tpu_torch.models.hybrid import HybridParallelDLRM as PortHybrid
+    from cachedembedding_tpu_torch.parallel.mesh import Mesh
+
+    cfg = port_main.build_config(port_main.parse_args(["--use_tablewise", "--embedding_dim", "16",
+                                                       "--dense_arch_layer_sizes", "8,16",
+                                                       "--over_arch_layer_sizes", "8,1"]))
+    jcfg = jax_main.build_config(jax_main.parse_args(["--use_tablewise", "--embedding_dim", "16",
+                                                      "--dense_arch_layer_sizes", "8,16",
+                                                      "--over_arch_layer_sizes", "8,1"]))
+    want = jax_hybrid_mod.HybridParallelDLRM(jcfg, jax_make_mesh(2)).embed.tables_of_rank
+    for r in range(2):
+        got = PortHybrid(cfg, Mesh(group=None, host_group=None, rank=r, size=2, device=torch.device("cpu")))
+        assert got.embed.tables_of_rank == want == [[0, 2], [1, 3]]
+        assert got.embed.host_tables[r].num_rows == sum(cfg.num_embeddings_per_feature[t] for t in want[r]) + 1
+
+
+def test_tablewise_against_the_resident_run(tmp_path, capfd, monkeypatch):
+    """At one rank the table-wise host table is the fused table, seed for
+    seed, plus a pad row, and f32 caching moves no value, so the table-wise
+    run should train as the resident one (no --use_cache). In JAX it does
+    so bit for bit only where the resident trainer gets f32 dense inputs:
+    its training windows ship them in ``dense_input_dtype``, bf16 by
+    default, which the command line does not set, while ``run_hybrid``
+    feeds them in f32. So at the command line's flags JAX's two runs differ
+    beyond rtol 1e-5, and with f32 dense inputs they are equal; the port's
+    two runs, with f32 dense inputs, within rtol 1e-5."""
+    d = write_dataset(tmp_path / "criteo_kaggle")
+    flags = ["--use_freq", "--cache_ratio", "0.01", "--warmup_ratio", "0.7", "--prefetch_num", "8"]
+    tl, rl, rl32, pl32 = [], [], [], []
+    _record_jax_windows(monkeypatch, tl)
+    jax_main.main(small_argv(d, *flags, "--use_tablewise"))
+    _record_losses(monkeypatch, jax_trainer_mod.CachedDLRMTrainer, rl)
+    jax_main.main(small_argv(d, *flags))
+
+    def f32_dense(build):
+        def build_f32(args):
+            cfg = build(args)
+            cfg.dense_input_dtype = "float32"
+            return cfg
+        return build_f32
+
+    monkeypatch.setattr(jax_main, "build_config", f32_dense(jax_main.build_config))
+    _record_losses(monkeypatch, jax_trainer_mod.CachedDLRMTrainer, rl32)
+    jax_main.main(small_argv(d, *flags))
+    port_tw = port_main.main(small_argv(d, *flags, "--use_tablewise"))["losses"]
+    monkeypatch.setattr(port_main, "build_config", f32_dense(port_main.build_config))
+    _record_losses(monkeypatch, port_trainer_mod.CachedDLRMTrainer, pl32)
+    port_main.main(small_argv(d, *flags))
+    capfd.readouterr()
+    tl, rl, rl32 = (np.asarray(x[:24]) for x in (tl, rl, rl32))
+    assert len(tl) == len(rl32) == len(port_tw) == len(pl32) == 24
+    assert np.max(np.abs(tl - rl) / np.abs(rl)) > 1e-5  # the bf16 dense wire
+    np.testing.assert_array_equal(tl, rl32)
+    np.testing.assert_allclose(port_tw, pl32, rtol=1e-5)
+    np.testing.assert_allclose(port_tw, tl, rtol=1e-5)

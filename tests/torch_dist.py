@@ -213,3 +213,195 @@ def mesh_window_cases(mesh, cases: dict) -> dict:
     """``train_cases``, where the case "payloads" is ``rank_payloads``."""
     return {name: rank_payloads(mesh, case["payload_rows"]) if name == "payloads" else train_case(mesh, case)
             for name, case in cases.items()}
+
+
+# ---------------------------------------------------------------------------
+# the table-wise layout and the hybrid step
+
+
+def make_tablewise(mesh, table_sizes, ranks, D, W_global, cache_full=True):
+    """``tests/test_tablewise.py``'s ``_make_tablewise`` in the port: zero
+    host tables, no warmup, LFU, then this rank's host table holds its
+    tables' rows of ``W_global`` and a zero pad row."""
+    from cachedembedding_tpu_torch.cache.host_table import DenseHostTable
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+    from cachedembedding_tpu_torch.parallel.tablewise import (
+        ParallelCachedEmbeddingBagTablewise,
+        TablewiseEmbeddingBagConfig,
+    )
+
+    cfgs = [TablewiseEmbeddingBagConfig(num_embeddings=n, cuda_row_num=n if cache_full else max(2, n // 4),
+                                        assigned_rank=r) for n, r in zip(table_sizes, ranks)]
+    tw = ParallelCachedEmbeddingBagTablewise(cfgs, D, mesh, warmup_ratio=0.0, weight_init="zeros",
+                                             evict_strategy=EvictionStrategy.LFU)
+    offs = np.concatenate([[0], np.cumsum(table_sizes)])
+    rows = [W_global[offs[t]: offs[t + 1]] for t in tw.tables_of_rank[mesh.rank]]
+    rows.append(np.zeros((1, D), np.float32))
+    tw.host_tables[mesh.rank] = DenseHostTable(np.ascontiguousarray(np.concatenate(rows)))
+    return tw
+
+
+def _dlrm_from(params, D, F, Din, dense_arch, over_arch):
+    """The port's DLRM holding JAX's ``params`` (numpy, JAX layout)."""
+    from cachedembedding_tpu_torch.models.dlrm import DLRM, params_from_jax
+
+    model = DLRM(D, F, Din, dense_arch, over_arch, device="cpu")
+    model.load_state_dict(params_from_jax(params))
+    return model
+
+
+def _local(mesh, x):
+    import torch
+
+    b = x.shape[0] // mesh.size
+    return torch.from_numpy(np.ascontiguousarray(x[mesh.rank * b: (mesh.rank + 1) * b]))
+
+
+def tablewise_step_cases(mesh, c: dict) -> dict:
+    """``tests/test_tablewise.py``'s step cases on this rank: one
+    ``tablewise_train_step`` (then a flush), the same batches per batch and
+    as one ``tablewise_window_step``, and ``tablewise_eval_step`` on the
+    window's trained weights. Returns this rank's losses, host table rows,
+    dense weights (JAX layout) and probabilities."""
+    import torch
+
+    from cachedembedding_tpu_torch.models.dlrm import params_to_jax
+    from cachedembedding_tpu_torch.parallel.tablewise import (
+        tablewise_eval_step,
+        tablewise_train_step,
+        tablewise_window_step,
+    )
+
+    sizes, ranks, W, D, B = c["table_sizes"], c["ranks"], c["W_global"], c["D"], c["B"]
+    arch = (c["Din"], c["dense_arch"], c["over_arch"])
+    lr = c["lr"]
+    out = {}
+
+    def build(kind):
+        tw = make_tablewise(mesh, sizes, ranks, D, W)
+        return tw, _dlrm_from(c["params"], D, len(sizes), *arch), kind(
+            mesh, feature_perm=tw.feature_select_perm(), f_max=tw.F_max, global_batch=B)
+
+    # one step, then the flushed host table
+    tw, model, step = build(tablewise_train_step)
+    ids_bf, dense, labels = c["batches"][0]
+    slot_ids, plans = tw.begin_prepare(ids_bf)
+    tw.finish_prepare(plans)
+    loss = step(model, tw.cache_weight, _local(mesh, dense), slot_ids, _local(mesh, labels), lr, lr)
+    tw.flush()
+    out["step"] = dict(loss=float(loss), table=tw.host_tables[mesh.rank].array.copy(), params=params_to_jax(model),
+                       stats=(list(tw.stats.num_hits_history), list(tw.stats.num_miss_history)))
+    # per batch
+    tw, model, step = build(tablewise_train_step)
+    losses = []
+    for ids_bf, dense, labels in c["batches"]:
+        slot_ids, plans = tw.begin_prepare(ids_bf)
+        tw.finish_prepare(plans)
+        losses.append(float(step(model, tw.cache_weight, _local(mesh, dense), slot_ids, _local(mesh, labels),
+                                 lr, lr)))
+    out["per_batch"] = dict(losses=losses, params=params_to_jax(model))
+    # the window, then its scoring
+    tw, model, step = build(tablewise_window_step)
+    slot_ids, plans = tw.begin_prepare_window([b[0] for b in c["batches"]])
+    tw.finish_prepare(plans)
+    P_ = len(c["batches"])
+    dense_P = np.stack([b[1] for b in c["batches"]])
+    labels_P = np.stack([b[2] for b in c["batches"]])
+    b = B // mesh.size
+    sl = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    losses = step(model, tw.cache_weight, slot_ids, torch.from_numpy(dense_P[:, sl].copy()),
+                  torch.from_numpy(labels_P[:, sl].copy()), [lr] * P_, [lr] * P_)
+    ev = tablewise_eval_step(mesh, feature_perm=tw.feature_select_perm(), f_max=tw.F_max, global_batch=B)
+    probs = ev(model, tw.cache_weight, slot_ids, torch.from_numpy(dense_P[:, sl].copy()))
+    out["window"] = dict(losses=losses.numpy(), params=params_to_jax(model), probs=probs.numpy())
+    return out
+
+
+def tablewise_pressure_case(mesh, c: dict) -> dict:
+    """``tests/test_tablewise.py::test_cache_pressure_roundtrip`` on this
+    rank: windows of lookups through a cache of a quarter of each table;
+    the cache rows the slot ids name must be the table's. Returns this
+    rank's largest difference, the cache statistics and the flushed host
+    table."""
+    sizes, ranks, W, D, B = c["table_sizes"], c["ranks"], c["W_global"], c["D"], c["B"]
+    tw = make_tablewise(mesh, sizes, ranks, D, W, cache_full=False)
+    offs = np.cumsum([0] + list(sizes))
+    err = 0.0
+    for ids_bf in c["ids"]:
+        slot_ids, plans = tw.begin_prepare(ids_bf)
+        tw.finish_prepare(plans)
+        sl, cw = slot_ids.numpy(), tw.cache_weight.numpy()
+        for t in tw.tables_of_rank[mesh.rank]:
+            j = tw.feat_pos[t][1]
+            got = cw[sl[j * B: (j + 1) * B]]
+            err = max(err, float(np.abs(got - W[offs[t] + ids_bf[:, t]]).max()))
+    tw.flush()
+    s = tw.stats
+    return dict(err=err, stats=(s.prepare_calls, list(s.num_hits_history), list(s.num_miss_history),
+                                s.swap_in_bytes, s.swap_out_bytes),
+                table=tw.host_tables[mesh.rank].array.copy())
+
+
+def hybrid_cases(mesh, c: dict) -> dict:
+    """This rank's part of ``tests/test_torch_hybrid.py``'s cases: the
+    hybrid step with each fused op (its loss, its column shard and dense
+    weights after one step), the id exchanges, ``HybridParallelDLRM`` in
+    both layouts (losses, hit rate, ``model_stats``) and the dry run."""
+    import torch
+
+    from cachedembedding_tpu_torch.config import CacheConfig, DLRMConfig
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.models.dlrm import params_to_jax
+    from cachedembedding_tpu_torch.models.hybrid import HybridParallelDLRM
+    from cachedembedding_tpu_torch.parallel import all_to_all as a2a
+    from cachedembedding_tpu_torch.parallel.hybrid import dryrun_hybrid_train_step, hybrid_train_step
+
+    out = {}
+    s = c["step"]
+    dpr = s["cache"].shape[1] // mesh.size
+    cols = slice(mesh.rank * dpr, (mesh.rank + 1) * dpr)
+    for op in ("all_to_all", "gather_scatter"):
+        model = _dlrm_from(s["params"], s["cache"].shape[1], s["F"], s["dense"].shape[1], (8, s["cache"].shape[1]),
+                           (8, 4, 1))
+        step = hybrid_train_step(mesh, num_features=s["F"], global_batch=s["dense"].shape[0], fused_op=op)
+        cw = torch.from_numpy(np.ascontiguousarray(s["cache"][:, cols]))
+        loss = step(model, cw, _local(mesh, s["dense"]), torch.from_numpy(s["slot_ids"]),
+                    _local(mesh, s["labels"]), s["lr"], s["lr"])
+        out[op] = dict(loss=float(loss), cache=cw.numpy(), params=params_to_jax(model))
+
+    e = c["exchange"]
+    ids, owners = torch.from_numpy(e["ids"][mesh.rank]), torch.from_numpy(e["owners"][mesh.rank])
+    bucketed, counts = a2a.bucket_by_owner(ids, owners, mesh.size, e["V"])
+    recv, recv_counts = a2a.exchange_to_owners(bucketed, counts, mesh)
+    vals = torch.from_numpy(e["fbp"][mesh.rank].reshape(-1))
+    ragged = torch.from_numpy(e["ragged"][mesh.rank])
+    lengths = torch.from_numpy(e["lengths"][mesh.rank])
+    vg, lg = a2a.exchange_ragged(ragged, lengths, ragged.shape[0], mesh)
+    out["exchange"] = dict(recv=recv.numpy(), counts=recv_counts.numpy(),
+                           uniform=a2a.gather_global_uniform(vals, e["F"], e["P"], mesh).numpy(),
+                           ragged=[x.numpy() for x in a2a.compact_ragged_global(vg, lg, mesh.size, ragged.shape[0],
+                                                                                e["out_size"])])
+
+    h = c["hybrid"]
+    for layout, tables, n, seed in (("column", h["column_tables"], 6, 2), ("tablewise", h["tablewise_tables"], 5, 3)):
+        cfg = DLRMConfig(num_embeddings_per_feature=tables, embedding_dim=32, dense_in_features=4,
+                         dense_arch_layer_sizes=(16, 32), over_arch_layer_sizes=(16, 8, 1), batch_size=64,
+                         learning_rate=0.2, use_tablewise=layout == "tablewise",
+                         cache=CacheConfig(cache_ratio=0.5, warmup_ratio=0.5, buffer_size=0))
+        data = SyntheticLongTailDataset(tables, cfg.batch_size, n, dense_in_features=4, seed=seed,
+                                        global_ids=layout == "column")
+        model = HybridParallelDLRM(cfg, mesh, id_freq_map=data.id_freq_map(),
+                                   dataset="synthetic" if layout == "tablewise" else None)
+        losses = []
+        for b in data:
+            if layout == "column":
+                slots = model.embed.prepare_ids(b.sparse_features.values.numpy())
+            else:
+                slots, plans = model.embed.begin_prepare(b.sparse_features.to_fbp()[:, :, 0].T.numpy())
+                model.embed.finish_prepare(plans)
+            losses.append(float(model.train_step(b.dense_features, slots, b.labels, 0.2, 0.2)))
+        out[layout] = dict(losses=losses, hit_rate=model.embed.stats.hit_rate(), stats=model.model_stats("hybrid"))
+        if layout == "column":
+            model.embed.close()
+    out["dryrun"] = dryrun_hybrid_train_step(mesh.size, "cpu")
+    return out

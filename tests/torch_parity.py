@@ -1,7 +1,9 @@
 """Shared by the trainer parity tests of the port (``test_torch_adagrad``,
 ``test_torch_sparse_grad``, ``test_torch_fp8_variants``): one small cached
 DLRM run in the JAX package or in the port, on the same seeded synthetic
-stream, and what the tests compare. The JAX trainer runs with
+stream, and what the tests compare; and, for the table-wise and hybrid
+tests, JAX's dense weights carried to spawned ranks and held against the
+port's. The JAX trainer runs with
 use_pallas_lookup=False (its evaluate vmaps the Pallas gather, which its CPU
 interpreter cannot run; the jnp.take lookup computes the same function)."""
 
@@ -91,3 +93,21 @@ def storage_steps(a: np.ndarray, b: np.ndarray, dtype) -> np.ndarray:
 
     t = [torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (a, b)]
     return steps(*t, dtype).numpy()
+
+
+def numpy_params(params) -> dict:
+    """JAX's ``DLRMParams`` as a picklable dict of numpy arrays, which the
+    port's ``models/dlrm.params_from_jax`` takes."""
+    return {a: [{k: np.asarray(v) for k, v in layer.items()} for layer in getattr(params, a)]
+            for a in ("dense_arch", "over_arch")}
+
+
+def assert_params_close(port_params: dict, jax_params, rtol: float = 1e-4, atol: float = 1e-6) -> None:
+    """The port's dense weights (``models/dlrm.params_to_jax``'s dict)
+    against JAX's ``DLRMParams``, layer by layer."""
+    want = numpy_params(jax_params)
+    for arch in ("dense_arch", "over_arch"):
+        assert len(port_params[arch]) == len(want[arch])
+        for got, ref in zip(port_params[arch], want[arch]):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(got[k], ref[k], rtol=rtol, atol=atol)
