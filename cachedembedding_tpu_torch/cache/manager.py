@@ -231,7 +231,9 @@ class CachedEmbeddingBag:
     selection; the port selects exactly). ``columns`` = (start, end): the
     columns of every row that this bag stores, on the device and in its host
     table (a column-sharded bag's, ``parallel/column.py``; default all).
-    Runs on ``device`` (default: the current CUDA device; with no GPU and no
+    ``initial_weight``: the host table's rows, in place of ``weight_init``
+    (a row shard's, ``parallel/row_cached.py``; never synthesized on the
+    device). Runs on ``device`` (default: the current CUDA device; with no GPU and no
     explicit ``device="cpu"`` this raises)."""
 
     def __init__(
@@ -261,6 +263,7 @@ class CachedEmbeddingBag:
         unique_budget: Optional[int] = None,
         approx_evict: bool = False,
         columns: Optional[Tuple[int, int]] = None,
+        initial_weight: Optional[np.ndarray] = None,
     ):
         self.device = resolve_device(device)
         self.col_start, col_end = columns if columns is not None else (0, int(embedding_dim))
@@ -325,7 +328,12 @@ class CachedEmbeddingBag:
 
         # --- host-DRAM master weight ---
         t0 = time.perf_counter()
-        if weight_init == "virtual":
+        if initial_weight is not None:
+            if initial_weight.shape != (self.num_embeddings, self.dim_stored):
+                raise ValueError(f"initial_weight is {initial_weight.shape}, the table "
+                                 f"({self.num_embeddings}, {self.dim_stored})")
+            self.host_table = DenseHostTable(np.ascontiguousarray(initial_weight, dtype=np.float32))
+        elif weight_init == "virtual":
             self.host_table = VirtualHostTable(
                 self.table_sizes, self.dim_stored, seed=seed,
                 capacity_hint=max(4 * self.capacity, 1 << 16), col_start=self.col_start,
@@ -657,7 +665,7 @@ class CachedEmbeddingBag:
         return WindowStaging(
             slot_ids=slot_full.reshape(out_shape),
             synth_slots=hp.admit_slots[fresh], synth_rows=synth_rows,
-            synth_bounds=self.host_table.row_bounds(synth_rows).astype(np.float32),
+            synth_bounds=self.host_table.row_bounds(synth_rows).astype(np.float32) if synth_rows.size else empty_f,
             fetch_slots=hp.admit_slots[written], fetch_rows=w_rows, fetch_payload=payload, fetch_scales=scales,
             fetch_accum=fetch_accum,
             admit_slots=hp.admit_slots, evict_rows=hp.evict_rows,

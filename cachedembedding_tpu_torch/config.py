@@ -1,8 +1,9 @@
 """Structured configuration: a field-for-field copy of
 ``cachedembedding_tpu/config.py`` with the same defaults.
 
-The port runs one slice of these options (see ``ROADMAP.md``); the trainer and
-the cache raise ``NotImplementedError`` naming the ROADMAP item for the rest.
+The trainer and the cache raise ``ValueError`` for an unknown option, and the
+trainer ``NotImplementedError`` for ``use_tablewise``, which
+``models/hybrid.HybridParallelDLRM`` trains.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Multi-device layouts (counterpart of ``cachedembedding_tpu/parallel/``):
 the sharding planner, the process-group mesh, the collectives every layout
-shares, the id exchanges, the column-wise and table-wise cached embeddings
-and the per-batch hybrid step. Ranks are processes joined by
-``torch.distributed`` (NCCL on the card, gloo on the CPU).
+shares, the id exchanges, the column-wise, table-wise and row-sharded cached
+embeddings, the row-wise lookup and the per-batch hybrid step. Ranks are
+processes joined by ``torch.distributed`` (NCCL on the card, gloo on the
+CPU), on one host or several (a process a host spawns a rank a card; the
+ranks meet over TCP).
 
 ``make_mesh``, ``hybrid_train_step`` and ``dryrun_hybrid_train_step`` are
 exported as the JAX package exports them, on first use: ``parallel/hybrid.py``

@@ -10,7 +10,9 @@ second group, gloo over the same ranks, carries the host-side collectives
 
 Every rank sees the global batch's ids and plans the same cache windows from
 them, as the JAX package's single controller does; only the dense features
-and labels are split by batch.
+and labels are split by batch. Across hosts the ranks meet over TCP (the
+command line's ``--multihost``): a rank's place in the group is its global
+rank, its card its local one.
 """
 
 from __future__ import annotations
@@ -47,17 +49,21 @@ def launched() -> bool:
 
 
 def make_mesh(n_devices: Optional[int] = None, device=None, init_method: Optional[str] = None,
-              rank: Optional[int] = None) -> Mesh:
+              rank: Optional[int] = None, local_rank: Optional[int] = None) -> Mesh:
     """A mesh of ``n_devices`` ranks (default: the whole group) on ``device``
     ("cuda", the default, or "cpu").
 
     It joins the default process group where one is initialized. Otherwise
     it initializes one: from a launcher's environment (``torchrun``), from
-    ``init_method`` (e.g. ``file://...``) with ``rank``, or, for a mesh of
-    one rank, in this process alone. Where the JAX package's ``make_mesh``
-    takes the first ``n_devices`` of the visible devices, and so silently
-    builds a smaller mesh when fewer are visible, this raises: a mesh larger
-    than the visible cards, or than the process group, is refused."""
+    ``init_method`` (``file://...``, or ``tcp://host:port`` across hosts)
+    with the global ``rank``, or, for a mesh of one rank, in this process
+    alone. The rank's card is ``local_rank``, else the launcher's
+    LOCAL_RANK, else the rank modulo the visible cards. Where the JAX
+    package's ``make_mesh`` takes the first ``n_devices`` of the visible
+    devices, and so silently builds a smaller mesh when fewer are visible,
+    this raises: a mesh larger than the process group is refused, and so is
+    a rank whose card is not visible (on one host: a mesh larger than the
+    visible cards)."""
     kind = resolve_device(device).type
     backend = "nccl" if kind == "cuda" else "gloo"
     if not dist.is_initialized():
@@ -78,9 +84,13 @@ def make_mesh(n_devices: Optional[int] = None, device=None, init_method: Optiona
         raise ValueError(f"a mesh of {n} ranks in a process group of {world}: the mesh is the whole group")
     if kind == "cuda":
         visible = torch.cuda.device_count()
-        if n > visible:
+        if local_rank is None and "LOCAL_RANK" in os.environ:
+            local_rank = int(os.environ["LOCAL_RANK"])
+        if local_rank is None and n > visible:
             raise ValueError(f"a mesh of {n} ranks needs {n} CUDA devices; {visible} visible")
-        local = int(os.environ.get("LOCAL_RANK", me % visible))
+        local = me % visible if local_rank is None else int(local_rank)
+        if local >= visible:
+            raise ValueError(f"rank {me} runs on card {local}; {visible} CUDA devices are visible")
         dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
     else:

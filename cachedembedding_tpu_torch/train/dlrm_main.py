@@ -12,7 +12,15 @@ does with more than one device: unset, it means every visible CUDA device
 (1 under ``--platform cpu``); more than the visible cards raises. With more
 than one rank the command spawns them itself (one process a rank, NCCL on
 the card, gloo on the CPU, a file rendezvous), unless a launcher such as
-``torchrun`` started it; only rank 0 prints. With no ``--dataset_dir`` it trains on
+``torchrun`` started it; only rank 0 prints. ``--multihost`` makes the
+process one host of several, where the JAX CLI's process is one controller
+of a host's devices: with ``--coordinator_address H:P --num_processes N
+--process_id p`` it spawns its ``local`` ranks (the visible cards, or
+``--world_size / N`` under ``--platform cpu``), rank i joining
+``tcp://H:P`` as global rank ``p * local + i`` of ``N * local``, and each
+host's first rank prints, as each JAX controller does; without
+``--coordinator_address`` it joins a launcher's process group (and raises
+where none is set); every layout runs under it. With no ``--dataset_dir`` it trains on
 procedural long-tail batches. Without ``--use_cache`` the whole table lives on
 the device (``baselines/full_resident.py``, f32 rows), with its row-wise
 Adagrad accumulators under ``--embedding_optimizer rowwise_adagrad`` (the
@@ -24,8 +32,11 @@ a mesh of ``--world_size`` ranks, one rank too), window by window, then
 validates and tests after each epoch, as the JAX CLI's ``run_hybrid`` does;
 like it, it trains DLRM towers with plain SGD on f32 cache rows and f32
 admits, and says on stderr which of the flags it ignores were set
-(``TABLEWISE_IGNORES``). The row-wise and multi-host layouts raise
-``NotImplementedError`` naming their ROADMAP item.
+(``TABLEWISE_IGNORES``). ``--use_rowwise`` trains the row-sharded cached
+layout (``run_rowwise``: ``parallel/row_cached.py``) the same way, as the
+JAX CLI's ``run_rowwise`` does: plain SGD on f32 cache rows, f32 compute,
+the window planned once and trained step by step, evaluation batch by
+batch; it names the flags it ignores too (``ROWWISE_IGNORES``).
 ``--profile_dir`` writes a ``torch.profiler`` trace there;
 ``--memory_fraction`` caps this process's share of device memory;
 ``--pin_memory`` and ``--use_overlap`` are accepted (host payloads are
@@ -98,7 +109,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="stochastic rounding of cache-row updates (auto = on for fp8 rows)")
     p.add_argument("--planner", choices=["auto", "host", "device"], default="auto",
                    help="cache planner: native host directory vs the device state machine")
-    # parallelism: ROADMAP Queue 1 item 9
+    # parallelism
     p.add_argument("--use_tablewise", action="store_true")
     p.add_argument("--use_rowwise", action="store_true")
     p.add_argument("--fused_op", choices=["all_to_all", "gather_scatter"], default="all_to_all")
@@ -129,38 +140,54 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def refuse_outside_port(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for every layout
-    flag the port does not run yet."""
-    refusals = [
-        (args.use_rowwise, "--use_rowwise"),
-        (args.multihost, "--multihost"),
-    ]
-    for bad, flag in refusals:
-        if bad:
-            raise NotImplementedError(f"{flag}: this multi-device layout is ROADMAP Queue 1 item 9")
+def resolve_hosts(args) -> int:
+    """The processes (hosts) of the run: ``--num_processes`` under
+    ``--multihost --coordinator_address``, else 1. Exits with the JAX CLI's
+    message where the coordinator comes without its counts, and raises
+    where ``--multihost`` has neither a coordinator nor a launcher."""
+    from cachedembedding_tpu_torch.parallel.mesh import launched
+
+    if not args.multihost:
+        return 1
+    if args.coordinator_address:
+        if args.num_processes is None or args.process_id is None:
+            sys.exit("--coordinator_address requires --num_processes and --process_id (jax.distributed cannot "
+                     "autodetect them off-pod)")
+        if not 0 <= args.process_id < args.num_processes:
+            raise ValueError(f"--process_id {args.process_id} outside [0, {args.num_processes})")
+        return int(args.num_processes)
+    if not launched():
+        raise RuntimeError("--multihost without --coordinator_address joins a launcher's process group (torchrun's "
+                           "RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT); none is set")
+    return 1
 
 
 def resolve_world_size(args) -> int:
     """The mesh's ranks, as the JAX CLI resolves them (its ``--world_size
     or len(jax.devices())``): ``--world_size``, else the launcher's world
-    size, else every visible CUDA device, and 1 under ``--platform cpu``.
-    On the card, more ranks than visible cards raise."""
+    size, else every visible CUDA device of every host, and one rank a host
+    under ``--platform cpu``. On the card, more ranks on one host than its
+    visible cards raise."""
     import torch
 
     from cachedembedding_tpu_torch.parallel.mesh import launched
 
     cpu = args.platform == "cpu"
+    hosts = resolve_hosts(args)
     if args.world_size is not None:
         n = int(args.world_size)
     elif launched():
         n = int(os.environ["WORLD_SIZE"])
     else:
-        n = 1 if cpu else torch.cuda.device_count()
+        n = hosts * (1 if cpu else torch.cuda.device_count())
     if n < 1:
         raise ValueError(f"--world_size {n}: at least one rank")
-    if not cpu and n > max(torch.cuda.device_count(), 1):
-        raise ValueError(f"--world_size {n}: {torch.cuda.device_count()} CUDA devices are visible")
+    if n % hosts:
+        raise ValueError(f"--world_size {n} does not split evenly over {hosts} processes")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", n)) if launched() else n // hosts
+    if not cpu and local > max(torch.cuda.device_count(), 1):
+        where = f" ({local} a process)" if hosts > 1 else ""
+        raise ValueError(f"--world_size {n}{where}: {torch.cuda.device_count()} CUDA devices are visible")
     return n
 
 
@@ -305,43 +332,56 @@ def main(argv=None) -> None:
     from cachedembedding_tpu_torch.parallel.mesh import launched, make_mesh
 
     args = parse_args(argv)
-    refuse_outside_port(args)
     device = resolve_platform(args)
-    world = resolve_world_size(args)
+    world = resolve_world_size(args)  # (it checks the --multihost flags)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if args.multihost and args.coordinator_address:
+        local = world // args.num_processes
+        return _spawn(argv, world, local, f"tcp://{args.coordinator_address}", args.process_id * local)
     if world == 1 and not launched():
         return run(args, device)
     if launched() or dist.is_initialized():
         return run(args, device, make_mesh(world, device.type))
     import tempfile
 
+    with tempfile.TemporaryDirectory(prefix="dlrm_main_") as root:
+        _spawn(argv, world, world, f"file://{os.path.join(root, 'rendezvous')}", 0)
+
+
+def _spawn(argv, world: int, nprocs: int, init_method: str, first_rank: int) -> None:
+    """Start ``nprocs`` ranks of this host (global ranks ``first_rank`` on)
+    and wait for them."""
     import torch.multiprocessing as mp
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    with tempfile.TemporaryDirectory(prefix="dlrm_main_") as root:
-        mp.start_processes(_rank_main, args=(world, os.path.join(root, "rendezvous"), argv), nprocs=world,
-                           start_method="spawn")
+    mp.start_processes(_rank_main, args=(world, init_method, argv, first_rank), nprocs=nprocs,
+                       start_method="spawn")
 
 
-def _rank_main(rank: int, world: int, rendezvous: str, argv) -> None:
-    """A spawned rank of the command line: join the mesh, then ``run``."""
+def _rank_main(i: int, world: int, init_method: str, argv, first_rank: int = 0):
+    """Local rank ``i`` of the command line: join the mesh as global rank
+    ``first_rank + i`` on this host's card ``i``, then ``run``."""
     from cachedembedding_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
 
     args = parse_args(argv)
-    mesh = make_mesh(world, "cpu" if args.platform == "cpu" else "cuda", init_method=f"file://{rendezvous}",
-                     rank=rank)
+    mesh = make_mesh(world, "cpu" if args.platform == "cpu" else "cuda", init_method=init_method,
+                     rank=first_rank + i, local_rank=i)
     try:
-        run(args, mesh.device, mesh)
+        return run(args, mesh.device, mesh, quiet=i != 0)
     finally:
         destroy_mesh(mesh)
 
 
-def run(args, device, mesh=None):
+def run(args, device, mesh=None, quiet: Optional[bool] = None):
     """Train and evaluate, as one device or as one rank of ``mesh`` (every
-    rank runs it; only rank 0 prints). Returns ``run_hybrid``'s result under
-    ``--use_tablewise``, else None."""
+    rank runs it; where ``quiet`` is not given, only rank 0 prints; the
+    ranks the command spawns print where they are the first of their host). Returns ``run_hybrid``'s result under
+    ``--use_tablewise``, ``run_rowwise``'s under ``--use_rowwise``, else
+    None."""
     import contextlib
 
-    if mesh is not None and mesh.rank != 0:
+    if quiet is None:
+        quiet = mesh is not None and mesh.rank != 0
+    if quiet:
         with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet), contextlib.redirect_stderr(quiet):
             return _run(args, device, mesh)
     return _run(args, device, mesh)
@@ -373,6 +413,10 @@ def _run(args, device, mesh):
         print(f"id_freq_map: {'loaded' if cached_freq else 'computed'} in {freq_s:.2f} s", file=sys.stderr)
     if args.use_tablewise:
         return run_hybrid(args, cfg, freq, device, mesh, freq_s)
+    if args.use_rowwise:
+        return run_rowwise(args, cfg, freq, device, mesh, freq_s)
+    if mesh is not None and mesh.size == 1:
+        mesh = None  # one rank trains as one device, as the JAX CLI's one-device run does
     if mesh is not None:
         print(f"mesh: {mesh.size} devices, column-wise hybrid", file=sys.stderr)
 
@@ -497,14 +541,19 @@ TABLEWISE_IGNORES = ("model", "cache_dtype", "embedding_optimizer", "transfer_dt
                      "validation_freq_within_epoch")
 
 
-def note_ignored_flags(args) -> None:
-    """Print one stderr line naming the flags of TABLEWISE_IGNORES that were
-    set to other than their defaults, where there are any."""
+# flags that --use_rowwise reads nowhere, as JAX's run_rowwise reads none of them
+ROWWISE_IGNORES = ("cache_dtype", "embedding_optimizer", "adagrad_eps", "stochastic_rounding", "planner",
+                   "use_sparse_embed_grad", "compute_dtype", "fused_op", "checkpoint_dir", "profile_dir",
+                   "inspect_time", "validation_freq_within_epoch")
+
+
+def note_ignored_flags(args, layout: str, ignores, why: str) -> None:
+    """Print one stderr line naming the flags of ``ignores`` that were set
+    to other than their defaults, where there are any."""
     defaults = vars(parse_args([]))
-    set_ = [f"--{k} {getattr(args, k)}" for k in TABLEWISE_IGNORES if getattr(args, k) != defaults[k]]
+    set_ = [f"--{k} {getattr(args, k)}" for k in ignores if getattr(args, k) != defaults[k]]
     if set_:
-        print(f"--use_tablewise ignores {', '.join(set_)}: it trains DLRM towers with plain SGD on f32 cache rows "
-              "and f32 admits, as the JAX CLI's run_hybrid does", file=sys.stderr)
+        print(f"{layout} ignores {', '.join(set_)}: {why}", file=sys.stderr)
 
 
 def run_hybrid(args, cfg, freq, device, mesh=None, freq_s: Optional[float] = None) -> dict:
@@ -528,7 +577,8 @@ def run_hybrid(args, cfg, freq, device, mesh=None, freq_s: Optional[float] = Non
     if mesh is None:
         mesh = make_mesh(1, device.type)
     try:
-        note_ignored_flags(args)
+        note_ignored_flags(args, "--use_tablewise", TABLEWISE_IGNORES, "it trains DLRM towers with plain SGD on f32 "
+                           "cache rows and f32 admits, as the JAX CLI's run_hybrid does")
         n = mesh.size
         print(f"mesh: {n} devices, tablewise hybrid", file=sys.stderr)
         model = HybridParallelDLRM(cfg, mesh=mesh, id_freq_map=freq)
@@ -633,6 +683,173 @@ def run_hybrid(args, cfg, freq, device, mesh=None, freq_s: Optional[float] = Non
         }
         print(f"run stats: {json.dumps(stats)}", file=sys.stderr)
         return {"model": model, "metrics": epochs, **stats}
+    finally:
+        if own_mesh:
+            destroy_mesh(mesh)
+
+
+def run_rowwise(args, cfg, freq, device, mesh=None, freq_s: Optional[float] = None) -> dict:
+    """``--use_rowwise``: the row-sharded cached layout over ``mesh`` (where
+    it is None, a mesh of one rank, made here and destroyed at the end unless
+    a process group was there already), as the JAX CLI's ``run_rowwise``:
+    each window's ids routed to their owners' shards and planned once (every
+    rank gets the global batch's ids), then trained step by step; each
+    evaluation batch planned and scored alone; plain SGD on f32 cache rows
+    with ``lr_at(i)`` as both learning rates, f32 dense inputs and compute.
+    Prints the JAX CLI's lines. Returns the embedding and model (still
+    open), the losses, each epoch's metrics and the numbers of its ``run
+    stats`` line."""
+    import torch
+    import torch.distributed as dist
+
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+    from cachedembedding_tpu_torch.models.deepfm import DeepFM
+    from cachedembedding_tpu_torch.models.dlrm import DLRM
+    from cachedembedding_tpu_torch.ops import launch_counts
+    from cachedembedding_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    from cachedembedding_tpu_torch.parallel.row_cached import (
+        RowShardedCachedEmbeddingBag,
+        build_rowwise_cached_step,
+        build_rowwise_cached_window,
+    )
+    from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
+    from cachedembedding_tpu_torch.utils.misc import get_mem_info
+
+    own_mesh = mesh is None and not dist.is_initialized()
+    if mesh is None:
+        mesh = make_mesh(1, device.type)
+    try:
+        note_ignored_flags(args, "--use_rowwise", ROWWISE_IGNORES, "it trains with plain SGD on f32 cache rows "
+                           "and f32 compute, as the JAX CLI's run_rowwise does")
+        n, c, dev = mesh.size, cfg.cache, mesh.device
+        print(f"mesh: {n} devices, rowwise cached", file=sys.stderr)
+        embed = RowShardedCachedEmbeddingBag(
+            cfg.total_num_embeddings, cfg.embedding_dim, mesh=mesh, cache_ratio=c.cache_ratio,
+            ids_freq_mapping=freq if c.use_freq else None, warmup_ratio=c.warmup_ratio, buffer_size=c.buffer_size,
+            evict_strategy=(EvictionStrategy.DATASET if not c.use_lfu_eviction and c.use_freq and freq is not None
+                            else EvictionStrategy.LFU),
+            seed=cfg.seed, weight_init=c.weight_init if c.weight_init != "virtual" else "uniform",
+            transfer_dtype=c.transfer_dtype,
+        )
+        F, Din = cfg.num_sparse_features, cfg.dense_in_features
+        if cfg.model == "deepfm":
+            net = DeepFM(cfg.embedding_dim, F, Din, hidden_layer_size=cfg.dense_arch_layer_sizes[0],
+                         deep_fm_dimension=cfg.deep_fm_dimension, seed=cfg.seed, device=dev)
+        else:
+            net = DLRM(cfg.embedding_dim, F, Din, cfg.dense_arch_layer_sizes, cfg.over_arch_layer_sizes,
+                       seed=cfg.seed, device=dev)
+        print(f"table filled in {embed.table_init_s:.2f} s", file=sys.stderr)
+        print(get_mem_info("after model init", device), file=sys.stderr)
+        kw = dict(num_features=F, global_batch=cfg.batch_size, pooling=1, capacity=embed.capacity, model=cfg.model)
+        window_step = build_rowwise_cached_window(mesh, **kw)
+        score = build_rowwise_cached_step(mesh, train=False, **kw)
+        B_local = cfg.batch_size // n
+        me = slice(mesh.rank * B_local, (mesh.rank + 1) * B_local)
+        pn = max(1, c.prefetch_num)
+        cuda = dev.type == "cuda"
+        host_s: list = []
+        events: list = []
+
+        def per_rank_ids(batch):
+            fb = np.asarray(batch.sparse_features.values).reshape(F, cfg.batch_size, -1)
+            return np.stack([fb[:, r * B_local: (r + 1) * B_local].reshape(-1) for r in range(n)])
+
+        def to_dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+        def run_stage(stage, limit, train: bool, progress_total=None):
+            """A pass: (the per-step losses, or the metrics; the steps done)."""
+            metrics = StreamingMetrics()
+            losses, done = [], 0
+            it = iter(get_data(args, cfg, stage))
+
+            def lr_at(i):
+                if progress_total and cfg.change_lr and i / max(progress_total, 1) >= cfg.lr_change_point:
+                    return cfg.lr_after
+                return cfg.learning_rate
+
+            while limit is None or done < limit:
+                th = time.perf_counter()
+                if train:
+                    window = []
+                    for _ in range(pn if limit is None else min(pn, limit - done)):
+                        try:
+                            window.append(next(it))
+                        except StopIteration:
+                            break
+                    if not window:
+                        break
+                    P = len(window)
+                    ids = np.stack([per_rank_ids(b) for b in window])  # (P, W, L)
+                    enc = embed.prepare_ids_per_rank(ids.transpose(1, 0, 2).reshape(n, -1))
+                    enc = enc.reshape(n, P, -1)[mesh.rank]  # this rank's (P, L)
+                    dense = np.stack([np.asarray(b.dense_features, np.float32)[me] for b in window])
+                    labels = np.stack([np.asarray(b.labels, np.float32)[me] for b in window])
+                    lrs = [lr_at(done + i) for i in range(P)]
+                    host_s.append(time.perf_counter() - th)
+                    if cuda:
+                        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                    losses.append(window_step(net, embed.global_cache(), to_dev(enc), to_dev(dense), to_dev(labels),
+                                              lrs, lrs))
+                    if cuda:
+                        ev[1].record()
+                        events.append(ev)
+                    done += P
+                else:
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    enc = embed.prepare_ids_per_rank(per_rank_ids(batch))[mesh.rank]
+                    probs = score(net, embed.global_cache(), to_dev(enc),
+                                  to_dev(np.asarray(batch.dense_features, np.float32)[me]))
+                    metrics.update(probs.reshape(-1).cpu().numpy(), np.asarray(batch.labels))
+                    done += 1
+            if train:
+                return (torch.cat(losses).cpu().tolist() if losses else []), done
+            return metrics.compute(), done
+
+        limit = args.limit_train_batches
+        all_losses, epochs, examples_per_s = [], [], []
+        for epoch in range(cfg.epochs):
+            t0 = time.perf_counter()
+            train_losses, n_it = run_stage("train", limit, True, progress_total=limit)
+            dt = time.perf_counter() - t0
+            all_losses += train_losses
+            examples_per_s.append(n_it * cfg.batch_size / dt)
+            msg = (f"rowwise[{n}dev] epoch {epoch}: {n_it} iters in {dt:.0f}s "
+                   f"({n_it / dt:.2f} it/s, {n_it * cfg.batch_size / dt:.0f} ex/s)")
+            if train_losses:
+                msg += f", final loss={train_losses[-1]:.5f}"
+            print(msg)
+            print(embed.aggregate_stats().summary())
+            metrics = {}
+            for stage, lim in [("val", args.limit_val_batches), ("test", args.limit_test_batches)]:
+                m, _ = run_stage(stage, lim, False)
+                metrics[stage] = m
+                print(f"rowwise[{n}dev] epoch {epoch} {stage}: "
+                      f"auroc={m['auroc']:.9f} accuracy={m['accuracy']:.9f} over {m['count']}")
+            epochs.append(metrics)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        print(get_mem_info("after training", device), file=sys.stderr)
+        st = embed.aggregate_stats()
+        stats = {
+            "kernel_launches": launch_counts(),
+            "table_init_s": embed.table_init_s,
+            "freq_s": freq_s if freq is not None else None,
+            "examples_per_s": examples_per_s,
+            "losses": all_losses,
+            "hit_rate": st.hit_rate(),
+            "window_host_s": host_s,
+            "window_device_s": [a.elapsed_time(b) / 1e3 for a, b in events],
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "swap_in_bytes": st.swap_in_bytes,
+            "swap_out_bytes": st.swap_out_bytes,
+        }
+        print(f"run stats: {json.dumps(stats)}", file=sys.stderr)
+        return {"embed": embed, "model": net, "metrics": epochs, **stats}
     finally:
         if own_mesh:
             destroy_mesh(mesh)

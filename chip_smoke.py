@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel5-against SOURCE.cu
+    python3 chip_smoke.py --tablewise-worlds 1,4     (four cards)
+    python3 chip_smoke.py --rowwise-worlds 1,4       (four cards)
 
 Needs one CUDA GPU (an H100 is the target) and the checkout around this file;
 it imports torch, numpy and the port, nothing of JAX. Phases:
@@ -232,6 +234,26 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      (TABLEWISE_SLICE) and three ``hybrid_train_step`` steps with each fused
      op on the card against the same on the CPU (the gates in
      ``tablewise_child``'s docstring), and ``dryrun_hybrid_train_step(1)``.
+  14. The row-sharded cached layout (``rowwise``, ``phase_rowwise``:
+     ``chip_smoke.py --rowwise DATA_DIR`` in its own process,
+     ``rowwise_child``, run by the CLI phase on its dataset after the
+     table-wise phase): the users' command with ``--use_rowwise`` in this
+     process, a mesh of one rank over NCCL (``CLI_FLAGS``: Kaggle's 26
+     tables, one shard of 33,762,577 rows, 337,625 f32 cache rows from
+     ``int(0.01 per)``, the 17.29 GB f32 host table): 24 steps (3 windows of
+     8) and 2 + 2 evaluation batches; finite losses, a hit rate in (0, 1],
+     val and test AUROC above 0.5, Kernel 1 once a training and an
+     evaluation step and Kernel 2 once a training step, no other update
+     kernel; the flush gate of phase 13. Then Kernels 1 and 2 against their
+     plain versions on a row-wise step's 425,984 owner lanes
+     (``check_rowwise_kernels``). Then the same run as the one rank of
+     ``--multihost --coordinator_address 127.0.0.1:PORT --num_processes 1
+     --process_id 0`` (``dlrm_main._rank_main``, what the command starts for
+     its rank; it joins over TCP): the same losses, AUROC and flushed
+     sample, bit for bit. Then a small row-wise case (ROWWISE_SLICE, the
+     JAX tests' shapes) through ``parallel/row_cached``'s bag, its steps
+     and windows and ``parallel/row``'s lookup, on the card against the CPU
+     (the gates in ``rowwise_child``'s docstring).
 
 Phases 4 and 6 time each kernel beside its bound, its plain version and a
 PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
@@ -248,9 +270,11 @@ fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
 each kernel's launches on every path (the two slices, the two fp8 windows,
 the wire and device-planner runs, the 1TB run, the ragged path and the CLI
 runs, whose processes report their counts in their ``run stats`` line,
-the baseline runs, the mesh's three runs summed, and the table-wise run).
+the baseline runs, the mesh's three runs summed, the table-wise run and the
+row-wise run).
 Phase 11 adds Kernels 1 and 2's times on the resident table
-(``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 6
+(``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 14
+their times on a row-wise step (``on_rowwise_step``), phase 6
 Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
 step (``on_ragged_step``) and Kernel 5's dense ragged entry with its
 heaviest run alone (the kernel's own numbers), and phase 9 Kernel 5's
@@ -267,18 +291,20 @@ launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...,
 "device_planner": ...}`` line, a ``{"mesh": ..., "baseline": ...,
-"host_link": ..., "bf16_slice": ..., "cli": ..., "tablewise": ...}`` line
-(the mesh, one-card, CLI and table-wise runs' host and device s a window,
+"host_link": ..., "bf16_slice": ..., "cli": ..., "tablewise": ..., "rowwise":
+...}`` line (the mesh, one-card, CLI, table-wise and row-wise runs' host and
+device s a window,
 examples/s and peak memory beside the bf16 slice's), the card's name and
 power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
 
-``--tablewise-worlds 1,4`` runs the build, writes the CLI phase's dataset
-and runs the command line with ``--use_tablewise`` at each world size in
-turn (one card a rank: four cards for 4), printing the card, then one JSON
-line of each run's losses, AUROC, host and device s a window, examples/s,
-peak memory and loss difference from the first run; no ``ok`` line.
+``--tablewise-worlds 1,4`` (``--rowwise-worlds 1,4``) runs the build, writes
+the CLI phase's dataset and runs the command line with ``--use_tablewise``
+(``--use_rowwise``) at each world size in turn (one card a rank: four cards
+for 4), printing the card, then one JSON line of each run's losses, AUROC,
+host and device s a window, examples/s, peak memory and loss difference
+from the first run; no ``ok`` line.
 
 ``--kernel5-against`` runs the build and phases 9 and 10 only, with their
 gates, and times each of Kernel 5's entries on its step, as it is and cast
@@ -3295,6 +3321,7 @@ def phase_cli(device) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         tablewise = phase_tablewise(data_dir, runs["cli resident"]["stats"]["losses"])
+        rowwise = phase_rowwise(data_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     secs = time.perf_counter() - t0
@@ -3302,10 +3329,11 @@ def phase_cli(device) -> dict:
     launches = {name: r["stats"]["kernel_launches"] for name, r in runs.items()}
     launches.update({name: r["launches"] for name, r in baseline.items() if "launches" in r})
     launches["tablewise"] = tablewise["cli"]["launches"]
+    launches["rowwise"] = rowwise["cli"]["launches"]
     numbers = {name: {"host_s_window": r["stats"]["window_host_s"], "device_s_window": r["stats"]["window_device_s"],
                       "examples_per_s": r["examples_per_s"], "peak_gib": r["stats"]["peak_device_bytes"] / 2**30,
                       "auroc": {k: v[0] for k, v in r["metrics"].items()}} for name, r in runs.items()}
-    return {"launches": launches, "baseline": baseline, "tablewise": tablewise, "numbers": numbers,
+    return {"launches": launches, "baseline": baseline, "tablewise": tablewise, "rowwise": rowwise, "numbers": numbers,
             "gather_rows": k1, "binned_sgd": k2, "binned_adagrad": ka, "checkpoint": ckpt, "seconds": secs}
 
 
@@ -3826,20 +3854,369 @@ def phase_tablewise(data_dir, resident_losses) -> dict:
     return res
 
 
-def run_tablewise_cli(name: str, data_dir, extra) -> dict:
-    """One ``--use_tablewise`` run of the users' command in its own process
-    (its ranks spawned by the command itself). Returns what rank 0 printed:
-    the epoch line's examples/s, val/test metrics and its ``run stats``."""
+# the row-wise phase's small card-vs-CPU case: tests/test_row_cached.py's
+# shapes (N 4096, D 32, F 4, B 64, 8 dense features) at one rank, a seeded
+# initial table, LFU, 6 per-batch steps then 2 windows of 3, one scored
+# batch; 384 cache rows (a window of 3 batches touches about 300 distinct
+# ids, so the cache evicts)
+ROWWISE_SLICE = dict(N=4096, D=32, F=4, B=64, Din=8, steps=6, windows=2, window=3, cap=384, lr=0.5)
+
+
+def rowwise_small_run(mesh) -> dict:
+    """ROWWISE_SLICE on ``mesh``'s device through ``parallel/row_cached``
+    (its training step and window and its evaluation step) and
+    ``parallel/row``'s lookup. Returns what the card-vs-CPU gates compare and the run's launch
+    counts (the lookup's launch not among them)."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+    from cachedembedding_tpu_torch.models.dlrm import DLRM
+    from cachedembedding_tpu_torch.parallel.row import make_rowwise_embedding_fn
+    from cachedembedding_tpu_torch.parallel.row_cached import (
+        RowShardedCachedEmbeddingBag,
+        build_rowwise_cached_step,
+        build_rowwise_cached_window,
+    )
+
+    s = ROWWISE_SLICE
+    N, D, F, B, Din, cap, lr = s["N"], s["D"], s["F"], s["B"], s["Din"], s["cap"], s["lr"]
+    n = s["steps"] + s["windows"] * s["window"] + 1
+    rng = np.random.default_rng(5)
+    ids = ((rng.zipf(1.3, size=(n, F * B)) - 1) % N).astype(np.int64)
+    dense = rng.standard_normal((n, B, Din)).astype(np.float32)
+    labels = (rng.random((n, B)) < 0.3).astype(np.float32)
+    w0 = np.random.default_rng(3).standard_normal((N, D)).astype(np.float32) * 0.05
+    dev = mesh.device
+    bag = RowShardedCachedEmbeddingBag(N, D, mesh=mesh, cuda_row_num=cap, initial_weight=w0,
+                                       evict_strategy=EvictionStrategy.LFU, buffer_size=0)
+    net = DLRM(D, F, Din, (16, D), (16, 8, 1), seed=0, device=dev)
+    kw = dict(num_features=F, global_batch=B, pooling=1, capacity=cap)
+    step, window = build_rowwise_cached_step(mesh, **kw), build_rowwise_cached_window(mesh, **kw)
+    score = build_rowwise_cached_step(mesh, train=False, **kw)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    zero_launch_counts()
+    encs, losses = [], []
+    for i in range(s["steps"]):
+        enc = bag.prepare_ids_per_rank(ids[i][None])
+        encs.append(enc)
+        losses.append(step(net, bag.global_cache(), t(enc[0]), t(dense[i]), t(labels[i]), lr, lr).reshape(1))
+    P = s["window"]
+    for w in range(s["windows"]):
+        a = s["steps"] + w * P
+        enc = bag.prepare_ids_per_rank(ids[a: a + P].reshape(1, -1))
+        encs.append(enc)
+        losses.append(window(net, bag.global_cache(), t(enc.reshape(P, -1)), t(dense[a: a + P]),
+                             t(labels[a: a + P]), [lr] * P, [lr] * P))
+    enc = bag.prepare_ids_per_rank(ids[-1][None])
+    encs.append(enc)
+    probs = score(net, bag.global_cache(), t(enc[0]), t(dense[-1]))
+    _sync(dev)
+    launches = ops.launch_counts()
+    st = bag.aggregate_stats()
+    out = dict(enc=encs, losses=torch.cat(losses).cpu().numpy(), probs=probs.cpu().numpy(), launches=launches,
+               stats=(st.prepare_calls, st.num_hits_history, st.num_miss_history, st.num_write_back_history,
+                      st.swap_in_bytes), master=bag.dense_weight())
+    bag.close()
+    lookup, shard_weight = make_rowwise_embedding_fn(mesh, N)
+    wl = shard_weight(w0).requires_grad_(True)
+    rows = lookup(wl, t(ids[0]))
+    rows.sum().backward()
+    out.update(lookup=rows.detach().cpu().numpy(), lookup_grad=wl.grad.cpu().numpy())
+    return out
+
+
+def check_rowwise_kernels(embed, data_dir, device) -> tuple:
+    """Kernels 1 and 2 on a row-wise step at full width: the first training
+    batch's 425,984 ids planned into the (337,625, 128) f32 cache (after the
+    run and its flush), as the owner's lanes (at one rank the rank's slots
+    in stream order). Kernel 1 bit-equal to its plain version and
+    index_select. Kernel 2 on a copy of the cache with seeded f32 grads,
+    from the step's plan sorted on the card, against float64 as
+    ``check_resident_kernels`` holds it (touched rows within 1e-5 of slr *
+    sum|g| plus one f32 ulp, the plain version likewise, untouched rows
+    bit-equal, two launches bit-identical). Returns their entries."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, binned_sgd_update_plain, sort_plan
+    from cachedembedding_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+    from cachedembedding_tpu_torch.train import dlrm_main
+
+    args = dlrm_main.parse_args(["--dataset_dir", str(data_dir), *CLI_FLAGS, "--use_rowwise"])
+    cfg = dlrm_main.build_config(args)
+    batch = next(iter(dlrm_main.get_data(args, cfg, "train")))
+    ids = np.asarray(batch.sparse_features.values).reshape(1, -1)
+    slots = torch.from_numpy(embed.prepare_ids_per_rank(ids)[0]).to(device)  # at one rank: its local slots
+    cw = embed.global_cache()
+    C, D = cw.shape
+    L = slots.shape[0]
+    row_bytes = D * cw.element_size()
+    out = gather_rows(cw, slots, 1)
+    if not (torch.equal(out, gather_rows_plain(cw, slots, 1)) and torch.equal(out[:, 0], cw[slots.long()])):
+        raise AssertionError("[rowwise kernels] gather_rows differs from index_select")
+    del out
+    n_distinct = int(torch.unique(slots).numel())
+    k1 = dict(
+        max_abs_err=0.0,
+        ms=median_ms(lambda: gather_rows(cw, slots, 1)),
+        device_ms=device_median_ms(lambda: gather_rows(cw, slots, 1)),
+        plain_ms=median_ms(lambda: gather_rows_plain(cw, slots, 1)),
+        bound_ms=(L * 4 + (n_distinct + L) * row_bytes) / HBM_BYTES_PER_S * 1e3,
+        library_ms=median_ms(lambda: torch.index_select(cw, 0, slots.long())),
+        timed_on=f"rowwise, a training step's {L} owner lanes ({C} x {D} f32 cache rows)", tolerance="bit-exact",
+    )
+    log(f"[rowwise kernels] gather_rows: {n_distinct} distinct rows, equal to index_select; {json.dumps(k1)}")
+
+    slr = cfg.learning_rate
+    perm, grouped, bins = sort_plan(slots, C)
+    gen = torch.Generator(device=device).manual_seed(0)
+    g = 1e-3 * torch.randn((L, D), generator=gen, device=device)
+    base = cw.clone()
+    touched = torch.unique(grouped).long()
+    exact = base[touched].double() - slr * torch.zeros((touched.numel(), D), dtype=torch.float64,
+                                                         device=device).index_add_(
+        0, torch.searchsorted(touched, grouped.long()), g[perm.long()].double())
+    abs64 = torch.zeros_like(exact).index_add_(0, torch.searchsorted(touched, grouped.long()),
+                                               g[perm.long()].double().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 23)
+
+    def faults(x) -> int:
+        return int(((x.double() - exact).abs() > SCATTER_RTOL * slr * abs64 + ulp).sum())
+
+    a = binned_sgd_update(base.clone(), g, perm, grouped, bins, slr)
+    b = binned_sgd_update(base.clone(), g, perm, grouped, bins, slr)
+    plain = binned_sgd_update_plain(base.clone(), g, perm, grouped, bins, slr)
+    untouched = torch.ones(C, dtype=torch.bool, device=device)
+    untouched[touched] = False
+    if not torch.equal(a, b) or not torch.equal(a[untouched], base[untouched]):
+        raise AssertionError("[rowwise kernels] binned_sgd: two launches differ or untouched rows moved")
+    for what, x in (("kernel", a[touched]), ("plain version", plain[touched])):
+        if faults(x):
+            raise AssertionError(f"[rowwise kernels] binned_sgd {what}: {faults(x)} elements off the float64 "
+                                 f"result by more than {SCATTER_RTOL} x slr x sum|g| + 1 ulp")
+    work = base.clone()
+    ids_nf = slots.long()
+    k2 = dict(
+        max_abs_err=(a - plain).abs().max().item(),
+        ms=median_ms(lambda: binned_sgd_update(work, g, perm, grouped, bins, slr)),
+        device_ms=device_median_ms(lambda: binned_sgd_update(work, g, perm, grouped, bins, slr)),
+        plain_ms=median_ms(lambda: binned_sgd_update_plain(work, g, perm, grouped, bins, slr)),
+        bound_ms=(L * row_bytes + 2 * L * 4 + bins.numel() * 4 + 2 * touched.numel() * row_bytes)
+        / HBM_BYTES_PER_S * 1e3,
+        library_ms=median_ms(lambda: work.index_add_(0, ids_nf, g, alpha=-slr)),
+        library="Tensor.index_add_ (f32 atomics: another sum order)",
+        sort_plan_ms=median_ms(lambda: sort_plan(slots, C)),
+        timed_on=f"rowwise, a training step's {L} owner lanes ({C} x {D} f32 cache rows)",
+        tolerance=f"touched rows within {SCATTER_RTOL} x slr x sum|g| + 1 f32 ulp of float64; untouched rows "
+                  "bit-equal; two launches bit-identical",
+        touched_rows=int(touched.numel()),
+    )
+    log(f"[rowwise kernels] binned_sgd: {touched.numel()} touched rows of {C}, untouched rows bit-equal, two "
+        f"launches bit-identical; {json.dumps(k2)}")
+    return k1, k2
+
+
+def rowwise_full_width(data_dir, device, port=None) -> dict:
+    """The users' command with ``--use_rowwise`` on the written Criteo-Kaggle
+    dataset, in this process: ``dlrm_main.main`` (a one-rank mesh made in
+    this process), or, with ``port``, the same flags with ``--multihost
+    --coordinator_address 127.0.0.1:PORT --num_processes 1 --process_id 0``
+    through ``dlrm_main._rank_main``, what the command starts on this host
+    for its one rank (which joins over TCP). The launch counts are zeroed
+    just before. Gates: finite losses, a hit rate in (0, 1], AUROC above
+    0.5, Kernel 1 once a training and an evaluation step, Kernel 2 once a
+    training step and no other update kernel, and the flush (65,536 sampled
+    cached rows read from the cache equal in the host table after it, some
+    of them trained). Returns its numbers and the embedding (still open)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch import ops
+    from cachedembedding_tpu_torch.train import dlrm_main
+
+    argv = ["--dataset_dir", str(data_dir), *CLI_FLAGS, "--use_rowwise"]
+    tag = "[rowwise cli]"
+    if port is not None:
+        argv += ["--multihost", "--coordinator_address", f"127.0.0.1:{port}", "--num_processes", "1",
+                 "--process_id", "0"]
+        tag = "[rowwise cli multihost]"
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = (dlrm_main.main(argv) if port is None
+           else dlrm_main._rank_main(0, 1, f"tcp://127.0.0.1:{port}", argv, 0))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    losses, m, emb = res["losses"], res["metrics"][0], res["embed"]
+    log(f"{tag} {' '.join(argv)}: {wall:.1f} s in this process")
+    if len(losses) != CLI_TRAIN_BATCHES or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} losses {losses}")
+    if not 0.0 < res["hit_rate"] <= 1.0:
+        raise AssertionError(f"{tag} hit rate {res['hit_rate']}")
+    for stage in ("val", "test"):
+        if not m[stage]["auroc"] > 0.5 or m[stage]["count"] != 2 * CLI_BATCH:
+            raise AssertionError(f"{tag} {stage}: {m[stage]}")
+    if device.type == "cuda":  # (a rehearsal on the CPU runs the plain versions)
+        if launches["gather_rows"] != CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES:
+            raise AssertionError(f"{tag} Kernel 1 launched {launches['gather_rows']} times, expected one a training "
+                                 f"and an evaluation step ({CLI_TRAIN_BATCHES + CLI_EVAL_BATCHES}): {launches}")
+        check_update_launches(tag, launches, CLI_TRAIN_BATCHES, "binned_sgd")
+    slots, rows = emb.shard.resident()
+    pick = np.sort(np.random.default_rng(0).choice(slots.size, min(TABLEWISE_SAMPLE_ROWS, slots.size), replace=False))
+    held = emb.global_cache()[torch.from_numpy(slots[pick].astype(np.int64)).to(device)].cpu().numpy()
+    before = emb.shard.host_table.gather(rows[pick])
+    emb.flush()
+    after = emb.shard.host_table.gather(rows[pick])
+    moved = int((after != before).any(axis=1).sum())
+    if not np.array_equal(after, held) or moved == 0:
+        raise AssertionError(f"{tag} flush: {int((after != held).any(axis=1).sum())} of {pick.size} sampled rows "
+                             f"differ from the cache's, {moved} moved")
+    digest = hashlib.sha256(rows[pick].tobytes() + np.ascontiguousarray(after).tobytes()).hexdigest()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    out = dict(wall_s=wall, losses=losses, auroc={s: m[s]["auroc"] for s in ("val", "test")},
+               hit_rate=res["hit_rate"], launches=launches, host_s_window=res["window_host_s"],
+               device_s_window=res["window_device_s"], examples_per_s=res["examples_per_s"][0], peak_gib=peak,
+               table_init_s=res["table_init_s"], freq_s=res["freq_s"], swap_in_bytes=res["swap_in_bytes"],
+               swap_out_bytes=res["swap_out_bytes"], cache_rows=int(emb.capacity), shard_rows=int(emb.per),
+               flush_rows=int(pick.size), flush_trained_rows=moved, flush_digest=digest)
+    log(f"{tag} {CLI_TRAIN_BATCHES} steps, val auroc {out['auroc']['val']:.4f}, test auroc {out['auroc']['test']:.4f}; "
+        f"hit rate {res['hit_rate']:.4f}; {emb.capacity} f32 cache rows of a {emb.per}-row shard; table filled in "
+        f"{res['table_init_s']:.2f} s; kernel launches {launches}")
+    log(f"{tag} flush: {pick.size} sampled cached rows equal in the host table, {moved} of them trained")
+    log(f"{tag} host s/window {[round(x, 4) for x in out['host_s_window']]}; device s/window "
+        f"{[round(x, 4) for x in out['device_s_window']]}; {out['examples_per_s']:.0f} examples/s; peak "
+        f"{peak if peak is None else round(peak, 3)} GiB; swap in {res['swap_in_bytes']} B, out "
+        f"{res['swap_out_bytes']} B")
+    return out, emb
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rowwise_child(data_dir, device_type: str = "cuda") -> int:
+    """``chip_smoke.py --rowwise DATA_DIR``: the row-wise phase's process.
+    (1) The users' command with ``--use_rowwise`` at full Criteo-Kaggle
+    width (``rowwise_full_width``), then Kernels 1 and 2 on its step
+    (``check_rowwise_kernels``); (2) the same run as the one rank of a
+    one-host ``--multihost`` launch: the same losses, AUROC and flushed
+    sample, bit for bit; (3) ROWWISE_SLICE on the card and on the CPU (a
+    mesh of the same rank over the mesh's gloo host group): every ``enc``
+    and the cache statistics equal, losses within rtol 1e-5, the scored
+    probabilities within 1e-6, the flushed master within 1e-6, ``row.py``'s
+    lookup and its grads bit-equal, the card's Kernel 1 once a step (the
+    scored batch included) and Kernel 2 once a training step. Prints one
+    JSON line of its numbers last."""
+    import numpy as np
+    import torch
+
+    from cachedembedding_tpu_torch.parallel.mesh import Mesh, destroy_mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)  # the CUDA context, before the memory counters are read
+    cli, emb = rowwise_full_width(data_dir, device)
+    out = {"cli": cli}
+    if device.type == "cuda":
+        out["gather_rows"], out["binned_sgd"] = check_rowwise_kernels(emb, data_dir, device)
+    emb.close()
+    del emb
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    mh, emb = rowwise_full_width(data_dir, device, port=free_port())
+    emb.close()
+    del emb
+    gc.collect()
+    same = {k: mh[k] == cli[k] for k in ("losses", "auroc", "flush_digest")}
+    if not all(same.values()):
+        raise AssertionError(f"[rowwise cli multihost] differs from the plain run: {same}")
+    out["multihost"] = {k: mh[k] for k in ("wall_s", "host_s_window", "device_s_window", "examples_per_s",
+                                           "peak_gib")}
+    log("[rowwise cli multihost] losses, AUROC and the flushed sample equal to the plain run's, bit for bit")
+
+    tag = "[rowwise small]"
+    mesh = make_mesh(1, device_type)
+    cpu = Mesh(group=mesh.host_group, host_group=mesh.host_group, rank=0, size=1, device=torch.device("cpu"))
+    got, ref = rowwise_small_run(mesh), rowwise_small_run(cpu)
+    s = ROWWISE_SLICE
+    steps = s["steps"] + s["windows"] * s["window"]
+    if not all(np.array_equal(a, b) for a, b in zip(got["enc"], ref["enc"])) or got["stats"] != ref["stats"]:
+        raise AssertionError(f"{tag} enc or cache counts differ: {got['stats']} vs the CPU's {ref['stats']}")
+    if sum(got["stats"][3]) == 0:
+        raise AssertionError(f"{tag} the cache evicted nothing: {got['stats']}")
+    if mesh.device.type == "cuda":
+        check_update_launches(tag, got["launches"], steps, "binned_sgd")
+        if got["launches"]["gather_rows"] != steps + 1:
+            raise AssertionError(f"{tag} kernel launches {got['launches']}")
+    loss_rel = float(np.max(np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])))
+    master_err = float(np.abs(got["master"] - ref["master"]).max())
+    probs_err = float(np.abs(got["probs"] - ref["probs"]).max())
+    if (not np.isfinite(got["losses"]).all() or loss_rel > 1e-5 or master_err > 1e-6 or probs_err > 1e-6
+            or not np.array_equal(got["lookup"], ref["lookup"])
+            or not np.array_equal(got["lookup_grad"], ref["lookup_grad"])):
+        raise AssertionError(f"{tag} card vs CPU: loss max rel {loss_rel:.2e}, master max abs {master_err:.2e}, "
+                             f"probs max abs {probs_err:.2e}, lookup equal "
+                             f"{np.array_equal(got['lookup'], ref['lookup'])}")
+    out["small"] = dict(loss_max_rel=loss_rel, master_max_abs=master_err, probs_max_abs=probs_err,
+                        writebacks=int(sum(got["stats"][3])))
+    log(f"{tag} card vs CPU: enc and counts equal ({sum(got['stats'][3])} writebacks); loss max rel diff "
+        f"{loss_rel:.2e}; master max abs diff {master_err:.2e}; probs max abs diff {probs_err:.2e}; row.py lookup "
+        f"and grads bit-equal")
+    destroy_mesh(mesh)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"rowwise_child": out}), flush=True)
+    return 0
+
+
+def phase_rowwise(data_dir) -> dict:
+    """Phase 14: ``rowwise_child`` in its own process (its process groups and
+    CUDA context end with it), on the CLI phase's dataset. Returns its
+    numbers."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--rowwise", str(data_dir)], capture_output=True, text=True,
+                          timeout=900)
+    for ln in proc.stdout.splitlines()[:-1]:
+        log(ln)
+    if proc.returncode != 0:
+        raise AssertionError(f"[rowwise] exit {proc.returncode}: {proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.splitlines()[-1])["rowwise_child"]
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"[rowwise] phase done in {res['wall_s']:.1f} s")
+    return res
+
+
+def run_layout_cli(name: str, data_dir, layout: str, extra) -> dict:
+    """One run of the users' command with ``layout`` (``--use_tablewise`` or
+    ``--use_rowwise``) in its own process (its ranks spawned by the command
+    itself). Returns what rank 0 printed: the epoch line's examples/s,
+    val/test metrics and its ``run stats``."""
     import re
 
     argv = [sys.executable, "-m", "cachedembedding_tpu_torch.train.dlrm_main", "--dataset_dir", str(data_dir),
-            *CLI_FLAGS, "--use_tablewise", *extra]
+            *CLI_FLAGS, layout, *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(argv, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"[{name}] exit {proc.returncode}: {proc.stderr[-4000:]}")
-    epoch = re.search(r"tablewise\] epoch 0: (\d+) iters .*?\(([0-9.]+) it/s, (\d+) ex/s\)", proc.stdout)
+    epoch = re.search(r"\] epoch 0: (\d+) iters .*?\(([0-9.]+) it/s, (\d+) ex/s\)", proc.stdout)
     metrics = {s: (float(a), int(c)) for s, a, c in
                re.findall(r"epoch 0 (val|test): auroc=([0-9.]+) accuracy=[0-9.]+ over (\d+)", proc.stdout)}
     stats = json.loads(re.search(r"run stats: (\{.*\})", proc.stderr).group(1))
@@ -3852,14 +4229,14 @@ def run_tablewise_cli(name: str, data_dir, extra) -> dict:
     return dict(wall_s=wall, examples_per_s=float(epoch.group(3)), metrics=metrics, stats=stats)
 
 
-def run_tablewise_worlds(args) -> int:
-    """``--tablewise-worlds 1,4``: the build, the CLI phase's dataset, then
-    the users' command with ``--use_tablewise`` at each world size in turn
-    (Kaggle's hand-tuned map at each; every rank its own card), on the same
-    stream. Prints the card's name and power limit, then one JSON line: each
-    run's losses, AUROC, host and device s a window, examples/s, peak
-    memory, and each run's largest loss difference from the first's. No
-    gate but the runs' own; not the smoke run: no ``ok`` line."""
+def run_layout_worlds(layout: str, args) -> int:
+    """``--tablewise-worlds 1,4`` / ``--rowwise-worlds 1,4``: the build, the
+    CLI phase's dataset, then the users' command with ``--use_tablewise`` /
+    ``--use_rowwise`` at each world size in turn (every rank its own card),
+    on the same stream. Prints the card's name and power limit, then one
+    JSON line: each run's losses, AUROC, host and device s a window,
+    examples/s, peak memory, and each run's largest loss difference from the
+    first's. No gate but the runs' own; not the smoke run: no ``ok`` line."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3869,7 +4246,7 @@ def run_tablewise_worlds(args) -> int:
     from cachedembedding_tpu_torch import _build
 
     if len(args) != 1:
-        print("chip_smoke: --tablewise-worlds takes one comma-separated list", file=sys.stderr)
+        print(f"chip_smoke: --{layout}-worlds takes one comma-separated list", file=sys.stderr)
         return 2
     worlds = [int(x) for x in args[0].split(",")]
     phase_build()
@@ -3877,7 +4254,8 @@ def run_tablewise_worlds(args) -> int:
     root = Path(tempfile.mkdtemp(prefix="cli_", dir=_build.BUILD_DIR))
     try:
         data_dir = write_cli_dataset(Path(tempfile.mkdtemp(prefix="criteo_kaggle_", dir=root)))
-        runs = {w: run_tablewise_cli(f"tablewise world {w}", data_dir, ["--world_size", str(w)]) for w in worlds}
+        runs = {w: run_layout_cli(f"{layout} world {w}", data_dir, f"--use_{layout}", ["--world_size", str(w)])
+                for w in worlds}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     first = np.asarray(runs[worlds[0]]["stats"]["losses"])
@@ -3889,7 +4267,7 @@ def run_tablewise_worlds(args) -> int:
                       examples_per_s=r["examples_per_s"], peak_device_bytes=st["peak_device_bytes"],
                       loss_max_rel_vs_first=float(np.max(np.abs(np.asarray(st["losses"]) - first) / np.abs(first))))
     print(smi)
-    print(json.dumps({"tablewise_worlds": out}), flush=True)
+    print(json.dumps({f"{layout}_worlds": out}), flush=True)
     return 0
 
 
@@ -3907,8 +4285,10 @@ def main() -> int:
         return mesh_child()
     if sys.argv[1:2] == ["--tablewise"]:  # phase 13's child process
         return tablewise_child(sys.argv[2])
-    if sys.argv[1:2] == ["--tablewise-worlds"]:
-        return run_tablewise_worlds(sys.argv[2:])
+    if sys.argv[1:2] == ["--rowwise"]:  # phase 14's child process
+        return rowwise_child(sys.argv[2])
+    if sys.argv[1:2] in (["--tablewise-worlds"], ["--rowwise-worlds"]):
+        return run_layout_worlds(sys.argv[1][2:-7], sys.argv[2:])
     if sys.argv[1:2] == ["--kernel5-against"]:
         return run_kernel5_against(sys.argv[2:])
     procs = {}
@@ -4019,6 +4399,8 @@ def run_phases(procs: dict) -> int:
     kernels[0]["on_resident_table"] = cli["gather_rows"]
     kernels[1]["on_resident_table"] = cli["binned_sgd"]
     kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
+    kernels[0]["on_rowwise_step"] = cli["rowwise"]["gather_rows"]
+    kernels[1]["on_rowwise_step"] = cli["rowwise"]["binned_sgd"]
 
     # the mesh path: its three runs' launches summed
     launches_mesh = {e: sum(r["mesh"]["launches"][e] for r in mesh.values() if isinstance(r, dict) and "mesh" in r)
@@ -4038,7 +4420,8 @@ def run_phases(procs: dict) -> int:
     print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits,
                       "device_planner": device_planner}))
     print(json.dumps({"mesh": mesh, "baseline": cli["baseline"], "host_link": host_link,
-                      "bf16_slice": SLICE_NUMBERS.get("bfloat16"), "cli": cli["numbers"], "tablewise": cli["tablewise"]}))
+                      "bf16_slice": SLICE_NUMBERS.get("bfloat16"), "cli": cli["numbers"], "tablewise": cli["tablewise"],
+                      "rowwise": cli["rowwise"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

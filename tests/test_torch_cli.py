@@ -2,10 +2,10 @@
 on the same Criteo-format npy files, on the CPU: the same flags and defaults,
 the same config, the same AUROC and losses (row-wise Adagrad, the sparse
 gradient, fp8 rows with rounding off, float8_e5m2 rows, the device planner,
-a column-wise mesh of two ranks and the table-wise layout on one and two
-ranks included), a refusal naming its ROADMAP item for every layout flag
-outside the port (and JAX's own refusal of ``--planner device`` with
-row-wise Adagrad), and ``--world_size`` resolved as JAX resolves it."""
+a column-wise mesh of two ranks, and the table-wise and row-sharded cached
+layouts on one and two ranks included), the multi-host launch's errors (and
+JAX's own refusal of ``--planner device`` with row-wise Adagrad), and
+``--world_size`` resolved as JAX resolves it."""
 
 import dataclasses
 import re
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import cachedembedding_tpu.models.hybrid as jax_hybrid_mod
+import cachedembedding_tpu.parallel.row_cached as jax_row_cached_mod
 import cachedembedding_tpu.train.trainer as jax_trainer_mod
 import cachedembedding_tpu_torch.train.trainer as port_trainer_mod
 import torch_parity as tp
@@ -143,12 +144,25 @@ def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
         assert "id_freq_map: loaded" in captured.err  # JAX's main wrote it first
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--use_rowwise"], 9), (["--multihost"], 9),
-])
-def test_refused_flags_name_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
-        port_main.main(["--platform", "cpu", *flag])
+@pytest.mark.parametrize("case", ["coordinator_without_counts", "no_coordinator_no_launcher"])
+def test_multihost_launch_errors(monkeypatch, case):
+    """``--coordinator_address`` without ``--num_processes`` and
+    ``--process_id`` exits with the JAX CLI's message, in both mains;
+    ``--multihost`` with neither a coordinator nor a launcher's environment
+    raises in the port (it never trains one process alone)."""
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    if case == "no_coordinator_no_launcher":
+        with pytest.raises(RuntimeError, match="--multihost without --coordinator_address joins a launcher"):
+            port_main.main(["--platform", "cpu", "--multihost"])
+        return
+    argv = ["--platform", "cpu", "--multihost", "--coordinator_address", "127.0.0.1:1", "--num_processes", "2"]
+    msgs = []
+    for main in (jax_main.main, port_main.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] and msgs[0].startswith("--coordinator_address requires --num_processes and --process_id")
 
 
 def test_world_size_two_on_cpu_matches_jax(tmp_path, capfd):
@@ -368,3 +382,87 @@ def test_tablewise_against_the_resident_run(tmp_path, capfd, monkeypatch):
     np.testing.assert_array_equal(tl, rl32)
     np.testing.assert_allclose(port_tw, pl32, rtol=1e-5)
     np.testing.assert_allclose(port_tw, tl, rtol=1e-5)
+
+
+ROWWISE = ["--use_rowwise", "--use_freq", "--cache_ratio", "0.8"]
+
+
+def _record_jax_rowwise(monkeypatch, sink):
+    """Record the losses of JAX's ``run_rowwise`` (its window programs)."""
+    build = jax_row_cached_mod.build_rowwise_cached_window
+
+    def recording_build(*a, **k):
+        step = build(*a, **k)
+
+        def run(*args):
+            out = step(*args)
+            sink.extend(np.asarray(out[2]).tolist())
+            return out
+        return run
+
+    monkeypatch.setattr(jax_row_cached_mod, "build_rowwise_cached_window", recording_build)
+
+
+@pytest.mark.parametrize("world,extra", [("1", []), ("2", []), ("1", ["--model", "deepfm"])],
+                         ids=["world1", "world2", "deepfm"])
+def test_rowwise_matches_jax(tmp_path, capfd, monkeypatch, world, extra):
+    """``--use_rowwise --platform cpu`` against JAX's ``run_rowwise`` on the
+    same files, at one rank (a gloo group of one in this process) and two
+    (spawned ranks, two row shards), and with DeepFM: the 24 losses within
+    rtol 1e-5, val and test AUROC within 1e-4 (f32 rows: the f32 CLI case's
+    tolerances), the same counts, the JAX CLI's lines, and its cache
+    statistics up to the swap-out bytes (which the writeback drain counts
+    as it lands)."""
+    d = write_dataset(tmp_path / "criteo_kaggle")
+    argv = small_argv(d, *ROWWISE, *extra)
+    argv[argv.index("--world_size") + 1] = world
+    jl = []
+    _record_jax_rowwise(monkeypatch, jl)
+    jax_main.main(argv)
+    want_out = capfd.readouterr().out
+    want = _metrics(want_out)
+    res = port_main.main(argv)
+    captured = capfd.readouterr()
+    got = _metrics(captured.out)
+    pl = _run_stats(captured.err)["losses"]
+    assert set(got) == set(want) == {"val", "test"} and len(pl) == len(jl) == 24 and np.isfinite(pl).all()
+    np.testing.assert_allclose(pl, jl, rtol=1e-5)
+    for stage in ("val", "test"):
+        assert got[stage][1] == want[stage][1] == 160
+        assert abs(got[stage][0] - want[stage][0]) <= 1e-4, (stage, got, want)
+
+    def comm(out):
+        return [ln.split(" swap_out")[0] for ln in out.splitlines() if ln.startswith("CacheStats")]
+
+    assert comm(captured.out) == comm(want_out) and len(comm(want_out)) == 1
+    final = re.search(rf"rowwise\[{world}dev\] epoch 0: 24 iters .*final loss=([0-9.]+)", captured.out)
+    assert final and float(final.group(1)) == pytest.approx(jl[-1], rel=1e-4)
+    assert captured.out.count(f"rowwise[{world}dev] epoch 0 val: auroc=") == 1  # rank 0 alone prints
+    if world == "1":  # the result the command returns in this process
+        assert res["losses"] == pl and res["embed"].world == 1 and 0.0 < res["hit_rate"] <= 1.0
+        res["embed"].close()
+
+
+def test_rowwise_ignores_flags_as_jax(tmp_path, capfd, monkeypatch):
+    """The row-sharded layout trains with plain SGD on f32 rows in f32
+    whatever --cache_dtype, --embedding_optimizer, --compute_dtype,
+    --planner and --stochastic_rounding say, in JAX and in the port: the
+    same losses with and without them, and the port names them on one
+    stderr line."""
+    d = write_dataset(tmp_path / "criteo_kaggle")
+    odd = ["--cache_dtype", "float8_e4m3fn", "--embedding_optimizer", "rowwise_adagrad", "--compute_dtype",
+           "bfloat16", "--planner", "device", "--stochastic_rounding", "on"]
+    runs, jl = {}, []
+    _record_jax_rowwise(monkeypatch, jl)
+    for name, extra in (("plain", []), ("odd", odd)):
+        jax_main.main(small_argv(d, *ROWWISE, *extra))
+        res = port_main.main(small_argv(d, *ROWWISE, *extra))
+        res["embed"].close()
+        runs[name] = (list(jl), res["losses"], capfd.readouterr().err)
+        jl.clear()
+    assert runs["odd"][0] == runs["plain"][0] and runs["odd"][1] == runs["plain"][1]
+    line = [ln for ln in runs["odd"][2].splitlines() if ln.startswith("--use_rowwise ignores")]
+    assert len(line) == 1 and all(f"--{k} " in line[0] for k in
+                                  ("cache_dtype", "embedding_optimizer", "compute_dtype", "planner",
+                                   "stochastic_rounding"))
+    assert "--use_rowwise ignores" not in runs["plain"][2]

@@ -405,3 +405,143 @@ def hybrid_cases(mesh, c: dict) -> dict:
             model.embed.close()
     out["dryrun"] = dryrun_hybrid_train_step(mesh.size, "cpu")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the row-wise and row-sharded cached layouts
+
+
+def rowwise_lookup_cases(mesh, cases: dict) -> dict:
+    """``parallel/row.make_rowwise_embedding_fn`` on this rank for each case
+    (N, w the full (N, D) table, ids): the looked-up rows, and this rank's
+    shard grad of their sum."""
+    import torch
+
+    from cachedembedding_tpu_torch.parallel.row import make_rowwise_embedding_fn
+
+    out = {}
+    for name, c in cases.items():
+        lookup, shard_weight = make_rowwise_embedding_fn(mesh, c["N"])
+        w_local = shard_weight(c["w"]).requires_grad_(True)
+        rows = lookup(w_local, torch.from_numpy(c["ids"]))
+        rows.sum().backward()
+        out[name] = dict(rows=rows.detach().numpy(), grad=w_local.grad.numpy())
+    return out
+
+
+def _row_cached_case(mesh, c: dict) -> dict:
+    """One of ``tests/test_row_cached.py``'s cases on this rank through
+    ``parallel/row_cached``: ``c["kind"]`` "step" (per batch), "window" (P
+    steps a window) or "eval" (one batch scored), on the global (W, L) ids
+    of each batch or window (``c["ids"]``) and this rank's dense features
+    and labels. Returns every enc, the losses or probabilities, the
+    aggregated stats and the flushed master."""
+    import torch
+
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+    from cachedembedding_tpu_torch.parallel.row_cached import (
+        RowShardedCachedEmbeddingBag,
+        build_rowwise_cached_step,
+        build_rowwise_cached_window,
+    )
+
+    D, F, B, din = c["D"], c["F"], c["B"], c["Din"]
+    r = mesh.rank
+    bag = RowShardedCachedEmbeddingBag(c["N"], D, mesh=mesh, cuda_row_num=c["cap"], initial_weight=c.get("w0"),
+                                       evict_strategy=EvictionStrategy.LFU, buffer_size=0)
+    net = _dlrm_from(c["params"], D, F, din, (16, D), (16, 8, 1))
+    kw = dict(num_features=F, global_batch=B, pooling=1, capacity=c["cap"])
+    out = dict(enc=[], losses=[])
+    lr = c["lr"]
+    if c["kind"] == "window":
+        step = build_rowwise_cached_window(mesh, **kw)
+        for ids, dense, labels in c["batches"]:  # ids (W, P * L), dense (P, W, B_local, Din), labels (P, W, B_local)
+            P_ = dense.shape[0]
+            enc = bag.prepare_ids_per_rank(ids)
+            out["enc"].append(enc)
+            losses = step(net, bag.global_cache(), torch.from_numpy(enc[r].reshape(P_, -1)),
+                          torch.from_numpy(dense[:, r].copy()), torch.from_numpy(labels[:, r].copy()),
+                          [lr] * P_, [lr] * P_)
+            out["losses"] += losses.tolist()
+    elif c["kind"] == "step":
+        step = build_rowwise_cached_step(mesh, **kw)
+        for ids, dense, labels in c["batches"]:  # ids (W, L), dense (W, B_local, Din), labels (W, B_local)
+            enc = bag.prepare_ids_per_rank(ids)
+            out["enc"].append(enc)
+            out["losses"].append(float(step(net, bag.global_cache(), torch.from_numpy(enc[r]),
+                                            torch.from_numpy(dense[r]), torch.from_numpy(labels[r]), lr, lr)))
+    else:
+        score = build_rowwise_cached_step(mesh, train=False, **kw)
+        ids, dense, _ = c["batches"][0]
+        enc = bag.prepare_ids_per_rank(ids)
+        out["enc"].append(enc)
+        out["probs"] = score(net, bag.global_cache(), torch.from_numpy(enc[r]), torch.from_numpy(dense[r])).numpy()
+    out["master"] = bag.dense_weight()
+    st = bag.aggregate_stats()  # after the flush: every writeback has landed (the drain thread counts them)
+    out["stats"] = (st.prepare_calls, st.num_hits_history, st.num_miss_history, st.num_write_back_history,
+                    st.swap_in_bytes, st.swap_out_bytes)
+    bag.close()
+    return out
+
+
+def row_cached_cases(mesh, cases: dict) -> dict:
+    """``_row_cached_case`` for each named case, and "init": this rank's
+    host table rows of a shard built without ``initial_weight``."""
+    from cachedembedding_tpu_torch.parallel.row_cached import RowShardedCachedEmbeddingBag
+
+    out = {name: _row_cached_case(mesh, c) for name, c in cases.items() if name != "init"}
+    if "init" in cases:
+        c = cases["init"]
+        bag = RowShardedCachedEmbeddingBag(c["N"], c["D"], mesh=mesh, cuda_row_num=8, warmup_ratio=0.0)
+        out["init"] = bag.shard.host_table.gather(np.arange(bag.per, dtype=np.int64))
+        bag.close()
+    return out
+
+
+def rowwise_flush_case(mesh, payload=None):
+    """``tests/helpers/mp_rowwise_flush.py`` in the port: a row-sharded
+    cached bag (LFU, a 0.3 cache ratio, seed 3, a seeded initial table)
+    through 6 training steps of churn, then ``dense_weight``. Returns the
+    master's sha256 and the master."""
+    import hashlib
+
+    import torch
+
+    from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+    from cachedembedding_tpu_torch.models.dlrm import DLRM
+    from cachedembedding_tpu_torch.parallel.row_cached import RowShardedCachedEmbeddingBag, build_rowwise_cached_step
+
+    W, r = mesh.size, mesh.rank
+    N, D, B, F = 1024, 16, 32, 4
+    rng = np.random.default_rng(0)
+    init = rng.standard_normal((N, D)).astype(np.float32)
+    bag = RowShardedCachedEmbeddingBag(N, D, mesh=mesh, cache_ratio=0.3, evict_strategy=EvictionStrategy.LFU,
+                                       initial_weight=init, seed=3)
+    step = build_rowwise_cached_step(mesh, num_features=F, global_batch=B, pooling=1, capacity=bag.capacity)
+    net = DLRM(D, F, 4, (8, D), (8, 1), seed=0, device="cpu")
+    for _ in range(6):
+        enc = bag.prepare_ids_per_rank(rng.integers(0, N, size=(W, F * (B // W))).astype(np.int64))
+        dense = rng.standard_normal((W, B // W, 4)).astype(np.float32)
+        labels = rng.integers(0, 2, size=(W, B // W)).astype(np.float32)
+        step(net, bag.global_cache(), torch.from_numpy(enc[r]), torch.from_numpy(dense[r]),
+             torch.from_numpy(labels[r]), 0.5, 0.5)
+    full = bag.dense_weight()
+    bag.close()
+    return hashlib.sha256(np.ascontiguousarray(full, np.float32).tobytes()).hexdigest(), full
+
+
+def tcp_rank(fn_name: str, address: str, world: int, rank: int, out: str) -> None:
+    """Run ``fn_name(mesh, None)`` of this module as global ``rank`` of a
+    ``world``-rank gloo group that meets at ``tcp://address`` (a process of
+    its own, as one host of a multi-host run), and pickle its result to
+    ``out``."""
+    import torch
+
+    torch.set_num_threads(1)
+    from cachedembedding_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+
+    mesh = make_mesh(world, device="cpu", init_method=f"tcp://{address}", rank=rank)
+    result = globals()[fn_name](mesh, None)
+    destroy_mesh(mesh)
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
