@@ -42,6 +42,7 @@ struct Nothing {};
 
 // out[row] <- acc.
 struct ScatterEpilogue {
+  static constexpr bool kStaged = false;  // the chunks' loads overlap their sums: chunk_kernel
   float* out;
 
   template <int VEC>

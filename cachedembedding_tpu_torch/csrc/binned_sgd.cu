@@ -31,15 +31,22 @@
 // once, one rounding to the storage dtype; a run that crosses chunks is
 // finished by a second launch from per-chunk partial sums. Rows nobody
 // touched are never written, so they and their accumulators stay bit-exact.
-// The Adagrad epilogue takes the row's mean square by a warp reduction over
-// the lanes' columns (so it needs the whole row in one warp: D <= 128 on the
-// 4-a-lane path, D <= 32 on the one-a-lane path), updates acc[v], scales and
-// writes the row: the (C, D) f32 grad that JAX builds is never made (on the
-// resident Criteo-Kaggle table it would be 17.3 GB, zero-filled every step).
+// fp8 rows are narrowed by the card's conversion (row_runs.cuh, CvtFp8): the
+// emulated no-saturation cast it replaces took about half of every fp8-row
+// entry's time. The Adagrad epilogue takes the row's mean square by a warp
+// reduction over the lanes' columns (so it needs the whole row in one warp:
+// D <= 128 on the 4-a-lane path, D <= 32 on the one-a-lane path), updates
+// acc[v], scales and writes the row: the (C, D) f32 grad that JAX builds is
+// never made (on the resident Criteo-Kaggle table it would be 17.3 GB,
+// zero-filled every step). Its chain (five dependent shuffles, a square root,
+// divisions) stalled the loads of the warp that ran it, so the Adagrad
+// launch stages each chunk's grad rows in shared memory by bulk copies and
+// runs its final runs' epilogues eight at a time, interleaved
+// (apply_group); each row's arithmetic, and so its bits, is unchanged.
 //
 // C interface, loaded with ctypes: two CUDA launches per call (one when the
-// stream fits one chunk); returns the first non-zero cudaGetLastError(). A
-// plan not sorted by id stops the first launch with a device-side assert.
+// stream fits one chunk); returns the first launch error. A plan not sorted
+// by id stops the first launch with a device-side assert.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -53,6 +60,7 @@ namespace {
 // cw[row] <- round(cw[row] - slr * acc), cw's row loaded ahead of the sum.
 template <typename T>
 struct SgdEpilogue {
+  static constexpr bool kStaged = false;  // the chunks' loads overlap their sums: chunk_kernel
   T* cw;
   float slr;
 
@@ -88,6 +96,7 @@ struct RowAndAccum {
 // are loaded ahead of the sum.
 template <typename T>
 struct AdagradEpilogue {
+  static constexpr bool kStaged = true;  // the epilogues of several runs at once: staged_chunk_kernel
   T* cw;
   float* accum;
   float slr;
@@ -118,6 +127,40 @@ struct AdagradEpilogue {
 #pragma unroll
     for (int k = 0; k < VEC; ++k) w[k] = __fsub_rn(w[k], __fmul_rn(slr, __fdiv_rn(acc[k], den)));
     row_runs::store<VEC>(cw + static_cast<int64_t>(row) * D + col, w);
+  }
+
+  // The group's rows at once, each as apply computes it (the same bits): the
+  // mean squares' shuffle trees interleaved, then every row's square root
+  // and divisions, independent of one another, then the writes of the final
+  // runs (fins). pre of a run that is not final is zero.
+  template <int VEC, int N>
+  __device__ __forceinline__ void apply_group(const int* row, int col, int D, float (*acc)[VEC],
+                                              const Pre<VEC>* pre, unsigned fins, bool mine) const {
+    float ss[N], a[N], w[N][VEC];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      ss[u] = 0.f;  // lanes past D summed copies of column 0: they add nothing
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) ss[u] = mine ? __fadd_rn(ss[u], __fmul_rn(acc[u][k], acc[u][k])) : 0.f;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < N; ++u) ss[u] = __fadd_rn(ss[u], __shfl_xor_sync(row_runs::kFull, ss[u], o));
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      a[u] = __fadd_rn(pre[u].a, __fdiv_rn(ss[u], static_cast<float>(D)));
+      const float den = __fadd_rn(__fsqrt_rn(a[u]), eps);
+      row_runs::unpack<T>(pre[u].w, w[u]);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) w[u][k] = __fsub_rn(w[u][k], __fmul_rn(slr, __fdiv_rn(acc[u][k], den)));
+    }
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      if (!((fins >> u) & 1)) continue;
+      if ((threadIdx.x & 31) == 0) accum[row[u]] = a[u];
+      if (mine) row_runs::store<VEC>(cw + static_cast<int64_t>(row[u]) * D + col, w[u]);
+    }
   }
 };
 

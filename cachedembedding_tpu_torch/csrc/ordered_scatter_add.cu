@@ -148,13 +148,10 @@ struct Ring {
   static constexpr int kSmemBytes = kBarrierOffset + 2 * kStages * 8 + kSlab * 4 + 16;
 };
 
-// round() of the chain: Cvt<T>::round, the same bits in fewer cycles. bf16
-// takes the packing convert (cvt.rn.bf16x2.f32, F2FP on the ALU pipe) in
-// place of F2F.BF16.F32 and a shift. fp8 takes the card's conversion
-// (cvt.rn.satfinite) where |x| is at most the largest finite value, since
-// saturation then never applies and it rounds as the no-saturation cast does;
-// Cvt's no-saturation cast (emulated, some hundred cycles) takes the rest:
-// NaN, inf and overflow.
+// round() of the chain: Cvt<T>::round (for fp8 the card's conversion inside
+// the largest finite value, row_runs.cuh's CvtFp8). bf16 takes the packing
+// convert (cvt.rn.bf16x2.f32, F2FP on the ALU pipe) in place of
+// F2F.BF16.F32 and a shift: the same bits in fewer cycles.
 template <typename T>
 struct Round {
   static __device__ __forceinline__ float of(float x) { return row_runs::Cvt<T>::round(x); }
@@ -167,21 +164,6 @@ struct Round<__nv_bfloat16> {  // one packing convert: bf16(x) in the high half,
     return __uint_as_float(r);
   }
 };
-template <__nv_fp8_interpretation_t kKind>
-__device__ __noinline__ float round_fp8_nosat(float x) {  // one copy, not one per unrolled add
-  return row_runs::CvtFp8<kKind>::round(x);
-}
-template <__nv_fp8_interpretation_t kKind, int kMaxFinite>
-struct RoundFp8 {
-  static __device__ __forceinline__ float of(float x) {
-    if (!(fabsf(x) <= static_cast<float>(kMaxFinite))) return round_fp8_nosat<kKind>(x);
-    return row_runs::CvtFp8<kKind>::value(__nv_cvt_float_to_fp8(x, __NV_SATFINITE, kKind));
-  }
-};
-template <>
-struct Round<__nv_fp8_e4m3> : RoundFp8<__NV_E4M3, 448> {};
-template <>
-struct Round<__nv_fp8_e5m2> : RoundFp8<__NV_E5M2, 57344> {};
 
 // One link of the chain: round(w + a) for w and a values of T held in f32,
 // the f32 add then Round. bf16 takes the card's bf16 add instead: w and a
@@ -202,29 +184,9 @@ __device__ __forceinline__ float chain_add<__nv_bfloat16>(float w, float a) {
   return __uint_as_float(r);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
-}
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(b)),
-      "r"(parity)
-      : "memory");
-}
+using row_runs::mbar_arrive;
+using row_runs::mbar_init;
+using row_runs::mbar_wait;
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kSlab) : "memory"); }
 
 // Heavy-run list entries: longest first, then by start, as one ascending key.
@@ -442,7 +404,7 @@ __global__ void __launch_bounds__(kHeavyThreads)
   // empty barrier is by parity, so the slot's round before must be consumed
   // when it waits: guaranteed by its own previous wait if kStages >= kProducers.
   static_assert(R::kStages >= kProducers, "a producer would pass a parity wait two rounds ahead");
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the light launch may start
+  row_runs::launch_dependents();  // the light launch may start
   extern __shared__ __align__(16) unsigned char smem[];
   auto* ring = reinterpret_cast<typename R::Elem*>(smem);
   auto* full = reinterpret_cast<uint64_t*>(smem + R::kBarrierOffset);
@@ -638,7 +600,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
   // the launch ends after the heavy launch it overlaps (a no-op without one)
-  if (blockIdx.x == 0 && threadIdx.x == 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (blockIdx.x == 0 && threadIdx.x == 0) row_runs::wait_for_previous();
 }
 
 inline int first_error(cudaError_t e, int rc) { return rc != 0 ? rc : static_cast<int>(e); }

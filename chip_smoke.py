@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel5-against SOURCE.cu
+    python3 chip_smoke.py --kernel23-against DIR [DIR ...]
+    python3 chip_smoke.py --fp8-windows
     python3 chip_smoke.py --tablewise-worlds 1,4     (four cards)
     python3 chip_smoke.py --rowwise-worlds 1,4       (four cards)
 
@@ -99,10 +101,16 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      place of u < p, the Philox stream shifted by one word) on an input that
      puts p on u for one element in 16; Kernel 2 on float8_e4m3fn and
      float8_e5m2 rows, with f32 grads and with grads in the rows' dtype
-     (``check_kernel2_fp8_rows``). Then one training window each of
+     (``check_kernel2_fp8_rows``); Kernel 2 as a narrowing test
+     (``check_fp8_narrowing``): rows of +0, one contributor each, slr = -1,
+     so every one of the 2^32 f32 bit patterns is written as
+     round(x), equal to ops/rounding.astype_storage for float8_e4m3fn and
+     float8_e5m2 (NaN payloads apart; -0 becomes +0), with a planted fault
+     (the saturating cast alone) rejected. Then one training window each of
      float8_e4m3fn rows with rounding off and float8_e5m2 rows with
-     rounding on, at the slice's width, with their own launch counts
-     (``phase_fp8_windows``).
+     rounding on, at the slice's width, with their own launch counts, and
+     uncounted a second window of each and a first window of a new e5m2
+     trainer (``phase_fp8_windows``: start-up against the steady window).
   6b. The window wire at full width (``wire``, ``phase_wire``): the bf16
      slice's configuration on one trainer with bench.py's wires: int8 dense
      features and the escape id wire for 16 windows (it freezes after 12),
@@ -194,6 +202,7 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      and the others read it. Then Kernel 1, Kernel 2 and its Adagrad
      epilogue on the resident table's first training step, in this process
      (gates in ``check_resident_kernels`` and ``check_resident_adagrad``),
+     and on ``cli adagrad``'s cached step (bf16 rows, ``check_cached_adagrad``),
      and checkpoint round trips on small tables, SGD and Adagrad
      (``check_checkpoint_round_trip``). Then the baseline command line,
      ``python -m cachedembedding_tpu_torch.baselines.dlrm_main``, on the
@@ -273,9 +282,12 @@ runs, whose processes report their counts in their ``run stats`` line,
 the baseline runs, the mesh's three runs summed, the table-wise run and the
 row-wise run).
 Phase 11 adds Kernels 1 and 2's times on the resident table
-(``on_resident_table``, ``adagrad_epilogue_on_resident_table``), phase 14
+(``on_resident_table``, ``adagrad_epilogue_on_resident_table``) and the
+Adagrad epilogue's on ``cli adagrad``'s step
+(``adagrad_epilogue_on_cli_adagrad_step``), phase 14
 their times on a row-wise step (``on_rowwise_step``), phase 6
-Kernel 2's on fp8 rows (``on_fp8_rows``), phase 10 Kernel 1's on the ragged
+Kernel 2's on fp8 rows (``on_fp8_rows``) and its narrowing gate
+(``fp8_narrowing``), phase 10 Kernel 1's on the ragged
 step (``on_ragged_step``) and Kernel 5's dense ragged entry with its
 heaviest run alone (the kernel's own numbers), and phase 9 Kernel 5's
 scatter entry (``ordered_scatter_add_entry``). Each of Kernel 5's entries
@@ -290,7 +302,7 @@ are its main path's (MAIN_PATH), summed over its entries where two wrappers
 launch it (``launches_by_entry``: Kernel 2's two epilogues, Kernel 4's two
 entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...,
-"device_planner": ...}`` line, a ``{"mesh": ..., "baseline": ...,
+"device_planner": ..., "fp8_windows": ...}`` line, a ``{"mesh": ..., "baseline": ...,
 "host_link": ..., "bf16_slice": ..., "cli": ..., "tablewise": ..., "rowwise":
 ...}`` line (the mesh, one-card, CLI, table-wise and row-wise runs' host and
 device s a window,
@@ -305,6 +317,19 @@ the CLI phase's dataset and runs the command line with ``--use_tablewise``
 for 4), printing the card, then one JSON line of each run's losses, AUROC,
 host and device s a window, examples/s, peak memory and loss difference
 from the first run; no ``ok`` line.
+
+``--kernel23-against DIR ...`` runs the build and Kernels 2 and 3 of this
+checkout and of each DIR (its binned_sgd.cu and binned_scatter_add.cu
+beside its own row_runs.cuh, with this checkout's C interface: an earlier
+tree's ``csrc/``, or a copy with one part altered) on the bf16 and fp8
+slices' first step, ``cli adagrad``'s and the resident table's
+(``kernel23_against_cases``): whether each build writes this build's bits,
+device ms in turns and by CUDA kernel. It prints the card and one JSON
+line, and no ``ok`` line.
+
+``--fp8-windows`` runs the build and phase 6's fp8 windows twice in a new
+process, the first pass under torch.profiler (its heaviest host operations
+printed), to tell a window's start-up from its steady time; no ``ok`` line.
 
 ``--kernel5-against`` runs the build and phases 9 and 10 only, with their
 gates, and times each of Kernel 5's entries on its step, as it is and cast
@@ -653,7 +678,6 @@ def phase_kernels(cfg, tr, win) -> list:
     heavy = [(int(n), int(b) * BLOCK_ROWS) for n, b in zip(top.values, top.indices)]
     runs = row_runs(grouped, ROW_CHUNK)
     cw_l = cw.clone()
-    bytes2 = L * row_bytes + 2 * L * 4 + bins.numel() * 4 + 2 * n_touched * row_bytes
     k2 = dict(
         name="binned_sgd", route="cuda",
         source="cachedembedding_tpu_torch/csrc/binned_sgd.cu",
@@ -662,7 +686,7 @@ def phase_kernels(cfg, tr, win) -> list:
         ms=median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
         device_ms=device_median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
         plain_ms=median_ms(lambda: binned_sgd_update_plain(cw_t, g, perm, grouped, bins, slr)),
-        bound_ms=bytes2 / HBM_BYTES_PER_S * 1e3,
+        bound_ms=kernel2_bound_ms(L, D, g.element_size(), bins.numel(), n_touched, cw.element_size()),
         bound_by="bytes",
         # rounds each addend to bf16: a different result, timed as a yardstick
         library_ms=median_ms(lambda: cw_l.index_add_(0, ids_nf, g, alpha=-slr)),
@@ -1119,6 +1143,21 @@ def light_row_chunk(grouped, chunk: int):
     return slice(int(s0[r]), int(s0[r]) + chunk)
 
 
+def fp8_index_add(cw, ids, g, slr: float) -> dict:
+    """The library yardstick of Kernel 2 on fp8 rows: Tensor.index_add_ of
+    the grads in the rows' dtype (one rounding per addend: another
+    function), timed where the card takes it, else the error it gives."""
+    import torch
+
+    g8 = g.to(cw.dtype)
+    try:
+        cw.index_add_(0, ids.long(), g8, alpha=-slr)
+    except (RuntimeError, NotImplementedError) as e:  # a measurement of the library, not a path of the port
+        return {"library_ms": None, "library": f"Tensor.index_add_ on {cw.dtype}: {str(e).splitlines()[0][:160]}"}
+    return {"library_ms": median_ms(lambda: cw.index_add_(0, ids.long(), g8, alpha=-slr)),
+            "library": f"Tensor.index_add_ on {cw.dtype} (one rounding per addend: a different function)"}
+
+
 def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
     """Kernel 2 on the fp8 slice's first step (its rows before the update,
     its ids and plan) with float8_e4m3fn and float8_e5m2 rows, each with f32
@@ -1127,7 +1166,9 @@ def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
     within one step of the storage dtype of the plain version, two launches
     bit-identical, and the gate shown to reject a planted fault (the lightest
     run holding a whole chunk of ROW_CHUNK addends without it: at least half
-    its sum). Returns each case's times beside its bound."""
+    its sum). Returns each case's times beside its bound, the library's
+    (``fp8_index_add``), and the device ms of one gather of the case's grad
+    rows in the plan's order (index_select: the rows Kernel 2 must read)."""
     import torch
 
     from cachedembedding_tpu_torch.ops.binned_scatter import ROW_CHUNK, binned_sgd_update, binned_sgd_update_plain
@@ -1142,6 +1183,9 @@ def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     g32 = 1e-2 * torch.randn((L, D), generator=gen, device=device).abs()
     fault = light_row_chunk(grouped, ROW_CHUNK)
+    ids_s = torch.empty_like(grouped)
+    ids_s[perm.long()] = grouped  # the stream's ids, in g's row order
+    perm_l = perm.long()
     out = {}
     for name in (FP8, E5M2):
         dt = getattr(torch, name)
@@ -1149,6 +1193,7 @@ def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
         u8 = cw.view(torch.uint8)
         for gname, g in (("f32 grads", g32), (f"{name} grads", astype_storage(g32, dt))):
             case = f"{name} rows, {gname}"
+            g_rows = g.view(torch.uint8) if g.element_size() == 1 else g
             a = binned_sgd_update(cw.clone(), g, perm, grouped, bins, slr)
             b = binned_sgd_update(cw.clone(), g, perm, grouped, bins, slr)
             ref = binned_sgd_update_plain(cw.clone(), g, perm, grouped, bins, slr)
@@ -1173,8 +1218,12 @@ def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
                 elements_one_step_off=int((off > 0).sum()), touched_rows=n_touched,
                 ms=median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
                 device_ms=device_median_ms(lambda: binned_sgd_update(cw_t, g, perm, grouped, bins, slr)),
-                bound_ms=(L * D * g.element_size() + 2 * L * 4 + bins.numel() * 4
-                          + 2 * n_touched * D * cw.element_size()) / HBM_BYTES_PER_S * 1e3,
+                bound_ms=kernel2_bound_ms(L, D, g.element_size(), bins.numel(), n_touched, cw.element_size()),
+                **fp8_index_add(cw_t, ids_s, g, slr),
+                # the reads Kernel 2 cannot avoid, g's rows in the plan's order, as one gather
+                # (index_select, which also writes them out contiguously)
+                grad_rows_gather_device_ms=device_median_ms(lambda: torch.index_select(g_rows, 0, perm_l)),
+                grad_rows_gather_bound_ms=2 * L * D * g.element_size() / HBM_BYTES_PER_S * 1e3,
             )
             del a, b, ref, g_drop, cw_t
     log(f"[kernel] binned_sgd on fp8 rows (e4m3fn, e5m2; f32 and storage-dtype grads): untouched rows "
@@ -1183,12 +1232,79 @@ def check_kernel2_fp8_rows(cw0, win, slr: float) -> dict:
     return out
 
 
-def phase_fp8_windows(device) -> dict:
+NARROW_CHUNK = 1 << 26  # f32 bit patterns per launch of Kernel 2's narrowing gate
+FP8_MAX_FINITE = {FP8: 448.0, E5M2: 57344.0}
+FP8_MAX_CODE = {FP8: 0x7E, E5M2: 0x7B}
+
+
+def narrowing_faults(got, x, want, name: str) -> int:
+    """Codes of ``got`` (uint8), Kernel 2's narrowing of the f32 ``x`` to
+    ``name``, that differ from ``want`` (astype_storage's codes): a NaN
+    input must give a NaN (any payload, any sign), -0 gives +0 (the
+    update's +0 - (+0)), every other input exactly ``want``."""
+    import torch
+
+    nan = torch.isnan(x)
+    got_nan = (got & 0x7F) == 0x7F if name == FP8 else ((got & 0x7C) == 0x7C) & ((got & 0x03) != 0)
+    want = torch.where(x.view(torch.int32) == torch.iinfo(torch.int32).min, torch.zeros_like(want), want)
+    return int((nan & ~got_nan).sum()) + int(((got != want) & ~nan).sum())
+
+
+def check_fp8_narrowing(device) -> dict:
+    """Kernel 2 as a narrowing test on float8_e4m3fn and float8_e5m2 rows:
+    rows of +0, one contributor each, f32 grads and slr = -1, so the update
+    writes round(0 - (-1 * x)) = round(x) (D = 128, the staged path). Every
+    one of the 2^32 f32 bit patterns, NARROW_CHUNK a launch, must give
+    ops/rounding.astype_storage's code (``narrowing_faults``: NaN payloads
+    apart, and -0, which the update turns into +0). The gate must reject a
+    planted fault: the card's saturating conversion without the overflow
+    test, which clamps to +-448 or +-57,344 (astype_storage's codes with
+    every |x| beyond the largest finite value clamped so). Returns the
+    patterns, the seconds and the fault's mismatches."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, sort_plan
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+
+    D = 128
+    L = NARROW_CHUNK // D
+    perm, grouped, bins = sort_plan(torch.arange(L, dtype=torch.int32, device=device), L)
+    t0 = time.perf_counter()
+    planted = {}
+    for name in (FP8, E5M2):
+        dt = getattr(torch, name)
+        for lo in range(-(1 << 31), 1 << 31, NARROW_CHUNK):
+            x = torch.arange(lo, lo + NARROW_CHUNK, dtype=torch.int64, device=device).to(torch.int32)
+            x = x.view(torch.float32).view(L, D)
+            cw = torch.zeros((L, D), dtype=dt, device=device)
+            binned_sgd_update(cw, x, perm, grouped, bins, -1.0)
+            want = astype_storage(x, dt).view(torch.uint8)
+            n_bad = narrowing_faults(cw.view(torch.uint8), x, want, name)
+            if n_bad:
+                raise AssertionError(f"Kernel 2's narrowing to {name}: {n_bad} of the patterns "
+                                     f"{lo & 0xFFFFFFFF:#010x}.. differ from astype_storage")
+            over = ~(x.abs() <= FP8_MAX_FINITE[name]) & ~torch.isnan(x)
+            if bool(over.any()):
+                sat = torch.where(over, (want & 0x80) | FP8_MAX_CODE[name], want)
+                planted[name] = planted.get(name, 0) + narrowing_faults(sat, x, want, name)
+            del x, cw, want, over
+        if not planted.get(name):
+            raise AssertionError(f"the narrowing gate passed a planted fault ({name}: saturation past "
+                                 f"{FP8_MAX_FINITE[name]})")
+    return {"patterns": 1 << 32, "dtypes": [FP8, E5M2], "seconds": time.perf_counter() - t0,
+            "saturating_cast_mismatches": planted}
+
+
+def phase_fp8_windows(device) -> tuple:
     """One training window (prefetch_num steps) at the slices' full width
     with float8_e4m3fn rows and stochastic rounding off (Kernel 2 on fp8
     grads), and with float8_e5m2 rows and rounding on (auto; Kernels 3 and
-    4), each with the launch counts zeroed just before; then a flush.
-    Returns each path's launch counts."""
+    4), each with the launch counts zeroed just before; then a flush. Then,
+    uncounted, a second window of the same trainer, and for e5m2 one window
+    of a second trainer built anew: their device seconds beside the first
+    window's tell a process's first use of the path from a trainer's start
+    and from the steady window. Returns each path's launch counts and its
+    windows' device seconds."""
     import dataclasses
 
     import numpy as np
@@ -1198,7 +1314,7 @@ def phase_fp8_windows(device) -> dict:
     from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
     from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
 
-    paths = {}
+    paths, windows = {}, {}
     for path, dtype, sr, entries in (
         ("e4m3fn rounding off", FP8, "off", ("binned_sgd",)),
         ("e5m2 rounding on", E5M2, "auto", ("binned_scatter_add", "stochastic_sgd_round")),
@@ -1217,14 +1333,25 @@ def phase_fp8_windows(device) -> dict:
         check_update_launches(tag, launches, P, *entries)
         if launches["gather_rows"] != P:
             raise AssertionError(f"{tag} kernel launches {launches}")
-        check_flush(tr, tag)
         log(f"{tag} one window of {P} steps, losses {[round(x, 5) for x in rep.losses]}; host s "
             f"{rep.window_host_s}, device s {rep.window_device_s}; kernel launches {launches}")
+        more = SyntheticLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, P, skew=0.5, seed=9)
+        windows[path] = {"first_window_device_s": rep.window_device_s[0], "first_window_host_s": rep.window_host_s[0],
+                         "second_window_device_s": tr.train(more, num_iters=P).window_device_s[0]}
+        check_flush(tr, tag)
         tr.close()
         del tr
         gc.collect()
         torch.cuda.empty_cache()
-    return paths
+        if dtype == E5M2:
+            tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
+            windows[path]["new_trainer_first_window_device_s"] = tr.train(train, num_iters=P).window_device_s[0]
+            tr.close()
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"{tag} windows' device s: {json.dumps(windows[path])}")
+    return paths, windows
 
 
 UNSORTED_PLAN_KERNELS = ("binned_sgd", "binned_scatter_add", "ordered_scatter_add", "ordered_grad_update")
@@ -3096,7 +3223,7 @@ def check_resident_kernels(data_dir, device) -> tuple:
         # on the touched rows: its (C, D) f32 accumulator would be a second 17 GB table
         plain_ms=median_ms(lambda: binned_sgd_update_plain(compact, g, perm, pos, bins, slr)),
         plain_on="the touched rows (compact copy)",
-        bound_ms=(L * row_bytes + 2 * L * 4 + bins.numel() * 4 + 2 * n_touched * row_bytes) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=kernel2_bound_ms(L, D, g.element_size(), bins.numel(), n_touched, cw.element_size()),
         library_ms=median_ms(lambda: cw.index_add_(0, ids_nf, g, alpha=-slr)),
         library="Tensor.index_add_ (f32 atomics: another sum order)",
         timed_on=f"cli resident, first training step ({C} x {D} f32 rows)",
@@ -3179,9 +3306,7 @@ def check_resident_adagrad(embed, g, perm, grouped, bins, pos, touched, sample, 
         device_ms=device_median_ms(lambda: binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, eps)),
         plain_ms=median_ms(lambda: binned_adagrad_update_plain(compact, compact_acc, g, perm, pos, bins, slr, eps)),
         plain_on="the touched rows (compact copy)",
-        # the grads, the plan, each touched row and its accumulator read and written
-        bound_ms=(L * D * g.element_size() + 2 * L * 4 + bins.numel() * 4 + 2 * n_touched * (D * 4 + 4))
-        / HBM_BYTES_PER_S * 1e3,
+        bound_ms=kernel2_bound_ms(L, D, g.element_size(), bins.numel(), n_touched, cw.element_size(), True),
         bound_by="bytes", library_ms=None,  # no PyTorch call computes row-wise Adagrad
         timed_on=f"cli adagrad resident, first training step ({C} x {D} f32 rows, (C,) f32 accumulators)",
         tolerance="see check_resident_adagrad", touched_rows=n_touched,
@@ -3190,6 +3315,88 @@ def check_resident_adagrad(embed, g, perm, grouped, bins, pos, touched, sample, 
     log(f"[cli kernels] binned_sgd's Adagrad epilogue on the resident table: {n_touched} touched rows and "
         f"accumulators within the tolerance of float64 (kernel and plain version), the untouched sample "
         f"bit-equal, two launches bit-identical, the gate rejects the planted fault; {json.dumps(entry)}")
+    return entry
+
+
+def check_cached_adagrad(data_dir, device) -> dict:
+    """Kernel 2's Adagrad epilogue on ``cli adagrad``'s first training step:
+    the cached trainer of ADAGRAD_FLAGS with --use_cache, built in this
+    process (bf16 cache rows, f32 accumulators), its first window's plan,
+    seeded bf16 grads. Against the plain version (a (C, D) f32 grad): touched
+    rows within one bf16 ulp (sgd_faults), accumulators within rtol 1e-5
+    (another sum order), untouched rows and accumulators bit-equal, two
+    launches bit-identical, and the gate shown to reject a planted fault (the
+    mean square over D - 1 columns). Returns its entry."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops.binned_scatter import (
+        ROW_CHUNK,
+        binned_adagrad_update,
+        binned_adagrad_update_plain,
+        binned_scatter_add_plain,
+    )
+    from cachedembedding_tpu_torch.ops.rounding import index_copy_storage_
+    from cachedembedding_tpu_torch.train import dlrm_main
+
+    args = dlrm_main.parse_args(["--dataset_dir", str(data_dir), *CLI_FLAGS, *ADAGRAD_FLAGS, "--use_cache"])
+    cfg = dlrm_main.build_config(args)
+    tr = dlrm_main.build_trainer(args, cfg, dlrm_main.get_freq(args, cfg), device)
+    batches = [b for _, b in zip(range(cfg.cache.prefetch_num), dlrm_main.get_data(args, cfg, "train"))]
+    win = tr._begin_window(batches)
+    perm, grouped, bins = (a[0] for a in win.plan)
+    cw0, acc0 = tr.embed.cache_weight.clone(), tr.embed.cache_accum.clone()
+    tr.close()
+    (C, D), L = cw0.shape, perm.shape[0]
+    slr, eps = cfg.learning_rate, cfg.adagrad_eps
+    g = (1e-3 * torch.randn((L, D), generator=torch.Generator(device=device).manual_seed(0),
+                            device=device)).to(cw0.dtype)
+    touched = torch.zeros(C, dtype=torch.bool, device=device)
+    touched[grouped.long()] = True
+    results = []
+    for _ in range(2):
+        cw, acc = cw0.clone(), acc0.clone()
+        binned_adagrad_update(cw, acc, g, perm, grouped, bins, slr, eps)
+        results.append((cw, acc))
+    (kw, ka), (kw2, ka2) = results
+    if not (torch.equal(kw, kw2) and torch.equal(ka, ka2)):
+        raise AssertionError("binned_adagrad is not deterministic across launches on cli adagrad's step")
+    pw, pa = cw0.clone(), acc0.clone()
+    binned_adagrad_update_plain(pw, pa, g, perm, grouped, bins, slr, eps)
+
+    def faults(w, a) -> int:
+        if not torch.equal(a[~touched], acc0[~touched]):
+            raise AssertionError("binned_adagrad changed untouched accumulators on cli adagrad's step")
+        return sgd_faults(w, cw0, pw, touched) + int(((a - pa).abs() > 1e-5 * pa.abs()).sum())
+
+    n_bad = faults(kw, ka)
+    if n_bad:
+        raise AssertionError(f"binned_adagrad on cli adagrad's step: {n_bad} elements or accumulators off the "
+                             "plain version")
+    s32 = binned_scatter_add_plain(g, perm, grouped, bins, C)
+    fa = acc0 + (s32[:, :-1] * s32[:, :-1]).mean(dim=1)
+    fw = cw0.clone()
+    index_copy_storage_(fw, torch.arange(C, device=device), cw0.float() - slr * s32 / (torch.sqrt(fa) + eps)[:, None])
+    if not faults(fw, fa):
+        raise AssertionError("the cached Adagrad gate passed a planted fault (the mean square over D - 1 columns)")
+    del s32, fa, fw, kw2, ka2
+    n_touched = int(touched.sum())
+    cw_t, acc_t = cw0.clone(), acc0.clone()
+    entry = dict(
+        max_abs_err=(kw.float() - pw.float()).abs().max().item(),
+        accum_max_rel_err=((ka - pa).abs() / pa.abs().clamp_min(1e-30)).max().item(),
+        ms=median_ms(lambda: binned_adagrad_update(cw_t, acc_t, g, perm, grouped, bins, slr, eps)),
+        device_ms=device_median_ms(lambda: binned_adagrad_update(cw_t, acc_t, g, perm, grouped, bins, slr, eps)),
+        plain_ms=median_ms(lambda: binned_adagrad_update_plain(cw_t, acc_t, g, perm, grouped, bins, slr, eps)),
+        bound_ms=kernel2_bound_ms(L, D, g.element_size(), bins.numel(), n_touched, cw0.element_size(), True),
+        bound_by="bytes", library_ms=None,  # no PyTorch call computes row-wise Adagrad
+        timed_on=f"cli adagrad, first training step ({C} x {D} bf16 cache rows, bf16 grads)",
+        tolerance="touched rows within one bf16 ulp (+1e-6) of the plain version, accumulators within rtol 1e-5; "
+                  "untouched bit-equal; two launches bit-identical",
+        touched_rows=n_touched, **row_runs(grouped, ROW_CHUNK),
+    )
+    log(f"[cli kernels] binned_sgd's Adagrad epilogue on cli adagrad's step: {n_touched} touched rows of {C}, "
+        f"within the tolerance of the plain version, untouched rows bit-equal, two launches bit-identical, the "
+        f"gate rejects the planted fault; {json.dumps(entry)}")
     return entry
 
 
@@ -3316,6 +3523,9 @@ def phase_cli(device) -> dict:
         k1, k2, ka = check_resident_kernels(data_dir, device)
         gc.collect()
         torch.cuda.empty_cache()
+        ka_cached = check_cached_adagrad(data_dir, device)
+        gc.collect()
+        torch.cuda.empty_cache()
         ckpt = {"sgd": check_checkpoint_round_trip(data_dir, root, device),
                 "adagrad": check_checkpoint_round_trip(data_dir, root, device, adagrad=True)}
         gc.collect()
@@ -3334,7 +3544,8 @@ def phase_cli(device) -> dict:
                       "examples_per_s": r["examples_per_s"], "peak_gib": r["stats"]["peak_device_bytes"] / 2**30,
                       "auroc": {k: v[0] for k, v in r["metrics"].items()}} for name, r in runs.items()}
     return {"launches": launches, "baseline": baseline, "tablewise": tablewise, "rowwise": rowwise, "numbers": numbers,
-            "gather_rows": k1, "binned_sgd": k2, "binned_adagrad": ka, "checkpoint": ckpt, "seconds": secs}
+            "gather_rows": k1, "binned_sgd": k2, "binned_adagrad": ka, "binned_adagrad_cached": ka_cached,
+            "checkpoint": ckpt, "seconds": secs}
 
 
 BASELINE_FLAGS = ["--batch_size", str(CLI_BATCH), "--limit_train_batches", str(CLI_TRAIN_BATCHES),
@@ -4006,8 +4217,7 @@ def check_rowwise_kernels(embed, data_dir, device) -> tuple:
         ms=median_ms(lambda: binned_sgd_update(work, g, perm, grouped, bins, slr)),
         device_ms=device_median_ms(lambda: binned_sgd_update(work, g, perm, grouped, bins, slr)),
         plain_ms=median_ms(lambda: binned_sgd_update_plain(work, g, perm, grouped, bins, slr)),
-        bound_ms=(L * row_bytes + 2 * L * 4 + bins.numel() * 4 + 2 * touched.numel() * row_bytes)
-        / HBM_BYTES_PER_S * 1e3,
+        bound_ms=kernel2_bound_ms(L, D, g.element_size(), bins.numel(), touched.numel(), cw.element_size()),
         library_ms=median_ms(lambda: work.index_add_(0, ids_nf, g, alpha=-slr)),
         library="Tensor.index_add_ (f32 atomics: another sum order)",
         sort_plan_ms=median_ms(lambda: sort_plan(slots, C)),
@@ -4291,6 +4501,10 @@ def main() -> int:
         return run_layout_worlds(sys.argv[1][2:-7], sys.argv[2:])
     if sys.argv[1:2] == ["--kernel5-against"]:
         return run_kernel5_against(sys.argv[2:])
+    if sys.argv[1:2] == ["--kernel23-against"]:
+        return run_kernel23_against(sys.argv[2:])
+    if sys.argv[1:2] == ["--fp8-windows"]:
+        return run_fp8_windows_cold()
     procs = {}
     try:
         return run_phases(procs)
@@ -4336,6 +4550,239 @@ def run_kernel5_against(args) -> int:
     return 0
 
 
+def run_fp8_windows_cold() -> int:
+    """``--fp8-windows``: the build, then phase 6's fp8 windows
+    (``phase_fp8_windows``) in this new process twice, the first pass under
+    torch.profiler: it prints the first pass's heaviest host operations by
+    self time (CUDA's module loading at a kernel's first launch among
+    them), then the card, then one JSON line of both passes' window device
+    seconds. Not the smoke run: no ``ok`` line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda", 0)
+    phase_build()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, cold = phase_fp8_windows(device)
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12, max_name_column_width=50))
+    _, warm = phase_fp8_windows(device)
+    print(card_name())
+    print(json.dumps({"fp8_windows": {"first_pass_profiled": cold, "second_pass": warm}}), flush=True)
+    return 0
+
+
+KERNEL23 = ("binned_sgd", "binned_scatter_add")  # Kernels 2 and 3: the sources that share row_runs.cuh
+
+
+def build_kernel23_against(dirs) -> dict:
+    """Kernels 2 and 3 built from each directory of ``dirs``: its
+    binned_sgd.cu and binned_scatter_add.cu beside its own row_runs.cuh,
+    with this checkout's C interface (``ops/_cuda.py``), all compiled at
+    once. Returns {directory name: {kernel: C entry}}."""
+    import ctypes
+
+    from cachedembedding_tpu_torch import _build
+    from cachedembedding_tpu_torch.ops import _cuda
+
+    jobs = {(d.name, k): (lambda d=d, k=k: _build.build(f"lib{k}-{d.name}", [d / f"{k}.cu"], _build.nvcc_command,
+                                                         [d / "row_runs.cuh"]))
+            for d in dirs for k in KERNEL23}
+    out = {}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {key: pool.submit(f) for key, f in jobs.items()}
+        for (name, k), fut in futs.items():
+            path, secs, _ = fut.result()
+            log(f"[build] {name}/{k}.cu (nvcc sm_90a): {secs:.1f} s -> {path.name}")
+            out.setdefault(name, {})[k] = _cuda.bind(ctypes.CDLL(str(path)), k)
+    return out
+
+
+def kernel2_call(fn, cw, g, accum, perm, grouped, slr: float, eps: float = 0.0) -> None:
+    """One launch of a build's Kernel 2 entry ``fn``, as the wrapper makes it."""
+    from cachedembedding_tpu_torch.ops import _cuda
+    from cachedembedding_tpu_torch.ops.binned_scatter import _DTYPE_CODES, _partials
+
+    L, D = g.shape
+    rc = fn(cw.data_ptr(), g.data_ptr(), 0 if accum is None else accum.data_ptr(), perm.data_ptr(),
+            grouped.data_ptr(), _partials(L, D, cw.device).data_ptr(), L, D, float(slr), float(eps),
+            _DTYPE_CODES[cw.dtype], _DTYPE_CODES[g.dtype], _cuda.stream_of(cw))
+    _cuda.check_launch("binned_sgd (against)", rc)
+
+
+def kernel3_call(fn, g, perm, grouped, num_rows: int):
+    """One launch of a build's Kernel 3 entry ``fn``; returns its output."""
+    import torch
+
+    from cachedembedding_tpu_torch.ops import _cuda
+    from cachedembedding_tpu_torch.ops.binned_scatter import _GRAD_CODES, _partials
+
+    L, D = g.shape
+    out = torch.empty((num_rows, D), dtype=torch.float32, device=g.device)
+    rc = fn(out.data_ptr(), g.data_ptr(), perm.data_ptr(), grouped.data_ptr(), _partials(L, D, g.device).data_ptr(),
+            L, num_rows, D, _GRAD_CODES[g.dtype], _cuda.stream_of(g))
+    _cuda.check_launch("binned_scatter_add (against)", rc)
+    return out
+
+
+def kernel2_bound_ms(L: int, D: int, g_elt: int, n_bins: int, n_touched: int, row_elt: int,
+                     adagrad: bool = False) -> float:
+    """Kernel 2's bytes bound: the grads, perm and ids, the bin starts, and a
+    read and a write of each touched row (and of its 4-byte accumulator)."""
+    return (L * D * g_elt + 2 * L * 4 + n_bins * 4 + 2 * n_touched * (D * row_elt + (4 if adagrad else 0))) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def kernel23_against_cases(device, data_dir):
+    """The steps of ``--kernel23-against``, one group at a time (each
+    group's trainer is closed before the next is built). Yields
+    (case, kernel, run, bound_ms): ``run(fn, fresh)`` launches a build's
+    entry ``fn`` once on the case's inputs, from the case's state when
+    ``fresh`` (returning the tensors it wrote, for a bit comparison), else
+    in place on a working copy (for timing)."""
+    import torch
+
+    from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+    from cachedembedding_tpu_torch.ops.rounding import astype_storage
+    from cachedembedding_tpu_torch.train import dlrm_main
+    from cachedembedding_tpu_torch.train.trainer import CachedDLRMTrainer
+
+    def first_window(tr, batches):
+        win = tr._begin_window(batches)
+        return win.slot_ids[0], tuple(a[0] for a in win.plan)
+
+    def sgd_case(cw0, g, plan, slr, accum0=None, eps=0.0):
+        perm, grouped, bins = plan
+        cw_t, acc_t = cw0.clone(), None if accum0 is None else accum0.clone()
+        n_touched = int(torch.unique(grouped).numel())
+        bound = kernel2_bound_ms(g.shape[0], g.shape[1], g.element_size(), bins.numel(), n_touched,
+                                 cw0.element_size(), accum0 is not None)
+
+        def run(fn, fresh):
+            cw, acc = (cw0.clone(), None if accum0 is None else accum0.clone()) if fresh else (cw_t, acc_t)
+            kernel2_call(fn, cw, g, acc, perm, grouped, slr, eps)
+            return [cw] + ([] if acc is None else [acc])
+
+        return run, bound
+
+    # the slices' first step (bench.py's headline configuration: 901,228 rows of 128)
+    cfg = slice_config("bfloat16")
+    P, L = cfg.cache.prefetch_num, cfg.batch_size * cfg.num_sparse_features
+    train = SyntheticLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, P, skew=0.5, seed=7)
+    tr = CachedDLRMTrainer(cfg, id_freq_map=train.id_freq_map(), device=device)
+    _, plan = first_window(tr, [b for _, b in zip(range(P), train)])
+    cw16 = tr.embed.cache_weight.clone()
+    tr.close()
+    (C, D), slr = cw16.shape, cfg.learning_rate
+    gen = torch.Generator(device=device).manual_seed(0)
+    g16 = (1e-3 * torch.randn((L, D), generator=gen, device=device)).to(torch.bfloat16)
+    yield ("bf16 rows, bf16 grads", "binned_sgd", *sgd_case(cw16, g16, plan, slr))
+    g32 = 1e-2 * torch.randn((L, D), generator=gen, device=device).abs()
+    for name in (FP8, E5M2):
+        dt = getattr(torch, name)
+        cw8 = astype_storage(cw16.float(), dt)
+        yield (f"{name} rows, f32 grads", "binned_sgd", *sgd_case(cw8, g32, plan, slr))
+        yield (f"{name} rows, {name} grads", "binned_sgd", *sgd_case(cw8, astype_storage(g32, dt), plan, slr))
+    perm, grouped, bins = plan
+    for gname, g in (("bf16 grads", g16), ("f32 grads", g32)):
+        bound = (8 * L + L * D * g.element_size() + bins.numel() * 4 + C * D * 4) / HBM_BYTES_PER_S * 1e3
+        yield (f"Kernel 3, {gname}", "binned_scatter_add",
+               lambda fn, fresh, g=g: [kernel3_call(fn, g, perm, grouped, C)], bound)
+    del cw16, g16, g32, plan, perm, grouped, bins
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # cli adagrad's cached step (bf16 rows) and the resident table's (f32 rows)
+    for extra, label in ((["--use_cache"], "cached bf16 rows"), ([], "resident f32 rows")):
+        args = dlrm_main.parse_args(["--dataset_dir", str(data_dir), *CLI_FLAGS, *ADAGRAD_FLAGS, *extra])
+        cfg = dlrm_main.build_config(args)
+        tr = dlrm_main.build_trainer(args, cfg, dlrm_main.get_freq(args, cfg), device)
+        batches = [b for _, b in zip(range(cfg.cache.prefetch_num), dlrm_main.get_data(args, cfg, "train"))]
+        _, plan = first_window(tr, batches)
+        cw, acc = tr.embed.cache_weight, tr.embed.cache_accum
+        L, D = plan[0].shape[0], cw.shape[1]
+        g = 1e-3 * torch.randn((L, D), generator=gen, device=device)
+        g = g if cw.dtype == torch.float32 else g.to(cw.dtype)
+        slr, eps = cfg.learning_rate, cfg.adagrad_eps
+        if extra:
+            yield (f"Adagrad, {label} (cli adagrad)", "binned_sgd", *sgd_case(cw, g, plan, slr, acc, eps))
+        else:  # 17 GB: updated in place, its touched rows restored for each fresh launch
+            perm, grouped, bins = plan
+            t = torch.unique(grouped).long()
+            before, acc0 = cw[t].clone(), acc[t].clone()
+            for with_acc in (False, True):
+
+                def run(fn, fresh, with_acc=with_acc):
+                    if fresh:
+                        cw[t], acc[t] = before, acc0
+                    kernel2_call(fn, cw, g, acc if with_acc else None, perm, grouped, slr, eps)
+                    return [cw[t].clone()] + ([acc[t].clone()] if with_acc else []) if fresh else []
+
+                yield (f"{'Adagrad' if with_acc else 'SGD'}, {label} (cli {'adagrad ' if with_acc else ''}resident)",
+                       "binned_sgd", run, kernel2_bound_ms(L, D, 4, bins.numel(), t.numel(), 4, with_acc))
+            cw[t], acc[t] = before, acc0
+        tr.close()
+        del tr, cw, acc, g, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_kernel23_against(args) -> int:
+    """``--kernel23-against DIR [DIR ...]``: the build, then Kernels 2 and 3
+    of this checkout and of each DIR (``build_kernel23_against``) on the
+    steps of ``kernel23_against_cases``: whether each build writes this
+    build's bits, device ms in turns (this, the others, then back), and each
+    build's device ms by CUDA kernel (``kernel_breakdown``). Prints the
+    card's name and power limit, then one JSON line; no ``ok`` line. The
+    same bits are reported, not required: a DIR may hold a deliberately
+    altered copy, to measure what a part of the kernel costs."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from cachedembedding_tpu_torch import _build
+    from cachedembedding_tpu_torch.ops import _cuda
+
+    if not args:
+        print("chip_smoke: --kernel23-against takes one or more source directories", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    dirs = [Path(a).resolve() for a in args]
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(build_kernel23_against, dirs)
+        phase_build()
+        builds = {"this": {k: _cuda.kernel_entry(k) for k in KERNEL23}, **fut.result()}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cli_", dir=_build.BUILD_DIR))
+    out = {}
+    try:
+        data_dir = write_cli_dataset(Path(tempfile.mkdtemp(prefix="criteo_kaggle_", dir=root)))
+        for case, kernel, run, bound in kernel23_against_cases(device, data_dir):
+            fns = {src: b[kernel] for src, b in builds.items()}
+            want = [x.view(torch.uint8) for x in run(fns["this"], True)]
+            same = {}
+            for src, fn in fns.items():
+                got = [x.view(torch.uint8) for x in run(fn, True)]
+                same[src] = all(torch.equal(a, b) for a, b in zip(got, want))
+                del got
+            del want
+            order = list(fns) + list(fns)[::-1]
+            turns = {src: [] for src in fns}
+            for src in order:
+                turns[src].append(device_median_ms(lambda: run(fns[src], False)))
+            split = {src: kernel_breakdown(lambda: run(fn, False)) for src, fn in fns.items()}
+            out[case] = {"bound_ms": bound, "same_bits": same, "device_ms": turns, "by_cuda_kernel_ms": split,
+                         "share": {src: bound / (sum(t) / len(t)) for src, t in turns.items()}}
+            log(f"[against] {case}: {json.dumps(out[case])}")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(card_name())
+    print(json.dumps({"kernel23_against": out}), flush=True)
+    return 0
+
+
 def run_phases(procs: dict) -> int:
     import torch
 
@@ -4366,12 +4813,13 @@ def run_phases(procs: dict) -> int:
     k1_fp8, k34 = phase_kernels_fp8(cfg8, tr, win, first_update)
     kernels[0]["on_fp8_slice"] = k1_fp8
     kernels[1]["on_fp8_rows"] = check_kernel2_fp8_rows(first_update[0], win, cfg8.learning_rate)
+    kernels[1]["fp8_narrowing"] = check_fp8_narrowing(device)
     kernels += k34
     tr.close()
     del tr, win, first_update
     gc.collect()
     torch.cuda.empty_cache()
-    fp8_paths = phase_fp8_windows(device)
+    fp8_paths, fp8_windows = phase_fp8_windows(device)
     launches_wire, wire_numbers = phase_wire(device)
     quantized_admits = check_quantized_admits(device)
     gc.collect()
@@ -4399,6 +4847,7 @@ def run_phases(procs: dict) -> int:
     kernels[0]["on_resident_table"] = cli["gather_rows"]
     kernels[1]["on_resident_table"] = cli["binned_sgd"]
     kernels[1]["adagrad_epilogue_on_resident_table"] = cli["binned_adagrad"]
+    kernels[1]["adagrad_epilogue_on_cli_adagrad_step"] = cli["binned_adagrad_cached"]
     kernels[0]["on_rowwise_step"] = cli["rowwise"]["gather_rows"]
     kernels[1]["on_rowwise_step"] = cli["rowwise"]["binned_sgd"]
 
@@ -4418,7 +4867,7 @@ def run_phases(procs: dict) -> int:
             k["launches_by_entry"] = {e: {path: counts[e] for path, counts in paths.items()} for e in entries}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"wire": wire_numbers, "quantized_admits": quantized_admits,
-                      "device_planner": device_planner}))
+                      "device_planner": device_planner, "fp8_windows": fp8_windows}))
     print(json.dumps({"mesh": mesh, "baseline": cli["baseline"], "host_link": host_link,
                       "bf16_slice": SLICE_NUMBERS.get("bfloat16"), "cli": cli["numbers"], "tablewise": cli["tablewise"],
                       "rowwise": cli["rowwise"]}))

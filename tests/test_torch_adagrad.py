@@ -158,6 +158,60 @@ def test_adagrad_update_plain_version():
         assert binned_scatter_add_plain(g, perm, grouped, bins, C).abs().sum() > 0
 
 
+# a row whose run, in the sorted stream, starts at `start` and holds `n`
+# contributors: it crosses chunk boundaries (multiples of ROW_CHUNK = 64) as
+# named; at most 64 contributors, the finishing launch sums it again from g,
+# more, it sums the chunks' partials in chunk order
+CROSSING_RUNS = {"one_boundary_direct": (40, 50), "one_boundary_partials": (10, 90),
+                 "several_boundaries": (30, 400)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32_rows", "bf16_rows"])
+@pytest.mark.parametrize("case", list(CROSSING_RUNS))
+def test_adagrad_run_across_chunks_matches_jax(case, dt):
+    """Kernel 2's Adagrad entry (its plain version on the CPU) where one row's
+    run crosses one or several chunk boundaries of the CUDA kernels, against
+    JAX's update on the same plan (its binned scatter-add in interpret mode,
+    then the trainer's formula): accumulators rtol 1e-5, rows within 1e-5
+    (f32) or one bf16 step, untouched rows bit-equal."""
+    import jax.numpy as jnp
+
+    from cachedembedding_tpu.ops import binned_scatter as jax_bs
+    from cachedembedding_tpu_torch.ops.binned_scatter import BLOCK_ROWS, ROW_CHUNK
+
+    start, n = CROSSING_RUNS[case]
+    rng = np.random.default_rng(11)
+    C, D, r, slr, eps = 300, 16, 150, 0.1, 1e-10
+    tail = 200
+    ids = np.concatenate([rng.integers(0, r, start), np.full(n, r), rng.integers(r + 1, C, tail)])
+    ids = ids[rng.permutation(ids.size)].astype(np.int32)  # stream order
+    perm, grouped, bins = sort_plan_np(ids, C)
+    runs = np.flatnonzero(grouped == r)
+    assert runs[0] == start and runs.size == n
+    crossed = (start + n - 1) // ROW_CHUNK - start // ROW_CHUNK
+    assert crossed == {"one_boundary_direct": 1, "one_boundary_partials": 1, "several_boundaries": 6}[case]
+    g = rng.standard_normal((ids.size, D)).astype(np.float32)
+    cw0 = astype_storage(torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32)), dt)
+    acc0 = rng.random(C).astype(np.float32)
+
+    cw, acc = cw0.clone(), torch.from_numpy(acc0.copy())
+    t = [torch.from_numpy(a) for a in (perm, grouped, bins)]
+    binned_adagrad_update(cw, acc, torch.from_numpy(g), *t, slr, eps)
+
+    g32 = jax_bs.binned_scatter_add(jnp.asarray(g), jnp.asarray(perm), jnp.asarray(grouped), jnp.asarray(bins), C,
+                                    block_rows=BLOCK_ROWS, interpret=True)
+    a_jax = jnp.asarray(acc0) + jnp.mean(g32 * g32, axis=1)
+    g32 = g32 / (jnp.sqrt(a_jax) + eps)[:, None]
+    jdt = jnp.float32 if dt == torch.float32 else jnp.bfloat16
+    w_jax = np.asarray((jnp.asarray(cw0.float().numpy()) - slr * g32).astype(jdt).astype(jnp.float32))
+    touched = np.isin(np.arange(C), ids)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(a_jax), rtol=1e-5)
+    got = cw.float().numpy()
+    tol = np.broadcast_to(1e-5 if dt == torch.float32 else 2.0 ** -7 * np.abs(w_jax), got.shape)
+    assert np.all((np.abs(got - w_jax) <= tol + 1e-6)[touched])
+    np.testing.assert_array_equal(got[~touched], cw0.float().numpy()[~touched])
+
+
 @pytest.mark.parametrize("kind", ["dense", "virtual"])
 def test_jax_adagrad_checkpoint_resumes_in_the_port(kind, tmp_path, monkeypatch):
     """A JAX Adagrad checkpoint (``accum.npy`` for a dense table,
