@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel5-against SOURCE.cu
     python3 chip_smoke.py --kernel23-against DIR [DIR ...]
     python3 chip_smoke.py --fp8-windows
+    python3 chip_smoke.py --bench [kaggle fp8 sparse terabyte avazu]
     python3 chip_smoke.py --tablewise-worlds 1,4     (four cards)
     python3 chip_smoke.py --rowwise-worlds 1,4       (four cards)
 
@@ -263,6 +264,16 @@ it imports torch, numpy and the port, nothing of JAX. Phases:
      JAX tests' shapes) through ``parallel/row_cached``'s bag, its steps
      and windows and ``parallel/row``'s lookup, on the card against the CPU
      (the gates in ``rowwise_child``'s docstring).
+  15. The headline bench (``bench``, ``phase_bench``): ``python3 -m
+     cachedembedding_tpu_torch.bench`` at its kaggle defaults in its own
+     process (Criteo-Kaggle tables, batch 16,384, a 1% cache of bf16 rows,
+     tables of at most 500k rows resident, prefetch 8; 416 warmup
+     iterations, then 12 timed segments of 48). Gates: one stdout line with
+     the metric ``dlrm_kaggle_cached_train_throughput`` and a positive,
+     finite value; the chosen segment wrote evicted rows back; its hit rate
+     in (0, 1]; the peak device memory under 4 GiB; Kernels 1 and 2
+     launched once a timed step and no other update kernel. Its stderr from the segments on is logged,
+     and its ``bench summary`` goes into the second JSON line.
 
 Phases 4 and 6 time each kernel beside its bound, its plain version and a
 PyTorch yardstick: ``ms`` is the median of calls each timed alone by CUDA
@@ -279,8 +290,8 @@ fp8 slice, neither on the bf16 slice; the kernels line gives their sum, and
 each kernel's launches on every path (the two slices, the two fp8 windows,
 the wire and device-planner runs, the 1TB run, the ragged path and the CLI
 runs, whose processes report their counts in their ``run stats`` line,
-the baseline runs, the mesh's three runs summed, the table-wise run and the
-row-wise run).
+the baseline runs, the mesh's three runs summed, the table-wise run, the
+row-wise run and the bench's timed segments).
 Phase 11 adds Kernels 1 and 2's times on the resident table
 (``on_resident_table``, ``adagrad_epilogue_on_resident_table``) and the
 Adagrad epilogue's on ``cli adagrad``'s step
@@ -304,9 +315,9 @@ entries, Kernel 5's scatter and dense ragged update).
 Prints per-phase results, then a ``{"wire": ..., "quantized_admits": ...,
 "device_planner": ..., "fp8_windows": ...}`` line, a ``{"mesh": ..., "baseline": ...,
 "host_link": ..., "bf16_slice": ..., "cli": ..., "tablewise": ..., "rowwise":
-...}`` line (the mesh, one-card, CLI, table-wise and row-wise runs' host and
-device s a window,
-examples/s and peak memory beside the bf16 slice's), the card's name and
+..., "bench": ...}`` line (the mesh, one-card, CLI, table-wise and row-wise
+runs' host and device s a window, examples/s and peak memory beside the bf16
+slice's, and the bench's summary), the card's name and
 power limit, then a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that.
@@ -326,6 +337,13 @@ slices' first step, ``cli adagrad``'s and the resident table's
 (``kernel23_against_cases``): whether each build writes this build's bits,
 device ms in turns and by CUDA kernel. It prints the card and one JSON
 line, and no ``ok`` line.
+
+``--bench [NAME ...]`` runs the build and the bench phase for each named
+run of BENCH_RUNS in turn (kaggle alone when none is named: the kaggle
+defaults, ``--cache-dtype float8_e4m3fn``, ``--sparse-grad``, ``--scale
+terabyte``, ``--scale avazu``; terabyte's segments need not churn, and the
+resident avazu run has no churn, hit-rate or memory gate), printing the card, then one JSON line of the runs'
+summaries; no ``ok`` line.
 
 ``--fp8-windows`` runs the build and phase 6's fp8 windows twice in a new
 process, the first pass under torch.profiler (its heaviest host operations
@@ -3788,6 +3806,78 @@ def phase_mesh() -> dict:
     return res
 
 
+# the bench phase's runs (``--bench NAME ...``): flags of
+# ``python3 -m cachedembedding_tpu_torch.bench``
+# beside its defaults, the update entries its branch launches, and whether
+# its timed segments must write evicted rows back (terabyte's 1,779,442
+# cache slots are not full by the end of the default run's 992 iterations)
+BENCH_RUNS = {"kaggle": ([], ("binned_sgd",), True),  # the dense branch: 901,228 device rows < 4 L
+              "fp8": (["--cache-dtype", "float8_e4m3fn"], ("binned_scatter_add", "stochastic_sgd_round"), True),
+              "sparse": (["--sparse-grad"], ("ordered_scatter_add",), True),
+              "terabyte": (["--scale", "terabyte"], ("ordered_scatter_add",), False),  # 2,685,154 device rows > 4 L
+              "avazu": (["--scale", "avazu"], ("ordered_scatter_add",), False)}  # 9,445,823 resident rows > 4 L
+BENCH_PEAK_GIB = 4.0  # a cached run's peak device memory: the table lives on the host
+BENCH_TIMEOUT_S = 600
+
+
+def phase_bench(name: str = "kaggle", extra=()) -> dict:
+    """The headline bench (``bench``): ``python3 -m
+    cachedembedding_tpu_torch.bench`` with BENCH_RUNS[name]'s flags (the
+    kaggle defaults for the smoke run) in its own process. Gates: exit 0,
+    exactly one stdout line with the bench's metric for the scale, a
+    positive finite value; the chosen segment churned (wrote evicted rows
+    back) where BENCH_RUNS says it must; a cached run's hit rate in (0, 1]
+    and its peak device memory under BENCH_PEAK_GIB; in its segments Kernel
+    1 launched once a step, and the run's update entries once a step and no
+    other. Logs its stderr but the warmup chunks and returns its ``bench
+    summary`` with the record and the phase's wall seconds."""
+    import re
+
+    flags, entries, must_churn = BENCH_RUNS[name]
+    argv = [sys.executable, "-m", "cachedembedding_tpu_torch.bench", *flags, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    tag = f"[bench {name}]"
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} exit {proc.returncode}: {proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    for ln in proc.stderr.splitlines():
+        if "  warmup " not in ln:
+            log(f"{tag} {ln}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"{tag} {len(lines)} stdout lines, not one: {proc.stdout[-2000:]}")
+    rec = json.loads(lines[0])
+    summary = json.loads(re.search(r"^bench summary: (\{.*\})$", proc.stderr, re.M).group(1))
+    resident = "avazu" in argv
+    scale = argv[argv.index("--scale") + 1] if "--scale" in argv else "kaggle"
+    want = f"dlrm_{scale}_{'resident' if resident else 'cached'}_train_throughput"
+    if set(rec) - {"excluded_segments"} != {"metric", "value", "unit", "vs_baseline"} or rec["metric"] != want \
+            or rec["unit"] != "examples/s" or not (math.isfinite(rec["value"]) and rec["value"] > 0):
+        raise AssertionError(f"{tag} record {rec}")
+    if (must_churn and not summary["churned"]) or not (resident or (
+            0 < summary["hit_rate"] <= 1 and summary["peak_gib"] < BENCH_PEAK_GIB)):
+        raise AssertionError(f"{tag} churned {summary['churned']}, hit rate {summary['hit_rate']}, peak "
+                             f"{summary['peak_gib']} GiB (under {BENCH_PEAK_GIB} expected)")
+    k = {e: summary["launches"].get(e, 0) for e in ("gather_rows",) + UPDATE_ENTRIES}
+    if k["gather_rows"] != summary["steps"]:
+        raise AssertionError(f"{tag} Kernel 1 launched {k['gather_rows']} times in {summary['steps']} steps")
+    check_update_launches(tag, k, summary["steps"], *entries)
+    log(f"{tag} {' '.join(argv[1:])}: {wall:.1f} s wall; {json.dumps(rec)}")
+    return {**summary, "record": rec, "flags": argv[3:], "wall_s": wall}
+
+
+def run_bench_only(names) -> int:
+    """``--bench [NAME ...]``: the build, then the bench phase for each
+    name of BENCH_RUNS (kaggle alone by default) in turn; prints the card
+    and one JSON line of the runs. Not the smoke run: no ``ok`` line."""
+    phase_build()
+    runs = {name: phase_bench(name) for name in names or ["kaggle"]}
+    print(card_name())
+    print(json.dumps({"bench": runs}), flush=True)
+    return 0
+
+
 # the table-wise phase's small card-vs-CPU case, beside REFERENCE_SLICES
 # (it needs a process group, so it runs in the table-wise child): Kaggle's
 # hand-tuned map at one rank, tables of 50-20,000 rows with n // 16 cache
@@ -4505,6 +4595,8 @@ def main() -> int:
         return run_kernel23_against(sys.argv[2:])
     if sys.argv[1:2] == ["--fp8-windows"]:
         return run_fp8_windows_cold()
+    if sys.argv[1:2] == ["--bench"]:
+        return run_bench_only(sys.argv[2:])
     procs = {}
     try:
         return run_phases(procs)
@@ -4843,6 +4935,7 @@ def run_phases(procs: dict) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh = phase_mesh()
+    bench = phase_bench()
     host_link = measure_host_link(device)
     kernels[0]["on_resident_table"] = cli["gather_rows"]
     kernels[1]["on_resident_table"] = cli["binned_sgd"]
@@ -4856,7 +4949,8 @@ def run_phases(procs: dict) -> int:
                      for e in launches_bf16}
     paths = {"bf16 slice": launches_bf16, "fp8 slice": launches_fp8, **fp8_paths, "wire": launches_wire,
              **launches_dp, "1tb sparse": launches_1tb,
-             "ragged": launches_ragged, **cli["launches"], "mesh": launches_mesh}
+             "ragged": launches_ragged, **cli["launches"], "mesh": launches_mesh,
+             "bench": {e: bench["launches"].get(e, 0) for e in launches_bf16}}
     for k in kernels:
         name = k["name"]
         entries = KERNEL_ENTRIES.get(name, (name,))
@@ -4870,7 +4964,7 @@ def run_phases(procs: dict) -> int:
                       "device_planner": device_planner, "fp8_windows": fp8_windows}))
     print(json.dumps({"mesh": mesh, "baseline": cli["baseline"], "host_link": host_link,
                       "bf16_slice": SLICE_NUMBERS.get("bfloat16"), "cli": cli["numbers"], "tablewise": cli["tablewise"],
-                      "rowwise": cli["rowwise"]}))
+                      "rowwise": cli["rowwise"], "bench": bench}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 source, the device planner, the resident baseline, the utilities, DeepFM,
 the command lines, the sharding planner, the column-wise mesh, the id
 exchanges, the table-wise layout, the hybrid step and model, and the
-row-wise and row-sharded cached layouts included)
+row-wise and row-sharded cached layouts and the headline bench included)
 loads neither jax nor any module of the JAX package; its entry points
 refuse to run silently on the CPU; and its kernel wrappers take their plain
 versions only for CPU tensors."""
@@ -36,14 +36,14 @@ for n in names:
 bad = [k for k in sys.modules
        if k in ("jax", "cachedembedding_tpu") or k.startswith(("jax.", "cachedembedding_tpu."))]
 print(len(names), bad)
-assert len(names) >= 53, names
+assert len(names) >= 54, names
 assert "cachedembedding_tpu_torch.ops.rounding" in names, names
 new = ["data.npy_dataset", "data.feature_counter", "data.criteo", "data.avazu", "baselines.full_resident",
        "utils.misc", "utils.checkpoint", "models.deepfm", "train.dlrm_main", "ops.unique", "data.random_rec",
        "data.transform", "data.prefetch", "data.parquet", "data.dispatch", "utils.timer", "parallel",
        "parallel.planner", "parallel.mesh", "parallel.multiproc", "parallel.column", "train.mesh_window",
        "baselines.dlrm_main", "parallel.all_to_all", "parallel.tablewise", "parallel.hybrid", "models.hybrid",
-       "parallel.row", "parallel.row_cached"]
+       "parallel.row", "parallel.row_cached", "bench"]
 missing = [m for m in new if "cachedembedding_tpu_torch." + m not in names]
 assert not missing, missing
 assert not bad, bad
