@@ -1,0 +1,5 @@
+"""pytest settings of the benchmark's own tests (``perfbench/tests``)."""
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA card; skips without one (decided in a fixture)")
