@@ -84,6 +84,7 @@ from cachedembedding_tpu_torch.cache.state import (
 from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
 from cachedembedding_tpu_torch.ops.synth_rows import scatter_synth_admits
+from cachedembedding_tpu_torch.utils.spans import CHECK_RANGE, Spans
 
 CACHE_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
@@ -129,6 +130,10 @@ class CacheStats:
     swap_out_time: float = 0.0
     prepare_calls: int = 0
     synth_rows: int = 0  # admits materialized on the device (no link bytes)
+    # bytes over the host link as copied: ``to_device`` (the trainer's window
+    # inputs too), the device plan's readback, the writeback gathers' copies
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
 
     def hit_rate(self, window: int = 0) -> float:
         """Hits over lookups of unique ids, over the last ``window`` planned
@@ -266,6 +271,8 @@ class CachedEmbeddingBag:
         initial_weight: Optional[np.ndarray] = None,
     ):
         self.device = resolve_device(device)
+        self.stats = CacheStats()
+        self.spans = Spans()  # the cache's spans and its trainer's
         self.col_start, col_end = columns if columns is not None else (0, int(embedding_dim))
         if not 0 <= self.col_start < col_end <= embedding_dim:
             raise ValueError(f"columns {columns} outside [0, {embedding_dim})")
@@ -408,7 +415,6 @@ class CachedEmbeddingBag:
         else:
             self._warm_freq = self._host_freq
 
-        self.stats = CacheStats()
         self.cache_op = True
         self.transfer_mode = transfer_dtype
         # warmup and the resident region ship f32 rows unless the mode is bf16;
@@ -439,6 +445,7 @@ class CachedEmbeddingBag:
 
     def to_device(self, arr) -> torch.Tensor:
         """Asynchronous host->device copy (``host_to_device``)."""
+        self.stats.h2d_bytes += arr.nbytes
         return host_to_device(arr, self.device)
 
     @property
@@ -550,7 +557,8 @@ class CachedEmbeddingBag:
         """ValueError on an id outside [0, num_embeddings), in the JAX
         package's words for each planner."""
         if ids_np.size:
-            lo, hi = int(ids_np.min()), int(ids_np.max())
+            with self.spans(CHECK_RANGE):
+                lo, hi = int(ids_np.min()), int(ids_np.max())
             if lo < 0 or hi >= self.num_embeddings:
                 if device_planner:
                     raise ValueError(
@@ -754,11 +762,13 @@ class CachedEmbeddingBag:
         vals_dev = gather_slots(self.cache_weight, slots, out_dtype=out_dtype)
         host = self._pinned(vals_dev.shape, vals_dev.dtype)
         host.copy_(vals_dev, non_blocking=self._on_cuda)
+        self.stats.d2h_bytes += host.nbytes
         host_acc = None
         if self.cache_accum is not None:  # the accumulators ride behind the same event
             acc_dev = self.cache_accum.index_select(0, slots)
             host_acc = self._pinned(acc_dev.shape, torch.float32)
             host_acc.copy_(acc_dev, non_blocking=self._on_cuda)
+            self.stats.d2h_bytes += host_acc.nbytes
         event = None
         if self._on_cuda:
             event = torch.cuda.Event()
@@ -836,6 +846,7 @@ class CachedEmbeddingBag:
         host_indices = self._pinned(plan.indices.shape, torch.int32)
         host_scalars.copy_(plan.scalars, non_blocking=self._on_cuda)
         host_indices.copy_(plan.indices, non_blocking=self._on_cuda)
+        self.stats.d2h_bytes += host_scalars.nbytes + host_indices.nbytes
         if events:
             events[2].record()
         return PreparedWindow(slot_ids=slot_ids.reshape(out_shape) if out_shape is not None else slot_ids,

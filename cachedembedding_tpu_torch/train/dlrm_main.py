@@ -48,7 +48,13 @@ and device seconds a window, the update plans' host ms a step, the peak
 device memory, the bytes of fetched admits, each window's id wire format and
 the first window's bytes by block, with ``--planner device`` each window's
 plan device seconds and plan readback (bytes, device seconds, host wait),
-and under row-wise Adagrad the rows whose accumulator grew.
+each span's median host ms a window (``span_ms_per_window``, by the names of
+``utils/spans.py``: the window's fetch, staging, the cache's host plan and
+its range check, the readback wait, the admits, the dispatch and its steps'
+forward-backward, embedding update and dense update, and on the host
+planner the wire's encoding, packing, update plans and shipping), the bytes
+copied over the host link each way (``h2d_bytes``, ``d2h_bytes``), and
+under row-wise Adagrad the rows whose accumulator grew.
 """
 
 from __future__ import annotations
@@ -393,6 +399,7 @@ def _run(args, device, mesh):
 
     from cachedembedding_tpu_torch.ops import launch_counts
     from cachedembedding_tpu_torch.utils.misc import get_mem_info
+    from cachedembedding_tpu_torch.utils.spans import median_ms
 
     if device.type == "cuda":
         if args.memory_fraction is not None:
@@ -478,9 +485,9 @@ def _run(args, device, mesh):
                 window_device_s=[x for r in parts for x in r.window_device_s],
                 window_plan_s=[x for r in parts for x in r.window_plan_s],
                 window_wire=[x for r in parts for x in r.window_wire],
-                window_copy_s=[x for r in parts for x in r.window_copy_s],
                 window_plan_device_s=[x for r in parts for x in r.window_plan_device_s],
                 window_readback=[x for r in parts for x in r.window_readback],
+                window_spans=[x for r in parts for x in r.window_spans],
             )
         else:
             report = trainer.train(train_data, num_iters=limit, log_every=100)
@@ -523,6 +530,9 @@ def _run(args, device, mesh):
         "window_bytes": [w["bytes"] for r in reports for w in r.window_wire][:1],
         "window_plan_device_s": [x for r in reports for x in r.window_plan_device_s],
         "window_readback": [x for r in reports for x in r.window_readback],
+        "span_ms_per_window": median_ms([x for r in reports for x in r.window_spans]),
+        "h2d_bytes": trainer.embed.stats.h2d_bytes,
+        "d2h_bytes": trainer.embed.stats.d2h_bytes,
     }
     if trainer.embed.cache_accum is not None:
         # row-wise Adagrad: rows whose accumulator grew, on the device and,

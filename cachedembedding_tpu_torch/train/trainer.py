@@ -105,6 +105,12 @@ The JAX package fuses a window into one ``lax.scan``; here a window is a
 Python loop of asynchronous launches on one CUDA stream, and losses are read
 back once, at the end. ``evaluate`` runs the same window machinery with the
 grouping plans suspended and scores with Kernel 1 lookups.
+
+``train`` records each window's host work and dispatch as named spans
+(``utils/spans.py``: fetch, staging, the cache's host plan, the readback
+wait, the admits, the dispatch and its steps' parts) into
+``TrainReport.window_spans``, on the profiler's clock too while a
+``torch.profiler`` records.
 """
 
 from __future__ import annotations
@@ -144,6 +150,22 @@ from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sg
 from cachedembedding_tpu_torch.parallel.multiproc import put_addressable, shard_bounds
 from cachedembedding_tpu_torch.train import mesh_window, wire
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
+from cachedembedding_tpu_torch.utils.spans import (
+    ADMIT,
+    DENSE_UPDATE,
+    DISPATCH,
+    EMBEDDING_UPDATE,
+    ENCODE,
+    FETCH,
+    FORWARD_BACKWARD,
+    PACK,
+    PLAN_HOST,
+    READBACK_WAIT,
+    SHIP,
+    SORT_PLANS,
+    STAGE,
+    Spans,
+)
 
 _EVAL_READBACK_STEPS = 32  # eval scores stay on the device this many steps
 _FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -225,14 +247,16 @@ class TrainReport:
     # per window: the id format shipped ("fixed", "plain", "esc" or "rt"),
     # bytes by block (ids, dense, labels, admits, and the tail: plans and
     # writeback slots), host s in the id encoder and in the rest of the
-    # packing (dense features, labels, admits, the buffer's assembly)
+    # packing (dense features, labels, admits, the buffer's assembly and copy)
     window_wire: List[dict] = dataclasses.field(default_factory=list)
-    window_copy_s: List[float] = dataclasses.field(default_factory=list)  # device s of each buffer copy
     # the device planner, per window: device s of plan_ids and the remap (CUDA
     # only), and the readback of its plan: bytes, the copies' device s (CUDA
     # only) and the host's wait for them
     window_plan_device_s: List[float] = dataclasses.field(default_factory=list)
     window_readback: List[dict] = dataclasses.field(default_factory=list)
+    # per window, host s by span name (``utils/spans.py``), entry i the work of
+    # window i: its preparation (the parts of ``window_host_s[i]``) and its dispatch
+    window_spans: List[dict] = dataclasses.field(default_factory=list)
 
 
 class _Window(NamedTuple):
@@ -251,7 +275,6 @@ class _Window(NamedTuple):
     buf: torch.Tensor = None                 # the window's device buffer
     admits: Optional[wire.AdmitLayout] = None
     wire: Optional[dict] = None              # format, id spec, bytes by block, encode s
-    copy_ev: Optional[tuple] = None          # CUDA events around the buffer copy
     wb_slots: Optional[torch.Tensor] = None  # int32 slots of the evicted rows to write back
     bounds: Optional[List[int]] = None       # ragged: (P + 1,) step boundaries
     lengths: Optional[torch.Tensor] = None   # ragged: (P, F*B) int32 ids per bag
@@ -373,6 +396,8 @@ class CachedDLRMTrainer:
         # f32 rows: the rounding branch is cw - slr * g, Kernel 2's function
         self._sr = c.rounds_stochastically and self.embed.cache_weight.dtype != torch.float32
         self._step_idx = 0  # training steps dispatched before the current window
+        # one recorder for the trainer's spans and its cache's
+        self.spans = self.embed.spans if isinstance(self.embed, CachedEmbeddingBag) else Spans()
 
     # ------------------------------------------------------------------
     def _lrs(self, progress: float) -> Tuple[float, float]:
@@ -439,17 +464,10 @@ class CachedDLRMTrainer:
     def _ship(self, parts: dict, tail: list):
         """Assemble a window's blocks, then ``tail`` at an aligned offset, into
         one host buffer and copy it to the device in one transfer. Returns
-        (device buffer, tail offset, CUDA events around the copy or None)."""
+        (device buffer, tail offset)."""
         host, tail_at = wire.assemble([p for blk in parts.values() for p in blk], tail,
                                       pin=self.device.type == "cuda")
-        ev = None
-        if self.device.type == "cuda":
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        buf = self.embed.to_device(host)
-        if ev is not None:
-            ev[1].record()
-        return buf, tail_at, ev
+        return self.embed.to_device(host), tail_at
 
     @staticmethod
     def _writeback_slots(ws) -> list:
@@ -505,33 +523,32 @@ class CachedDLRMTrainer:
         if ragged:
             return self._begin_window_ragged(batches, with_plan, dense_mode)
         P = len(batches)
-        all_ids = concat_uniform_values(batches)
+        with self.spans(STAGE):
+            all_ids = concat_uniform_values(batches)
         L = all_ids.shape[0] // P
         N = L // F
-        ws = self.embed.begin_window_staging(all_ids, (P, L), uniform_fbp=(P, F, N))
-        t0 = time.perf_counter()
-        ids_bytes, id_spec, fmt = self._encode_ids(ws.slot_ids, P, L, F)
-        encode_s = time.perf_counter() - t0
+        with self.spans(PLAN_HOST):
+            ws = self.embed.begin_window_staging(all_ids, (P, L), uniform_fbp=(P, F, N))
+        with self.spans(ENCODE) as encode:
+            ids_bytes, id_spec, fmt = self._encode_ids(ws.slot_ids, P, L, F)
         dmode = self._dense_mode(dense_mode, False)
-        t0 = time.perf_counter()
-        rows = self._local_rows(B)
-        labels, lbits = wire.label_wire(torch.stack([b.labels for b in batches]).numpy()[:, rows], True)
-        admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
-        parts = {"ids": [ids_bytes], "dense": self._dense_parts(batches, dmode),
-                 "labels": [labels], "admits": admit_parts}
-        pack_s = time.perf_counter() - t0
+        with self.spans(PACK) as pack:
+            rows = self._local_rows(B)
+            labels, lbits = wire.label_wire(torch.stack([b.labels for b in batches]).numpy()[:, rows], True)
+            admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
+            parts = {"ids": [ids_bytes], "dense": self._dense_parts(batches, dmode),
+                     "labels": [labels], "admits": admit_parts}
         plan_parts, plan_s = [], 0.0
         if with_plan:
             NR = self._device_rows()
-            t0 = time.perf_counter()
-            # the update's stream is the gathered rows' order: (N, F)
-            steps = [sort_plan_np(ws.slot_ids[p].reshape(F, N).T, NR) for p in range(P)]
-            plan_s = time.perf_counter() - t0
+            with self.spans(SORT_PLANS) as plans:
+                # the update's stream is the gathered rows' order: (N, F)
+                steps = [sort_plan_np(ws.slot_ids[p].reshape(F, N).T, NR) for p in range(P)]
+            plan_s = plans.s
             plan_parts = [np.stack(a) for a in zip(*steps)]
         wb = self._writeback_slots(ws)
-        t0 = time.perf_counter()
-        buf, tail_at, ev = self._ship(parts, plan_parts + wb)
-        pack_s += time.perf_counter() - t0
+        with self.spans(SHIP) as ship:
+            buf, tail_at = self._ship(parts, plan_parts + wb)
         slot_ids, a = wire.decode_window_ids(buf, P, L, id_spec)
         b_local = rows.stop - rows.start
         dense, b = wire.unpack_dense(buf, a, P, b_local, self.cfg.dense_in_features, dmode)
@@ -540,8 +557,9 @@ class CachedDLRMTrainer:
         return _Window(staging=ws, slot_ids=slot_ids, dense=dense, labels=labels_dev,
                        plan=tail[:3] if with_plan else None, plan_s=plan_s,
                        buf=buf, admits=wire.AdmitLayout(c, sb, fb, fmode, accum),
-                       wire=self._wire_report(fmt, id_spec, parts, plan_parts + wb, encode_s, pack_s, dmode, lbits),
-                       copy_ev=ev, wb_slots=tail[-1] if wb else None)
+                       wire=self._wire_report(fmt, id_spec, parts, plan_parts + wb, encode.s, pack.s + ship.s,
+                                              dmode, lbits),
+                       wb_slots=tail[-1] if wb else None)
 
     @staticmethod
     def _dense_np(batches: List[Batch]) -> np.ndarray:
@@ -565,10 +583,13 @@ class CachedDLRMTrainer:
         P = len(batches)
         f0 = batches[0].sparse_features
         F, B = f0.num_features, f0.batch_size
-        vals = [b.sparse_features.values.numpy() for b in batches]
+        with self.spans(STAGE):
+            vals = [b.sparse_features.values.numpy() for b in batches]
+            ids = np.concatenate(vals)
         counts = [v.shape[0] for v in vals]
         bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-        ws = self.embed.begin_window_staging(np.concatenate(vals), (-1,))
+        with self.spans(PLAN_HOST):
+            ws = self.embed.begin_window_staging(ids, (-1,))
         vp = bucket(max(counts))
         slot_pad = np.zeros((P, vp), np.int32)
         for p in range(P):
@@ -578,29 +599,26 @@ class CachedDLRMTrainer:
             raise ValueError("a bag of 65536 ids or more does not fit the u16 lengths wire")
         len16 = bool(lengths.max(initial=0) >= 256)
         lens_bytes = lengths.astype("<u2").reshape(-1).view(np.uint8) if len16 else lengths.astype(np.uint8).reshape(-1)
-        t0 = time.perf_counter()
-        width = hostops.id_pack_width(self._device_rows(), vp)
-        ids_bytes = slot_pad.reshape(-1).view(np.uint8) if width == 32 else hostops.pack_ids(slot_pad, width)
-        encode_s = time.perf_counter() - t0
+        with self.spans(ENCODE) as encode:
+            width = hostops.id_pack_width(self._device_rows(), vp)
+            ids_bytes = slot_pad.reshape(-1).view(np.uint8) if width == 32 else hostops.pack_ids(slot_pad, width)
         dmode = self._dense_mode(dense_mode, True)
-        t0 = time.perf_counter()
-        labels, _ = wire.label_wire(torch.stack([b.labels for b in batches]).numpy(), False)
-        admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
-        parts = {"ids": [ids_bytes, lens_bytes], "dense": wire.dense_wire(self._dense_np(batches), dmode),
-                 "labels": [labels], "admits": admit_parts}
-        pack_s = time.perf_counter() - t0
+        with self.spans(PACK) as pack:
+            labels, _ = wire.label_wire(torch.stack([b.labels for b in batches]).numpy(), False)
+            admit_parts, (sb, fb, fmode, accum) = self._admit_parts(ws)
+            parts = {"ids": [ids_bytes, lens_bytes], "dense": wire.dense_wire(self._dense_np(batches), dmode),
+                     "labels": [labels], "admits": admit_parts}
         plan_parts, plan_s = [], 0.0
         if with_plan:
             NR = self._device_rows()
-            t0 = time.perf_counter()
-            steps = [sort_plan_np(ws.slot_ids[bounds[p]:bounds[p + 1]], NR) for p in range(P)]
-            plan_s = time.perf_counter() - t0
+            with self.spans(SORT_PLANS) as plans:
+                steps = [sort_plan_np(ws.slot_ids[bounds[p]:bounds[p + 1]], NR) for p in range(P)]
+            plan_s = plans.s
             perm, grouped, bins = zip(*steps)
             plan_parts = [np.concatenate(perm), np.concatenate(grouped), np.stack(bins)]
         wb = self._writeback_slots(ws)
-        t0 = time.perf_counter()
-        buf, tail_at, ev = self._ship(parts, plan_parts + wb)
-        pack_s += time.perf_counter() - t0
+        with self.spans(SHIP) as ship:
+            buf, tail_at = self._ship(parts, plan_parts + wb)
         a = (P * vp * width) // 8
         slot_ids = wire.unpack_flat(buf[:a], P * vp, width).reshape(P, vp)
         lengths_dev, b0 = wire.unpack_lengths(buf, a, P, F * B, len16)
@@ -611,8 +629,7 @@ class CachedDLRMTrainer:
             staging=ws, slot_ids=slot_ids, dense=dense, labels=labels_dev,
             plan=tail[:3] if with_plan else None, plan_s=plan_s,
             buf=buf, admits=wire.AdmitLayout(c, sb, fb, fmode, accum),
-            wire=self._wire_report("fixed", width, parts, plan_parts + wb, encode_s, pack_s, dmode, False),
-            copy_ev=ev,
+            wire=self._wire_report("fixed", width, parts, plan_parts + wb, encode.s, pack.s + ship.s, dmode, False),
             wb_slots=tail[-1] if wb else None,
             bounds=[int(x) for x in bounds], lengths=lengths_dev,
             in_bags=[int(x) for x in lengths.sum(axis=1)], vp=vp,
@@ -628,17 +645,19 @@ class CachedDLRMTrainer:
         P = len(batches)
         f0 = batches[0].sparse_features
         F, B = f0.num_features, f0.batch_size
-        vals = [b.sparse_features.values.numpy() for b in batches]
-        dense = torch.stack([b.dense_features for b in batches]).float()
-        labels = torch.stack([b.labels for b in batches]).float()
-        if self.mesh is None:
-            dense, labels = self.embed.to_device(dense), self.embed.to_device(labels)
-        else:  # this rank's batch rows
-            dense, labels = put_addressable(self.mesh, dense, 1), put_addressable(self.mesh, labels, 1)
+        with self.spans(STAGE):
+            vals = [b.sparse_features.values.numpy() for b in batches]
+            ids = np.concatenate(vals)
+            dense = torch.stack([b.dense_features for b in batches]).float()
+            labels = torch.stack([b.labels for b in batches]).float()
+            if self.mesh is None:
+                dense, labels = self.embed.to_device(dense), self.embed.to_device(labels)
+            else:  # this rank's batch rows
+                dense, labels = put_addressable(self.mesh, dense, 1), put_addressable(self.mesh, labels, 1)
+        with self.spans(PLAN_HOST):
+            pw = self.embed.begin_prepare(ids, None if ragged else (P, vals[0].shape[0]))
         if not ragged:
-            pw = self.embed.begin_prepare(np.concatenate(vals), (P, vals[0].shape[0]))
             return _Window(staging=pw, slot_ids=pw.slot_ids, dense=dense, labels=labels, plan=None, plan_s=0.0)
-        pw = self.embed.begin_prepare(np.concatenate(vals))
         counts = [v.shape[0] for v in vals]
         bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         vp = bucket(max(counts))
@@ -674,10 +693,11 @@ class CachedDLRMTrainer:
         window's steps, before this window's admits), their slots read from
         the window's buffer; on the device planner, wait for the window's
         plan and move its rows (``finish_prepare``)."""
-        if isinstance(win.staging, PreparedWindow):
-            self.embed.finish_prepare(win.staging)
-        else:
-            self.embed.enqueue_writebacks(win.staging, win.wb_slots)
+        with self.spans(ADMIT):
+            if isinstance(win.staging, PreparedWindow):
+                self.embed.finish_prepare(win.staging)
+            else:
+                self.embed.enqueue_writebacks(win.staging, win.wb_slots)
 
     def _gathered_rows(self, win: _Window, p: int) -> torch.Tensor:
         """Kernel 1 lookup of step p: (B*P, F, D) rows in the storage dtype;
@@ -798,24 +818,26 @@ class CachedDLRMTrainer:
         losses = []
         for p, progress in enumerate(progresses):
             slr, dlr = self._lrs(progress)
-            rows = self._gathered_rows(win, p)
-            if upcast:
-                rows = rows.float()
-            rows.requires_grad_(True)
-            sparse = self._pooled(win, p, rows, count_dtype)
-            loss = _model_loss(self.cfg.model, self.model(win.dense[p], sparse), win.labels[p])
-            loss.backward()
-            g_rows = rows.grad.reshape(-1, cw.shape[1])
-            perm, grouped, bins = self._step_plan(win, p)
-            if ragged:
-                g = g_rows if g_rows.dtype == cw.dtype else astype_storage(g_rows, cw.dtype)
-                self._ragged_update(cw, g, perm, grouped, bins, slr, branch)
-            elif self._sr:
-                seed = (self._step_idx * _SEED_MUL + p) & _M32
-                self._sr_update(cw, g_rows, perm, grouped, bins, slr, seed, branch)
-            else:
-                self._update(cw, g_rows, perm, grouped, bins, slr, branch)
-            with torch.no_grad():
+            with self.spans(FORWARD_BACKWARD):
+                rows = self._gathered_rows(win, p)
+                if upcast:
+                    rows = rows.float()
+                rows.requires_grad_(True)
+                sparse = self._pooled(win, p, rows, count_dtype)
+                loss = _model_loss(self.cfg.model, self.model(win.dense[p], sparse), win.labels[p])
+                loss.backward()
+                g_rows = rows.grad.reshape(-1, cw.shape[1])
+            with self.spans(EMBEDDING_UPDATE):
+                perm, grouped, bins = self._step_plan(win, p)
+                if ragged:
+                    g = g_rows if g_rows.dtype == cw.dtype else astype_storage(g_rows, cw.dtype)
+                    self._ragged_update(cw, g, perm, grouped, bins, slr, branch)
+                elif self._sr:
+                    seed = (self._step_idx * _SEED_MUL + p) & _M32
+                    self._sr_update(cw, g_rows, perm, grouped, bins, slr, seed, branch)
+                else:
+                    self._update(cw, g_rows, perm, grouped, bins, slr, branch)
+            with self.spans(DENSE_UPDATE), torch.no_grad():
                 for prm in params:
                     prm.sub_(prm.grad * dlr)
                     prm.grad = None
@@ -834,20 +856,25 @@ class CachedDLRMTrainer:
         host_s: List[float] = []
         plan_s: List[float] = []
         wires: List[dict] = []
-        copy_ev = []
+        window_spans: List[dict] = []
         events = []
+        spans = self.spans
 
-        def fetch_window() -> List[Batch]:
+        def fetch_window() -> Tuple[List[Batch], dict]:
+            """The next window's batches and its entry of span seconds, which
+            the spans record into from here on."""
             nonlocal fetched
+            spans.entry = {}
             want = pn if total is None else min(pn, total - fetched)
             window = []
-            for _ in range(want):
-                try:
-                    window.append(next(it))
-                except StopIteration:
-                    break
+            with spans(FETCH):
+                for _ in range(want):
+                    try:
+                        window.append(next(it))
+                    except StopIteration:
+                        break
             fetched += len(window)
-            return window
+            return window, spans.entry
 
         readbacks = []
 
@@ -859,19 +886,18 @@ class CachedDLRMTrainer:
         def finish(win, begun_s):
             th = time.perf_counter()
             pw = win.staging
-            wait_s = 0.0
-            if isinstance(pw, PreparedWindow) and pw.events:
-                pw.events[2].synchronize()  # the readback: what finish_prepare waits for
-                wait_s = time.perf_counter() - th
+            if isinstance(pw, PreparedWindow):
+                with spans(READBACK_WAIT) as wait:
+                    if pw.events:
+                        pw.events[2].synchronize()  # the readback: what finish_prepare waits for
             self._finish_window(win)
             host_s.append(begun_s + time.perf_counter() - th)
+            window_spans.append(spans.entry)
             plan_s.append(win.plan_s)
             if win.wire is not None:
                 wires.append(win.wire)
-            if win.copy_ev is not None:
-                copy_ev.append(win.copy_ev)
             if isinstance(pw, PreparedWindow):
-                readbacks.append((pw.readback_bytes, wait_s, pw.events))
+                readbacks.append((pw.readback_bytes, wait.s, pw.events))
             return win
 
         cuda = self.device.type == "cuda"
@@ -881,22 +907,24 @@ class CachedDLRMTrainer:
         early = self.device_planner
         t0 = time.perf_counter()
         th = time.perf_counter()
-        cur = fetch_window()
+        cur, ent_cur = fetch_window()
         win_cur = None
         if cur:
             win_cur = finish(*begin(cur, th))
         while cur:
             progresses = [0.0 if total is None else (done + i) / max(total, 1) for i in range(len(cur))]
-            nxt, win_nxt = [], None
+            nxt, win_nxt, ent_nxt = [], None, None
             if early:
                 th = time.perf_counter()
-                nxt = fetch_window()
+                nxt, ent_nxt = fetch_window()
                 if nxt:
                     win_nxt, begun_s = begin(nxt, th)
+            spans.entry = ent_cur
             if cuda:
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            loss_chunks.append(self._dispatch_window(win_cur, progresses))
+            with spans(DISPATCH):
+                loss_chunks.append(self._dispatch_window(win_cur, progresses))
             if cuda:
                 ev[1].record()
                 events.append(ev)
@@ -909,13 +937,15 @@ class CachedDLRMTrainer:
                       f"hit_rate={self.embed.stats.hit_rate(window=pn):.4f}")
             if early:
                 if nxt:
+                    spans.entry = ent_nxt
                     win_nxt = finish(win_nxt, begun_s)
             else:  # plan + stage the next window while the device executes this one
                 th = time.perf_counter()
-                nxt = fetch_window()
+                nxt, ent_nxt = fetch_window()
                 if nxt:
                     win_nxt = finish(*begin(nxt, th))
-            cur, win_cur = nxt, win_nxt
+            cur, win_cur, ent_cur = nxt, win_nxt, ent_nxt
+        spans.entry = None
         if cuda:
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -929,10 +959,10 @@ class CachedDLRMTrainer:
             window_device_s=[a.elapsed_time(b) / 1e3 for a, b in events],
             window_plan_s=plan_s,
             window_wire=wires,
-            window_copy_s=[a.elapsed_time(b) / 1e3 for a, b in copy_ev],
             window_plan_device_s=[ev[0].elapsed_time(ev[1]) / 1e3 for _, _, ev in readbacks if ev],
             window_readback=[{"bytes": n, "wait_s": w, "device_s": ev[1].elapsed_time(ev[2]) / 1e3 if ev else None}
                              for n, w, ev in readbacks],
+            window_spans=window_spans,
         )
 
     @torch.no_grad()

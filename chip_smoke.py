@@ -2629,7 +2629,6 @@ def phase_wire(device) -> tuple:
             "formats": formats, "bytes_per_window": by_block,
             "raw_bytes_per_window": {"ids_int32": P * B * F * 4, "dense_bf16": P * B * Din * 2, "labels_u8": P * B},
             "encode_ms": mean([1e3 * w["encode_s"] for w in ws]), "pack_ms": mean([1e3 * w["pack_s"] for w in ws]),
-            "copy_ms": mean([1e3 * x for x in last.window_copy_s]),
             "host_s_per_window": mean(last.window_host_s), "device_s_per_window": mean(last.window_device_s),
             "examples_per_s": last.examples_per_s, "decode_check": check, "hit_rate": last.hit_rate,
             "loss_last_window": float(losses[-P:].mean()),

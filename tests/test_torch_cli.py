@@ -139,7 +139,10 @@ def test_main_matches_jax_on_files(tmp_path, capsys, monkeypatch, extra, rows):
         assert got[stage][1] == want[stage][1] == 160
         assert abs(got[stage][0] - want[stage][0]) <= tol, (stage, got, want)
     np.testing.assert_allclose(pl, jl, rtol=rtol)
-    assert "run stats: {" in captured.err
+    stats = _run_stats(captured.err)
+    assert {"trainer.fetch", "trainer.stage", "cache.plan_host", "cache.admit", "trainer.dispatch",
+            "step.forward_backward"} <= set(stats["span_ms_per_window"])
+    assert (stats["h2d_bytes"] > 0 and stats["d2h_bytes"] > 0) == ("--use_cache" in extra)
     if "--use_freq" in extra:
         assert "id_freq_map: loaded" in captured.err  # JAX's main wrote it first
 

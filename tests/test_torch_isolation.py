@@ -43,7 +43,7 @@ new = ["data.npy_dataset", "data.feature_counter", "data.criteo", "data.avazu", 
        "data.transform", "data.prefetch", "data.parquet", "data.dispatch", "utils.timer", "parallel",
        "parallel.planner", "parallel.mesh", "parallel.multiproc", "parallel.column", "train.mesh_window",
        "baselines.dlrm_main", "parallel.all_to_all", "parallel.tablewise", "parallel.hybrid", "models.hybrid",
-       "parallel.row", "parallel.row_cached", "bench"]
+       "parallel.row", "parallel.row_cached", "bench", "utils.spans"]
 missing = [m for m in new if "cachedembedding_tpu_torch." + m not in names]
 assert not missing, missing
 assert not bad, bad
