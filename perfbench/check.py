@@ -1,5 +1,6 @@
 """The comparison that decides ``correct``: the program's training against
-the plain reference's (``reference/dlrm.py``), in two stretches.
+the plain reference's (``reference/training.py`` with the dense model that
+the configuration names), in two stretches.
 
 * **The start**: the first three steps from the seed. Both sides start from
   the same inputs (the benchmark's dense weights, the canonical table
@@ -7,7 +8,8 @@ the plain reference's (``reference/dlrm.py``), in two stretches.
 * **The timed stretch**: the timed ``train`` call's first windows, at the
   timed sizes, with the cache full, evicting and writing rows back. The
   reference starts from the program's state read back just before the
-  call (its dense parameters and the rows those windows touch) and is
+  call (its dense parameters, the rows those windows touch and, under
+  row-wise Adagrad, their accumulators) and is
   compared with the state read back when the trainer pulls the next
   window's first batch.
 
@@ -20,7 +22,8 @@ its own median leaf.
   |loss_ref|`` over the stretch's steps;
 * ``grad_gap_tables``: each table's first gradient as its update got it:
   the grad rows fed to the program's embedding update on step 1, summed
-  per row, against the reference's f32 row gradients; the worst table;
+  per row, against the reference's row gradients (summed as the
+  configuration's ``precision.row_grad_sum`` states); the worst table;
 * ``grad_gap_dense``: each dense leaf's first gradient, worked out from
   its state after step 1 (``(before - after) / lr``); the median leaf;
 * ``change_gap_dense``, ``change_gap_tables`` (over the start's three
@@ -28,14 +31,17 @@ its own median leaf.
   change; the median leaf;
 * ``writeback_gap``: the change over the stretch of the rows it touched
   that the program holds in its host table when the stretch ends (rows
-  the stretch admitted, updated, evicted and wrote back), as one leaf.
+  the stretch admitted, updated, evicted and wrote back), as one leaf;
+* ``accum_gap`` (row-wise Adagrad only): the change over the stretch of
+  the Adagrad accumulators of the rows it touched, wherever the program
+  holds them (a cache slot or the host store), as one leaf.
 
 The median leaf, not the worst, for the changes and the dense gradient:
 the tables are stored in bf16 and the towers multiply bf16-rounded
 operands, as the configurations state, so a leaf that moves by few last
 places, or a dense leaf whose gradient is what is left after its
 examples' terms cancel, reads round-off of its own size; the reference
-with those roundings alone (``reference.train_steps(lowered=...)``)
+with those roundings alone (``training.train_steps(lowered=...)``)
 reads the same. The worst leaf is printed beside each.
 Leaves whose reference gradient is under a thousandth of their group's
 median leaf's move by round-off alone and are left out.
@@ -57,8 +63,10 @@ STRETCH = ("stretch_loss_gap", "stretch_change_gap_dense", "stretch_change_gap_t
 
 def numbers_of(config: dict) -> tuple:
     """The numbers that decide ``correct`` for a configuration: the
-    writeback's only where a cache evicts."""
-    return START + STRETCH + (("writeback_gap",) if config["embedding"] == "cached" else ())
+    writeback's only where a cache evicts, the accumulators' only under
+    row-wise Adagrad."""
+    return (START + STRETCH + (("writeback_gap",) if config["embedding"] == "cached" else ())
+            + (("accum_gap",) if config["dlrm"].get("embedding_optimizer") == "rowwise_adagrad" else ()))
 
 
 def leaves(dense: Dict[str, torch.Tensor], rows: torch.Tensor, table_of_row: np.ndarray,
@@ -125,12 +133,22 @@ def readings(prog: dict, ref: dict, lr: float) -> dict:
     return out
 
 
+def _one_leaf_gap(a: torch.Tensor, p: torch.Tensor, r: torch.Tensor) -> float:
+    """The gap of the norms of the changes ``p - a`` and ``r - a``, over the
+    reference's; nan where the reference does not change."""
+    n_ref = float(torch.linalg.vector_norm(r - a))
+    n_prog = float(torch.linalg.vector_norm(p - a))
+    return abs(n_prog - n_ref) / n_ref if n_ref > 0 else float("nan")
+
+
 def stretch_readings(prog: dict, ref: dict, lr: float) -> dict:
     """The timed stretch's numbers. ``prog`` holds ``losses`` and ``sB``
     (leaves when the stretch ends) and ``host`` (the same for the rows read
     from the host table then, as one leaf); ``ref`` holds ``losses``,
     ``s1`` and ``sB`` (after its first and last step) and ``host``; both
-    start from ``sA`` (the program's state before the stretch)."""
+    start from ``sA`` (the program's state before the stretch). Under
+    row-wise Adagrad both also hold ``acc``: the touched rows'
+    accumulators before (``A``) and after (``B``) the stretch."""
     sA = prog["sA"]
     out = {"stretch_loss_gap": _loss_gap(prog["losses"], ref["losses"])}
     g_ref = _norms(sA, ref["s1"], lr)
@@ -140,12 +158,9 @@ def stretch_readings(prog: dict, ref: dict, lr: float) -> dict:
         _put(out, f"stretch_change_gap_{group}", _gaps(c_prog, c_ref, keep), "median")
     a, p, r = prog["host"]["A"], prog["host"]["B"], ref["host"]["B"]
     out["writeback_rows"] = int(a.shape[0])
-    if a.shape[0]:
-        n_ref = float(torch.linalg.vector_norm(r - a))
-        n_prog = float(torch.linalg.vector_norm(p - a))
-        out["writeback_gap"] = abs(n_prog - n_ref) / n_ref if n_ref > 0 else float("nan")
-    else:
-        out["writeback_gap"] = float("nan")
+    out["writeback_gap"] = _one_leaf_gap(a, p, r) if a.shape[0] else float("nan")
+    if "acc" in prog:
+        out["accum_gap"] = _one_leaf_gap(prog["acc"]["A"], prog["acc"]["B"], ref["acc"]["B"])
     return out
 
 

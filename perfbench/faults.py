@@ -39,17 +39,43 @@ def half_batch():
         trainer_mod._model_loss = orig
 
 
+_UPDATES = ("binned_sgd_update", "binned_adagrad_update", "ordered_scatter_add_", "ordered_grad_update_")
+
+
 @contextlib.contextmanager
-def rows_unchanged():
-    """The embedding update writes nothing: Kernel 2's and Kernel 5's
-    entries return at once (the dense parameters still train)."""
-    orig = trainer_mod.binned_sgd_update, trainer_mod.ordered_scatter_add_
-    trainer_mod.binned_sgd_update = lambda *a, **k: None
-    trainer_mod.ordered_scatter_add_ = lambda *a, **k: None
+def _replaced(entries: dict):
+    """The trainer's ``entries`` (name -> function) replaced while inside."""
+    orig = {n: getattr(trainer_mod, n) for n in entries}
+    for n, f in entries.items():
+        setattr(trainer_mod, n, f)
     try:
         yield
     finally:
-        trainer_mod.binned_sgd_update, trainer_mod.ordered_scatter_add_ = orig
+        for n, f in orig.items():
+            setattr(trainer_mod, n, f)
+
+
+def rows_unchanged():
+    """The embedding update writes nothing: Kernel 2's (SGD and Adagrad)
+    and Kernel 5's (scatter and dense ragged) entries return at once (the
+    dense parameters still train)."""
+    return _replaced({n: (lambda *a, **k: None) for n in _UPDATES})
+
+
+def accum_frozen():
+    """Row-wise Adagrad's accumulators never change: Kernel 2's and Kernel
+    5's Adagrad entries update the rows from a copy of them, which is
+    dropped."""
+
+    def frozen(name):
+        f = getattr(trainer_mod, name)
+
+        def update(cw, acc, *a, **k):
+            return f(cw, None if acc is None else acc.clone(), *a, **k)
+
+        return update
+
+    return _replaced({n: frozen(n) for n in ("binned_adagrad_update", "ordered_grad_update_")})
 
 
 @contextlib.contextmanager
@@ -71,13 +97,15 @@ def writeback_lost():
 
 
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch, "rows_unchanged": rows_unchanged,
-          "writeback_lost": writeback_lost}
+          "writeback_lost": writeback_lost, "accum_frozen": accum_frozen}
 
 
 def faults_of(config: dict) -> list:
     """The faults that a configuration can have: a writeback only where a
-    cache evicts."""
-    return [f for f in FAULTS if f != "writeback_lost" or config["embedding"] == "cached"]
+    cache evicts, frozen accumulators only under row-wise Adagrad."""
+    cached = config["embedding"] == "cached"
+    adagrad = config["dlrm"].get("embedding_optimizer") == "rowwise_adagrad"
+    return [f for f in FAULTS if (f != "writeback_lost" or cached) and (f != "accum_frozen" or adagrad)]
 
 
 def control_config(config: dict) -> dict:

@@ -13,7 +13,7 @@ def read(run):
     if not steps:
         return None
     cfg = run.cfg
-    L = run.batch_size * cfg.num_sparse_features
+    L = run.lookups_per_step
     grad_bytes = 4 if run.row_bytes == 1 else run.row_bytes  # 1-byte rows take f32 grads
     b = roofline.update_bytes(L, run.unique_per_step, cfg.embedding_dim, run.row_bytes, grad_bytes)
     return roofline.memory_share(b, steps, s)

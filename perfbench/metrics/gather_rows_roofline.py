@@ -13,6 +13,6 @@ def read(run):
     if not steps:
         return None
     cfg = run.cfg
-    L = run.batch_size * cfg.num_sparse_features
+    L = run.lookups_per_step
     return roofline.memory_share(roofline.gather_rows_bytes(L, run.unique_per_step, cfg.embedding_dim,
                                                             run.row_bytes), steps, s)

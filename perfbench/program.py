@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,27 +46,12 @@ def build_trainer(config: dict, cfg: DLRMConfig, freq: np.ndarray, device: torch
     return CachedDLRMTrainer(cfg, id_freq_map=freq, device=device)
 
 
-def dense_shapes(cfg: DLRMConfig) -> Dict[str, tuple]:
-    """Each dense parameter's name (the model's state dict's), shape and
-    fan-in: the bottom tower from the dense features to ``embedding_dim``,
-    the top tower from ``embedding_dim`` plus the pairwise dots of the
-    ``F + 1`` vectors to one logit."""
-    out = {}
-    n = cfg.num_sparse_features + 1
-    for arch, fan, sizes in (("dense_arch", cfg.dense_in_features, cfg.dense_arch_layer_sizes),
-                             ("over_arch", cfg.embedding_dim + n * (n - 1) // 2, cfg.over_arch_layer_sizes)):
-        for i, o in enumerate(sizes):
-            out[f"{arch}.{i}.weight"] = ((o, fan), fan)
-            out[f"{arch}.{i}.bias"] = ((o,), fan)
-            fan = o
-    return out
-
-
-def make_dense_params(cfg: DLRMConfig, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The dense towers' initial weights, made on the device from ``seed``
-    in one draw: ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for every weight and
-    bias (``nn.Linear``'s default law)."""
-    shapes = dense_shapes(cfg)
+def make_dense_params(shapes: Dict[str, tuple], seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The dense model's initial weights, made on the device from ``seed``
+    in one draw, in the order of ``shapes`` (the reference's
+    ``dense_shapes``: name -> (shape, fan-in)): ``U(-1/sqrt(fan_in),
+    1/sqrt(fan_in))`` for every weight and bias (``nn.Linear``'s default
+    law)."""
     sizes = [math.prod(s) for s, _ in shapes.values()]
     g = torch.Generator(device=device)
     g.manual_seed((int(seed) * 0x2545F4914F6CDD1D + 0x5851F42D) & ((1 << 63) - 1))
@@ -112,6 +97,26 @@ def _rows_at(weight: torch.Tensor, addrs: np.ndarray) -> torch.Tensor:
     return torch.cat(out) if out else torch.zeros((0, weight.shape[1]))
 
 
+def _homes(embed, ids: np.ndarray):
+    """Where each global row of ``ids`` lives: its device address (resident
+    region or cache slot; -1 where none) and the mask of the rows that only
+    the host table holds. In-flight writebacks land first."""
+    if isinstance(embed, FullyResidentEmbeddingBag):
+        return ids.copy(), np.zeros(ids.shape[0], bool)
+    embed._drain_writebacks()
+    addr = np.full(ids.shape[0], -1, np.int64)
+    table = np.searchsorted(embed._goff, ids, side="right") - 1
+    res = embed._is_res_table[table]
+    addr[res] = ids[res] + embed._res_delta[table[res]]
+    slots, rows = embed.resident()
+    order = np.argsort(rows, kind="stable")
+    rows_sorted, slots_sorted = rows[order], slots[order]
+    pos = np.minimum(np.searchsorted(rows_sorted, ids), max(rows_sorted.shape[0] - 1, 0))
+    cached = ~res & (rows_sorted.shape[0] > 0) & (rows_sorted[pos] == ids) if rows_sorted.size else np.zeros_like(res)
+    addr[cached] = slots_sorted[pos[cached]]
+    return addr, addr < 0
+
+
 def read_rows(trainer: CachedDLRMTrainer, ids: np.ndarray):
     """The program's current value of each global row in ``ids`` (f32, on
     the host), wherever it lives: the resident region, a cache slot, or
@@ -119,22 +124,11 @@ def read_rows(trainer: CachedDLRMTrainer, ids: np.ndarray):
     In-flight writebacks land first. Reads change nothing."""
     embed = trainer.embed
     ids = np.asarray(ids, np.int64)
-    if isinstance(embed, FullyResidentEmbeddingBag):
-        return _rows_at(embed.cache_weight, ids), np.zeros(ids.shape[0], bool)
-    embed._drain_writebacks()
-    out = torch.empty((ids.shape[0], embed.dim_stored), dtype=torch.float32)
-    table = np.searchsorted(embed._goff, ids, side="right") - 1
-    res = embed._is_res_table[table]
-    if res.any():
-        out[torch.from_numpy(np.flatnonzero(res))] = _rows_at(embed.cache_weight, ids[res] + embed._res_delta[table[res]])
-    slots, rows = embed.resident()
-    order = np.argsort(rows, kind="stable")
-    rows_sorted, slots_sorted = rows[order], slots[order]
-    pos = np.minimum(np.searchsorted(rows_sorted, ids), max(rows_sorted.shape[0] - 1, 0))
-    cached = ~res & (rows_sorted.shape[0] > 0) & (rows_sorted[pos] == ids) if rows_sorted.size else np.zeros_like(res)
-    if cached.any():
-        out[torch.from_numpy(np.flatnonzero(cached))] = _rows_at(embed.cache_weight, slots_sorted[pos[cached]].astype(np.int64))
-    host = ~res & ~cached
+    addr, host = _homes(embed, ids)
+    out = torch.empty((ids.shape[0], embed.cache_weight.shape[1]), dtype=torch.float32)
+    dev = ~host
+    if dev.any():
+        out[torch.from_numpy(np.flatnonzero(dev))] = _rows_at(embed.cache_weight, addr[dev])
     if host.any():
         with embed._host_lock:
             vals = embed.host_table.gather(ids[host])
@@ -142,25 +136,56 @@ def read_rows(trainer: CachedDLRMTrainer, ids: np.ndarray):
     return out, host
 
 
+def read_accum(trainer: CachedDLRMTrainer, ids: np.ndarray) -> Optional[torch.Tensor]:
+    """Row-wise Adagrad's accumulator of each global row in ``ids`` (f32, on
+    the host), wherever it lives: ``cache_accum`` at the row's device
+    address, else the host accumulator store; None under SGD."""
+    embed = trainer.embed
+    if embed.cache_accum is None:
+        return None
+    ids = np.asarray(ids, np.int64)
+    addr, host = _homes(embed, ids)
+    out = torch.empty(ids.shape[0], dtype=torch.float32)
+    dev = ~host
+    if dev.any():
+        idx = torch.as_tensor(addr[dev], device=embed.cache_accum.device)
+        out[torch.from_numpy(np.flatnonzero(dev))] = embed.cache_accum.index_select(0, idx).cpu()
+    if host.any():
+        with embed._host_lock:
+            vals = embed.host_accum.gather(ids[host])
+        out[torch.from_numpy(np.flatnonzero(host))] = torch.from_numpy(np.asarray(vals, np.float32))
+    return out
+
+
 @contextlib.contextmanager
 def update_grads(trainer: CachedDLRMTrainer, steps: int):
-    """Record the grad rows that the trainer's embedding update is fed (its
-    ``_update`` or, under stochastic rounding, ``_sr_update``: the (B * F,
-    D) grads of a step's gathered rows, example-major) on the first
-    ``steps`` steps, as f32 on the host; yields the list they go to."""
+    """Record the grad rows that the trainer's embedding update is fed on
+    the first ``steps`` steps, as f32 on the host; yields the list they go
+    to. Uniform windows feed ``_update`` (or, under stochastic rounding,
+    ``_sr_update``) a step's (N * F, D) grads of its gathered rows,
+    example-major; ragged windows feed ``_ragged_update`` the flat (L, D)
+    grads in the rows' dtype, in stream order (it may pass them on to
+    ``_update``, which records nothing more)."""
     got: List[torch.Tensor] = []
+    inside = [False]
 
     def wrap(name):
         f = getattr(trainer, name)
 
         def recorded(cw, g_rows, *a, **k):
+            if inside[0]:
+                return f(cw, g_rows, *a, **k)
             if len(got) < steps:
                 got.append(g_rows.detach().float().cpu())
-            return f(cw, g_rows, *a, **k)
+            inside[0] = True
+            try:
+                return f(cw, g_rows, *a, **k)
+            finally:
+                inside[0] = False
 
         return recorded
 
-    names = ("_update", "_sr_update")
+    names = ("_update", "_sr_update", "_ragged_update")
     for n in names:
         setattr(trainer, n, wrap(n))
     try:

@@ -18,11 +18,12 @@ BF16_DENSE_FLOPS = 989e12
 
 # device-trace kernel names of each kernel (demangled or mangled), and of
 # the cuBLAS/CUTLASS matrix products of the dense towers and the interaction
+# (cuBLAS runs Hopper's aligned bf16 products on its ``nvjet_*`` kernels)
 KERNEL_PATTERNS = {
     "gather_rows": re.compile(r"gather_rows_kernel"),
     "binned_sgd": re.compile(r"(chunk_kernel|finish_kernel).*SgdEpilogue"),
     "ordered_scatter": re.compile(r"classify_kernel|sort_kernel|heavy_kernel|light_kernel"),
-    "gemm": re.compile(r"gemm|xmma|cutlass|cublas", re.IGNORECASE),
+    "gemm": re.compile(r"gemm|xmma|cutlass|cublas|nvjet", re.IGNORECASE),
 }
 _OWN = ("gather_rows", "binned_sgd", "ordered_scatter")
 
@@ -48,32 +49,6 @@ def update_bytes(L: int, U: int, D: int, row_bytes: int, grad_bytes: int) -> int
     int32 streams of L (the permutation and the sorted row ids), and the U
     touched rows; write the U touched rows."""
     return L * D * grad_bytes + 2 * 4 * L + 2 * U * D * row_bytes
-
-
-def linear_flops(sizes_in_out, first_takes_grad: bool) -> int:
-    """Per example, a tower of ``Linear`` layers ``[(in, out), ...]``:
-    forward ``2 in out`` a layer, the weight gradient ``2 in out``, the
-    input gradient ``2 in out`` on every layer but a first whose input
-    takes no gradient."""
-    f = 0
-    for i, (a, b) in enumerate(sizes_in_out):
-        f += 2 * a * b * (3 if (i or first_takes_grad) else 2)
-    return f
-
-
-def dlrm_example_flops(num_tables: int, dim: int, dense_in: int, bottom, top) -> int:
-    """Operations per training example of the DLRM step (forward and
-    backward), from its shapes: the bottom tower (its first layer's input,
-    the dense features, takes no gradient), the ``P = n (n - 1) / 2``
-    pairwise dots of the ``n = F + 1`` vectors of D (forward ``2 P D``;
-    backward, each pair's cotangent into both vectors, ``4 P D``), and the
-    top tower from ``D + P`` inputs. Bias, activation and loss terms are
-    linear in the widths and left out (under 0.1% of the total)."""
-    b_sizes = list(zip([dense_in, *bottom[:-1]], bottom))
-    n = num_tables + 1
-    P = n * (n - 1) // 2
-    t_sizes = list(zip([dim + P, *top[:-1]], top))
-    return linear_flops(b_sizes, False) + 6 * P * dim + linear_flops(t_sizes, True)
 
 
 def memory_share(bytes_per_step: float, steps: int, seconds: float) -> float:

@@ -16,9 +16,10 @@ windows. With ``--trace 1`` the trainer then trains ten more windows, the
 last eight under ``torch.profiler``, whose trace feeds the per-layer
 metrics that read the device; those that read the program's spans and
 counters read the timed window's. After the window the program is freed
-and the plain reference runs the first three steps from the seed and the
-two windows from the state read before them; ``check.py`` decides
-``correct``.
+and the plain reference (the dense model that the configuration names,
+``reference/<name>.py``, trained by ``reference/training.py``) runs the
+first three steps from the seed and the two windows from the state read
+before them; ``check.py`` decides ``correct``.
 
 Standard error carries the progress, and last the numbers compared, each
 beside its limit; standard output's last line is the result. The run
@@ -41,7 +42,7 @@ import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
-from typing import List, Optional  # noqa: E402
+from typing import List, NamedTuple, Optional  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -55,7 +56,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from perfbench import check, program, spec, stats, trace  # noqa: E402
-from perfbench.reference import dlrm as reference  # noqa: E402
+from perfbench.reference import training  # noqa: E402
 from perfbench.traffic import Stream  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "cachedembedding_tpu"}
@@ -112,6 +113,7 @@ class Cell:
 
     config: dict
     limits: dict
+    reference: object  # the configuration's reference module (``spec.reference``)
     cfg: object
     stream: Stream
     trainer: object
@@ -132,27 +134,52 @@ def prepare(cell: str, seed: int, device: torch.device, config: Optional[dict] =
     stream = Stream(mix, cfg.num_embeddings_per_feature, cfg.dense_in_features, seed, device)
     freq = stream.freq_map() if config["embedding"] == "cached" else None
     trainer = program.build_trainer(config, cfg, freq, device)
-    params0 = program.make_dense_params(cfg, seed, device)
+    ref = spec.reference(config)
+    params0 = program.make_dense_params(ref.dense_shapes(config["dlrm"]), seed, device)
     program.load_dense(trainer, params0)
-    return Cell(config, limits, cfg, stream, trainer, params0, device)
+    return Cell(config, limits, ref, cfg, stream, trainer, params0, device)
 
 
-def _step_ids(batch) -> torch.Tensor:
-    """A batch's global ids as (F, B) int64."""
+def _lookups(batch):
+    """A batch's lookups in the order the program feeds their grads to its
+    embedding update: the global ids (int64) and each one's bag ``b * F +
+    f``, or None where every bag holds one id. Uniform bags of P ids come
+    in Kernel 1's (B * P, F) order (row ``b * P + k`` holds each feature's
+    k-th id of example b), ragged ones in their flat feature-major stream."""
     v = batch.sparse_features
-    return torch.as_tensor(v.values.numpy().astype(np.int64)).reshape(v.num_features, -1)
+    F, B = v.num_features, v.batch_size
+    vals = v.values.numpy().astype(np.int64)
+    if v.offsets is None and v.pooling is not None:
+        N = vals.shape[0] // F
+        look = vals.reshape(F, N).T.reshape(-1)
+        if v.pooling == 1:
+            return look, None
+        return look, (np.arange(N)[:, None] // v.pooling * F + np.arange(F)[None, :]).reshape(-1)
+    seg = np.repeat(np.arange(F * B), np.diff(v.offsets_or_implicit().numpy()))  # f * B + b
+    return vals, seg % B * F + seg // B
 
 
 def _touched(batches: list) -> np.ndarray:
     return np.unique(np.concatenate([b.sparse_features.values.numpy() for b in batches]).astype(np.int64))
 
 
-def _state(c: Cell, ids: np.ndarray):
-    """The program's dense parameters, ``ids``' rows in their storage dtype
-    as a step reads them (a row that the host table holds in f32 is rounded
-    as an admit rounds it), and the mask of rows read from the host table."""
+class State(NamedTuple):
+    """The program's state as the check reads it: the dense parameters,
+    rows in their storage dtype as a step reads them (a row that the host
+    table holds in f32 is rounded as an admit rounds it), the mask of rows
+    read from the host table, and the rows' Adagrad accumulators (None
+    under SGD)."""
+
+    dense: dict
+    rows: torch.Tensor
+    host: np.ndarray
+    acc: Optional[torch.Tensor]
+
+
+def _state(c: Cell, ids: np.ndarray) -> State:
     rows, host = program.read_rows(c.trainer, ids)
-    return program.dense_state(c.trainer), rows.to(program.storage_dtype(c.trainer)).float(), host
+    return State(program.dense_state(c.trainer), rows.to(program.storage_dtype(c.trainer)).float(), host,
+                 program.read_accum(c.trainer, ids))
 
 
 def run_prefix(c: Cell, batches: list) -> dict:
@@ -161,12 +188,12 @@ def run_prefix(c: Cell, batches: list) -> dict:
     after step 3 (dense parameters and the rows those steps touch), and
     the grad rows its embedding update was fed on step 1."""
     ids = _touched(batches[:3])
-    s0 = _state(c, ids)[:2]
+    s0 = _state(c, ids)
     with program.update_grads(c.trainer, 1) as fed:
         losses = list(c.trainer.train(batches[:1], num_iters=1).losses)
-    s1 = _state(c, ids)[:2]
+    s1 = _state(c, ids)
     losses += c.trainer.train(batches[1:3], num_iters=2).losses
-    s3 = _state(c, ids)[:2]
+    s3 = _state(c, ids)
     return {"ids": ids, "losses": losses, "s0": s0, "s1": s1, "s3": s3, "fed": fed[0] if fed else None}
 
 
@@ -179,10 +206,24 @@ def free_program(c: Cell) -> None:
 
 
 def _row_grads(fed: torch.Tensor, batch, ids: np.ndarray) -> torch.Tensor:
-    """The fed grad rows ((B * F, D), example-major) summed per compact row."""
-    look = _step_ids(batch).t().reshape(-1).numpy()
+    """The fed grad rows (a row a lookup, in ``_lookups``' order) summed
+    per compact row."""
+    look = _lookups(batch)[0]
     out = torch.zeros((ids.shape[0], fed.shape[1]), dtype=torch.float64)
     return out.index_add_(0, torch.from_numpy(np.searchsorted(ids, look)), fed.double())
+
+
+def reference_steps(batches: list, ids_dev: torch.Tensor) -> List[training.Step]:
+    """The reference's steps of ``batches``, each lookup mapped into the
+    compact rows ``ids_dev`` (sorted global ids, on the reference's
+    device)."""
+    out, dev = [], ids_dev.device
+    for b in batches:
+        look, bag = _lookups(b)
+        out.append(training.Step(torch.searchsorted(ids_dev, torch.from_numpy(look).to(dev)),
+                                 None if bag is None else torch.from_numpy(bag).to(dev),
+                                 b.dense_features.to(dev), b.labels.to(dev), b.sparse_features.num_features))
+    return out
 
 
 def _table_of(cfg, ids: np.ndarray) -> np.ndarray:
@@ -200,31 +241,34 @@ def compare(c: Cell, prefix: dict, batches: list, stretch: dict, witness: bool =
     cfg, dev, F = c.cfg, c.device, c.cfg.num_sparse_features
     prec = c.config["precision"]
     stored = getattr(torch, prec["stored_rows"])
-    per_addend = prec["row_update"] == "per_addend"
     lowered = getattr(torch, prec["tower_operands"])
+    adagrad = cfg.embedding_optimizer == "rowwise_adagrad"
 
-    def steps_of(bs, ids_dev):
-        return [(torch.searchsorted(ids_dev, _step_ids(b).to(dev)), b.dense_features.to(dev), b.labels.to(dev))
-                for b in bs]
+    def train(params, rows, steps, keep, low, acc):
+        return training.train_steps(
+            c.reference.logits, params, rows, steps, cfg.learning_rate, stored, prec["row_update"],
+            prec.get("row_grad_sum", "float32"), keep, low, cfg.reduction_mode,
+            training.Adagrad(acc, cfg.adagrad_eps) if adagrad else None)
 
-    def lv(d, r, table):
-        return check.leaves(d, r, table, F)
+    def lv(st, table):
+        return check.leaves(st[0], st[1], table, F)
 
     ids = prefix["ids"]
     table = _table_of(cfg, ids)
     ids_dev = torch.as_tensor(ids, device=dev)
-    rows0 = reference.canonical_rows(ids_dev, cfg.num_embeddings_per_feature, cfg.seed,
-                                     cfg.embedding_dim).to(stored).float()
-    steps = steps_of(batches[:3], ids_dev)
+    rows0 = training.canonical_rows(ids_dev, cfg.num_embeddings_per_feature, cfg.seed,
+                                    cfg.embedding_dim).to(stored).float()
+    acc0 = torch.full((ids.shape[0],), float(cfg.adagrad_initial)) if adagrad else None
+    steps = reference_steps(batches[:3], ids_dev)
     p = prefix
-    prog = {"losses": p["losses"], "s0": lv(*p["s0"], table), "s1": lv(*p["s1"], table),
-            "s3": lv(*p["s3"], table), "grad_tables": lv({}, _row_grads(p["fed"], batches[0], ids), table)}
-    s0 = lv({k: v.cpu() for k, v in c.params0.items()}, rows0.cpu(), table)
+    prog = {"losses": p["losses"], "s0": lv(p["s0"], table), "s1": lv(p["s1"], table), "s3": lv(p["s3"], table),
+            "grad_tables": check.leaves({}, _row_grads(p["fed"], batches[0], ids), table, F)}
+    s0 = lv(({k: v.cpu() for k, v in c.params0.items()}, rows0.cpu()), table)
 
     def start_ref(low):
-        ref = reference.train_steps(c.params0, rows0, steps, cfg.learning_rate, stored, per_addend, (1, 3), low)
-        return {"losses": ref["losses"], "s0": s0, "s1": lv(*ref["after"][1], table),
-                "s3": lv(*ref["after"][3], table), "grad_tables": lv({}, ref["row_grad"], table)}
+        ref = train(c.params0, rows0, steps, (1, 3), low, acc0)
+        return {"losses": ref["losses"], "s0": s0, "s1": lv(ref["after"][1], table),
+                "s3": lv(ref["after"][3], table), "grad_tables": check.leaves({}, ref["row_grad"], table, F)}
 
     ref = start_ref(None)
     read = check.readings(prog, ref, cfg.learning_rate)
@@ -232,21 +276,25 @@ def compare(c: Cell, prefix: dict, batches: list, stretch: dict, witness: bool =
 
     sids = stretch["ids"]
     st = _table_of(cfg, sids)
-    ssteps = steps_of(stretch["batches"], torch.as_tensor(sids, device=dev))
-    dA, rA = stretch["A"]
-    dB, rB, host = stretch["B"]
-    hm = torch.from_numpy(host)
-    sA = lv(dA, rA, st)
+    ssteps = reference_steps(stretch["batches"], torch.as_tensor(sids, device=dev))
+    A, B = stretch["A"], stretch["B"]
+    hm = torch.from_numpy(B.host)
+    sA = lv(A, st)
     n = len(ssteps)
 
     def stretch_ref(low):
-        r = reference.train_steps({k: v.to(dev) for k, v in dA.items()}, rA.to(dev), ssteps,
-                                  cfg.learning_rate, stored, per_addend, (1, n), low)
-        return {"losses": r["losses"], "sA": sA, "s1": lv(*r["after"][1], st), "sB": lv(*r["after"][n], st),
-                "host": {"A": rA[hm], "B": r["after"][n][1][hm]}}
+        r = train({k: v.to(dev) for k, v in A.dense.items()}, A.rows.to(dev), ssteps, (1, n), low, A.acc)
+        end = r["after"][n]
+        out = {"losses": r["losses"], "sA": sA, "s1": lv(r["after"][1], st), "sB": lv(end, st),
+               "host": {"A": A.rows[hm], "B": end[1][hm]}}
+        if adagrad:
+            out["acc"] = {"A": A.acc, "B": end[2]}
+        return out
 
     sref = stretch_ref(None)
-    sprog = {"losses": stretch["losses"], "sA": sA, "sB": lv(dB, rB, st), "host": {"A": rA[hm], "B": rB[hm]}}
+    sprog = {"losses": stretch["losses"], "sA": sA, "sB": lv(B, st), "host": {"A": A.rows[hm], "B": B.rows[hm]}}
+    if adagrad:
+        sprog["acc"] = {"A": A.acc, "B": B.acc}
     read.update(check.stretch_readings(sprog, sref, cfg.learning_rate))
     if witness:
         wit.update(check.stretch_readings(stretch_ref(lowered), sref, cfg.learning_rate))
@@ -299,8 +347,11 @@ class Run:
     report: object
     stats: object
     row_bytes: int
+    lookups_per_step: int  # ids a step: the batch times the ids of an example's bags
+    example_flops: int  # the dense model's operations a training example (its reference's ``example_flops``)
     trace: Optional[trace.Trace] = None
     unique_per_step: Optional[float] = None
+    window_intervals: Optional[List[float]] = None  # seconds from one training window's first pull to the next
 
 
 def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.device, config: Optional[dict] = None,
@@ -354,7 +405,7 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     # call) when the trainer pulls the first batch after the stretch
     k = STRETCH_WINDOWS * pn
     stretch = {"batches": batches[:k], "ids": _touched(batches[:k])}
-    stretch["A"] = _state(c, stretch["ids"])[:2]
+    stretch["A"] = _state(c, stretch["ids"])
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -384,7 +435,7 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     failed = int((~np.isfinite(losses)).sum()) + (steps - losses.shape[0])
     stretch["losses"] = rep.losses[:k]
     say(f"window: {steps} steps in {wall:.3f} s (the check's read-back after step {k} took {pause[0]:.3f} s of "
-        f"it: {stretch['ids'].shape[0]} rows, {int(stretch['B'][2].sum())} of them from the host table); host "
+        f"it: {stretch['ids'].shape[0]} rows, {int(stretch['B'].host.sum())} of them from the host table); host "
         f"{statistics.median(rep.window_host_s) * 1e3:.1f} ms, device "
         f"{statistics.median(rep.window_device_s) * 1e3 if rep.window_device_s else float('nan'):.1f} ms "
         f"a window (medians)")
@@ -421,7 +472,6 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     if not traced:
         e2e = {
             "examples_per_s": (stats.rate(steps * B, wall), "examples/s"),
-            "window_ms_p95": (stats.percentile(intervals, 95) * 1e3, "ms"),
             "peak_hbm_gib": (peak / GIB, "GiB"),
             "setup_s": (setup_s, "s"),
         }
@@ -432,8 +482,10 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
         f"peak {peak / GIB:.4f} GiB; set-up {setup_s:.2f} s")
     run = Run(cfg=cfg, cached=c.config["embedding"] == "cached", batch_size=B,
               steps=steps, windows=n_win, seconds=wall, examples_per_s=stats.rate(steps * B, wall), report=rep,
-              stats=window_stats, row_bytes=c.trainer.embed.cache_weight.element_size(), trace=tr,
-              unique_per_step=float(np.mean(uniq)) if uniq else None)
+              stats=window_stats, row_bytes=c.trainer.embed.cache_weight.element_size(),
+              lookups_per_step=B * sum(c.stream.hotness), example_flops=c.reference.example_flops(c.config["dlrm"]),
+              trace=tr,
+              unique_per_step=float(np.mean(uniq)) if uniq else None, window_intervals=intervals)
     dev_info = {"platform": "gpu" if cuda else "cpu", "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
                 "count": 1, "memory_peak_bytes": int(peak)}
     breakdown = None

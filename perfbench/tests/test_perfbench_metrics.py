@@ -1,8 +1,11 @@
 """The metric arithmetic on small hand-worked inputs."""
 
+from types import SimpleNamespace
+
 import pytest
 
-from perfbench import roofline, stats, trace
+from perfbench import roofline, spec, stats, trace
+from perfbench.reference import dlrm
 
 
 def test_window_rate_and_tail():
@@ -14,6 +17,12 @@ def test_window_rate_and_tail():
     assert stats.percentile([4.0], 95) == 4.0
     with pytest.raises(ValueError):
         stats.percentile([], 95)
+
+
+def test_window_interval_tail_read_per_layer():
+    read = spec.reader("window_interval_ms_p95")
+    assert read(SimpleNamespace(window_intervals=[i / 1000 for i in range(1, 22)])) == pytest.approx(20.0)
+    assert read(SimpleNamespace(window_intervals=[])) is None
 
 
 def test_spread_is_the_quartile_distance_over_the_median():
@@ -59,6 +68,10 @@ def test_kernel_names():
     assert roofline.kernel_of("void chunk_kernel<8, float, ScatterEpilogue<Nothing> >(...)") is None
     assert roofline.kernel_of("void light_kernel<8, __nv_bfloat16, 0>(...)") == "ordered_scatter"
     assert roofline.kernel_of("ampere_sgemm_128x64_tn") == "gemm"
+    assert roofline.kernel_of("nvjet_tss_256x128_64x4_1x2_h_bz_coopA_NNT") == "gemm"  # cuBLAS on Hopper
+    # the port's own kernels win first, whatever else the name holds
+    assert roofline.kernel_of("gather_rows_kernel<nvjet>") == "gather_rows"
+    assert roofline.kernel_of("void light_kernel<8, cublas_gemm>") == "ordered_scatter"
     assert roofline.kernel_of("void at::native::vectorized_elementwise_kernel<4>") is None
 
 
@@ -69,14 +82,18 @@ def test_roofline_bytes():
     assert roofline.memory_share(3.35e9, 2, 2e-3) == pytest.approx(100.0)
 
 
+def _dlrm(tables, dim, dense_in, bottom, top):
+    return {"num_embeddings_per_feature": [10] * tables, "embedding_dim": dim, "dense_in_features": dense_in,
+            "dense_arch_layer_sizes": bottom, "over_arch_layer_sizes": top}
+
+
 def test_step_flops():
-    # one layer 3 -> 4 whose input takes no gradient: 2 * 12 * 2
-    assert roofline.linear_flops([(3, 4)], False) == 48
-    assert roofline.linear_flops([(3, 4), (4, 1)], True) == 2 * 12 * 3 + 2 * 4 * 3
+    # a bottom layer 3 -> 4 whose input takes no gradient: 2 * 12 * 2; with a second
+    # layer 4 -> 2: + 2 * 8 * 3; no tables: no dots; top (2 + 0) -> 1: 2 * 2 * 3
+    assert dlrm.example_flops(_dlrm(0, 2, 3, [4, 2], [1])) == 48 + 2 * 8 * 3 + 2 * 2 * 3
     # 1 table of D = 2, 3 dense inputs: bottom 3 -> 2; n = 2 vectors, P = 1 pair;
     # top (2 + 1) -> 1
-    f = roofline.dlrm_example_flops(1, 2, 3, [2], [1])
-    assert f == 2 * 6 * 2 + 6 * 1 * 2 + 2 * 3 * 3
+    assert dlrm.example_flops(_dlrm(1, 2, 3, [2], [1])) == 2 * 6 * 2 + 6 * 1 * 2 + 2 * 3 * 3
     # the Kaggle cell: 14,447,360 an example
-    kaggle = roofline.dlrm_example_flops(26, 128, 13, [512, 256, 128], [1024, 1024, 512, 256, 1])
+    kaggle = dlrm.example_flops(spec.config("dlrm-criteo-kaggle-cached")["dlrm"])
     assert kaggle == 14_447_360

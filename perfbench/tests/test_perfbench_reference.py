@@ -10,7 +10,7 @@ import cachedembedding_tpu_torch.train.trainer as trainer_mod
 from cachedembedding_tpu_torch.cache.host_table import row_bounds_of, table_bounds
 from cachedembedding_tpu_torch.ops.synth_rows import synth_rows
 from perfbench import faults, run
-from perfbench.reference import dlrm as reference
+from perfbench.reference import training
 from perfbench.tests.tiny import CASES, CELL, TABLES, tiny
 
 CPU = torch.device("cpu")
@@ -28,7 +28,7 @@ def test_canonical_init_is_the_programs():
     bounds = torch.from_numpy(row_bounds_of(offs, table_bounds(TABLES), rows.numpy()))
     for seed in (0, 1024, SEED & 0xFFFFFFFF):
         want = synth_rows(rows, bounds, seed, 128)
-        assert torch.equal(reference.canonical_rows(rows, TABLES, seed, 128), want)
+        assert torch.equal(training.canonical_rows(rows, TABLES, seed, 128), want)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -29,7 +29,8 @@ def _run(window_spans=None, stats=None, tr=None, cached=True, windows=4):
     if stats is None:
         stats = types.SimpleNamespace(num_hits_history=[9] * windows)
     return run.Run(cfg=None, cached=cached, batch_size=8, steps=8 * windows, windows=windows, seconds=1.0,
-                   examples_per_s=256.0, report=report, stats=stats, row_bytes=2, trace=tr)
+                   examples_per_s=256.0, report=report, stats=stats, row_bytes=2, lookups_per_step=8 * 26,
+                   example_flops=1, trace=tr)
 
 
 def _spans():

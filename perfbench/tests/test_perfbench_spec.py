@@ -19,6 +19,7 @@ def test_cell_parts_found_by_name(cell):
     assert cfg.batch_size == mix["batch_size"] and cfg.seed == (2**31 + 5) & 0xFFFFFFFF
     entry = next(c for c in BENCH["configs"] if c["name"] == w["config"])
     assert entry["file"] == f"perfbench/configs/{w['config']}.json"
+    assert callable(spec.reference(config).logits)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
@@ -41,3 +42,16 @@ def test_missing_parts_are_refused():
         spec.config("no-such-config")
     with pytest.raises(FileNotFoundError):
         spec.reader("no_such_metric")
+
+
+def test_a_configuration_names_its_reference():
+    from perfbench.reference import dlrm
+
+    assert spec.reference({}) is dlrm  # none named: DLRM's
+    assert spec.reference({"reference": "dlrm"}) is dlrm
+    assert set(dlrm.dense_shapes(spec.config("dlrm-criteo-kaggle-cached")["dlrm"])) >= {"over_arch.4.bias"}
+    for unknown in ("no_such_model", "../run", "dlrm.py"):
+        with pytest.raises(FileNotFoundError):
+            spec.reference({"reference": unknown})
+    with pytest.raises(ValueError):  # a module of the reference that is no model
+        spec.reference({"reference": "training"})

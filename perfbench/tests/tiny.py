@@ -2,9 +2,14 @@
 batch of 256, windows of two. Widths and the model's layout stay the
 configuration's. ``CASES``: the benchmark's cell, and the fully resident
 configuration that the harness and the reference also carry (a later cell's,
-with the sparse update branch), judged by the cell's limits."""
+with the sparse update branch), judged by the cell's limits. ``multihot``:
+a case that the harness takes as data alone (``multihot/``: its
+configuration, mix and limits files): multi-hot bags, row-wise Adagrad, the
+host planner."""
 
 import copy
+import json
+from pathlib import Path
 
 from perfbench import check, spec
 
@@ -30,3 +35,10 @@ def tiny(case: str):
     m["chunk_batches"] = 4
     lim = spec.limits(CELL)
     return c, m, {k: lim[k] for k in check.numbers_of(c)}
+
+
+def multihot():
+    """(config, mix, limits) of the multi-hot row-wise Adagrad case, as its
+    files hold them."""
+    d = Path(__file__).resolve().parent / "multihot"
+    return tuple(json.loads((d / f"{n}.json").read_text()) for n in ("config", "mix", "limits"))
