@@ -25,8 +25,10 @@ overflows its unique budget or the cache, and enqueues the writeback gathers
 and the admits (every admit is fetched from the host table, in f32 or, with
 ``transfer_dtype="bfloat16"``, bf16; writebacks travel in bf16 in that mode
 and in the rows' dtype otherwise, as in JAX's device branch). As in JAX, the
-device planner takes no resident tables, no row-wise Adagrad and no device
-init of never-trained rows.
+device planner takes no resident tables and no device init of never-trained
+rows. Unlike JAX's, it takes row-wise Adagrad: each chunk's admits land
+their host accumulators beside their rows, after that chunk's writeback
+gathers (which carry the evicted rows' accumulators).
 
 Admitted host rows travel in ``transfer_dtype``: f32, bf16, or per-row
 int8 / int4 payloads with an f32 scale each (``_quant_rows_host``,
@@ -39,8 +41,8 @@ With ``optimizer="rowwise_adagrad"`` each device row has an f32 accumulator
 store (``host_table.DenseAccumStore``, or ``OverlayAccumStore`` for a
 virtual table). It moves with its row: synthesized admits start at
 ``adagrad_initial``, fetched admits carry the host value, and evictions,
-flushes and checkpoints write it back in the same stream order as the rows.
-As in the JAX package this needs the host planner.
+flushes and checkpoints write it back in the same stream order as the rows,
+on either planner (the JAX package's needs the host planner).
 
 Ordering on the device comes from stream order, never from thread timing:
 a window's writeback gathers are enqueued after the previous window's steps
@@ -84,7 +86,7 @@ from cachedembedding_tpu_torch.cache.state import (
 from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
 from cachedembedding_tpu_torch.ops.synth_rows import scatter_synth_admits
-from cachedembedding_tpu_torch.utils.spans import CHECK_RANGE, Spans
+from cachedembedding_tpu_torch.utils.spans import ADMIT_ACCUM, CHECK_RANGE, Spans
 
 CACHE_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
@@ -368,9 +370,6 @@ class CachedEmbeddingBag:
             (self.capacity + self.resident_total, self.dim_stored), dtype=dtype, device=self.device
         )
         # --- row-wise Adagrad state: tiers with the cache ---
-        if optimizer == "rowwise_adagrad" and self._dir is None:
-            raise ValueError("rowwise_adagrad on a cached bag requires the host planner (the accumulator tiers "
-                             "with the cache through the staged admit/evict paths)")
         self.optimizer = optimizer
         self.adagrad_initial = float(adagrad_initial)
         if optimizer == "rowwise_adagrad":
@@ -859,7 +858,9 @@ class CachedEmbeddingBag:
         the window's distinct ids overflow its unique budget or the cache,
         then enqueue, in chunks of ``buffer_size``, the gathers of the evicted
         rows (copied to pinned memory for the drain thread) and the scatters
-        of the admitted rows fetched from the host table."""
+        of the admitted rows fetched from the host table, with, under
+        row-wise Adagrad, their accumulators from the host store (span
+        ``cache.admit_accum``)."""
         if pw.events:
             pw.events[2].synchronize()
         scal = pw.host_scalars.numpy()
@@ -896,8 +897,13 @@ class CachedEmbeddingBag:
             t0 = time.perf_counter()
             with self._host_lock:
                 vals = self.host_table.gather(admit_rows[s:e])
-            scatter_admits(self.cache_weight, pw.plan.indices[1, s:e].long(),
-                           self.to_device(torch.from_numpy(vals).to(self._row_dtype)))
+            slots = pw.plan.indices[1, s:e].long()
+            scatter_admits(self.cache_weight, slots, self.to_device(torch.from_numpy(vals).to(self._row_dtype)))
+            if self.cache_accum is not None:  # after this chunk's writeback gathers read the slots' old values
+                with self.spans(ADMIT_ACCUM):
+                    with self._host_lock:
+                        acc = self.host_accum.gather(admit_rows[s:e])
+                    self.cache_accum.index_copy_(0, slots, self.to_device(acc))
             self.stats.swap_in_bytes += (e - s) * self.embedding_dim * 4
             self.stats.swap_in_time += time.perf_counter() - t0
         self.stats.num_write_back_history.append(n_wb)

@@ -1,5 +1,7 @@
 """Structured configuration: a field-for-field copy of
-``cachedembedding_tpu/config.py`` with the same defaults.
+``cachedembedding_tpu/config.py`` with the same defaults, plus the DCN-v2
+interaction's fields (``interaction_type``, ``dcn_num_layers``,
+``dcn_low_rank_dim``), which the JAX package does not have.
 
 The trainer and the cache raise ``ValueError`` for an unknown option, and the
 trainer ``NotImplementedError`` for ``use_tablewise``, which
@@ -86,6 +88,12 @@ class DLRMConfig:
     # precision
     compute_dtype: str = "float32"     # dense tower matmul operand dtype
     interaction_impl: str = "bmm"      # "bmm" | "gather"
+    # the feature interaction, by torchrec's run-line names: "dot" (the
+    # pairwise dots) or "dcn" (a DCN-v2 low-rank cross network over the
+    # concatenated features, arXiv:2008.13535)
+    interaction_type: str = "dot"
+    dcn_num_layers: int = 3
+    dcn_low_rank_dim: int = 512
     dense_input_dtype: str = "bfloat16"  # host->device dtype of dense features
     use_sparse_embed_grad: bool = False  # force the sparse-gradient update branch
 

@@ -132,3 +132,52 @@ class SyntheticLongTailDataset:
                 (p * draws).astype(np.int64), 0
             )
         return freq
+
+
+class MultiHotLongTailDataset:
+    """The long-tail stream with multi-hot bags (the port's command line's
+    ``--multi_hot_sizes``; the JAX package has none): feature f's bag holds
+    the first ``hotness[f]`` ids that a ``SyntheticLongTailDataset`` of
+    pooling ``max(hotness)`` draws for it. Batches carry the bags' offsets
+    (feature-major), or the base stream's uniform pooling where every
+    feature has the same hotness."""
+
+    def __init__(self, table_sizes: Sequence[int], batch_size: int, num_batches: int, hotness: Sequence[int],
+                 **kw):
+        self.hotness = [int(h) for h in hotness]
+        if len(self.hotness) != len(table_sizes) or min(self.hotness) < 1:
+            raise ValueError(f"hotness {self.hotness}: one count of at least 1 a table")
+        self.base = SyntheticLongTailDataset(table_sizes, batch_size, num_batches,
+                                             pooling_factor=max(self.hotness), **kw)
+        lengths = torch.tensor(self.hotness, dtype=torch.int32).repeat_interleave(batch_size)
+        self._offsets = torch.cat([torch.zeros(1, dtype=torch.int32), torch.cumsum(lengths, 0, dtype=torch.int32)])
+
+    @property
+    def num_features(self) -> int:
+        return self.base.num_features
+
+    def make_batch(self, batch_idx: int) -> Batch:
+        b = self.base.make_batch(batch_idx)
+        if len(set(self.hotness)) == 1:
+            return b
+        F, B, P = self.base.num_features, self.base.batch_size, self.base.pooling_factor
+        vals = b.sparse_features.values.view(F, B, P)
+        flat = torch.cat([vals[f, :, :h].reshape(-1) for f, h in enumerate(self.hotness)])
+        feats = RaggedFeatures(values=flat, offsets=self._offsets, num_features=F, batch_size=B, pooling=None)
+        return Batch(dense_features=b.dense_features, sparse_features=feats, labels=b.labels)
+
+    def __iter__(self) -> Iterator[Batch]:
+        for i in range(self.base.num_batches):
+            yield self.make_batch(i)
+
+    def __len__(self) -> int:
+        return self.base.num_batches
+
+    def id_freq_map(self, sample_batches: Optional[int] = None) -> np.ndarray:
+        """The base stream's expected counts, each table's scaled to its
+        hotness."""
+        freq = self.base.id_freq_map(sample_batches)
+        offs, P = self.base.offsets, self.base.pooling_factor
+        for f, h in enumerate(self.hotness):
+            freq[offs[f]:offs[f + 1]] = freq[offs[f]:offs[f + 1]] * h // P
+        return freq

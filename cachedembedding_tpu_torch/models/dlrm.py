@@ -10,6 +10,14 @@
     the (pairs, n*n) symmetrising matrix).
   * OverArch — MLP with ReLU on all but the final linear layer.
 
+With ``interaction_type="dcn"`` (DLRM-DCNv2, MLPerf Training's
+recommendation model; torchrec's ``DLRM_DCN``) the pairwise dots give way to
+a DCN-v2 low-rank cross network (``_CrossNet``, torchrec's
+``LowRankCrossNet``, arXiv:2008.13535): the bottom tower's output and the F
+pooled bags, dense first, concatenated into ``x_0`` (B, (F+1)*D), then
+``x_{l+1} = x_0 * (W_l (V_l x_l) + b_l) + x_l`` for each layer, and the top
+tower from (F+1)*D inputs. The JAX package has no such model.
+
 Numerics follow the JAX package so that both give the same values:
   * each linear layer multiplies operands rounded to ``compute_dtype`` with
     f32 accumulation, adds the f32 bias, and rounds once to the compute dtype
@@ -25,7 +33,11 @@ which are bf16 values in the forward and the backward (the cotangent of a
 bf16 output is bf16); ``_product`` sends them on the card to cuBLAS on the
 tensor cores with f32 accumulation and an f32 result, so only the order of the
 f32 sums differs, and multiplies them in f32 elsewhere. The head and f32
-compute run the f32 chain of casts. ``PRODUCTS`` counts both paths.
+compute run the f32 chain of casts. The cross network's products feed f32
+sums: with bf16 compute their operands are bf16 in the forward and the
+backward (``_Bf16Product``: the f32 cotangent rounded once, dX and dW rounded
+once to bf16), while the bias add, ``x_0 * (.) + x_l`` and the residual
+stream stay f32. ``PRODUCTS`` counts both paths.
 
 The weights are initialized by the JAX package's numpy routine (copied here:
 ``_key_seed_seq``, ``_linear_init_np``, ``init_dlrm_dense``), so the same seed
@@ -41,6 +53,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+
+INTERACTION_TYPES = ("dot", "dcn")
+# the cross network's kernels: the init's key and the state dict's name
+_CROSS_NAMES = (("V", "V_kernels"), ("W", "W_kernels"), ("b", "bias"))
 
 
 def choose(n: int, k: int) -> int:
@@ -74,9 +91,17 @@ def init_dlrm_dense(
     dense_in_features: int,
     dense_arch_layer_sizes: Sequence[int],
     over_arch_layer_sizes: Sequence[int],
+    interaction_type: str = "dot",
+    dcn_num_layers: int = 3,
+    dcn_low_rank_dim: int = 512,
 ) -> Dict[str, List[Dict[str, np.ndarray]]]:
     """Numpy weights in the JAX ``DLRMParams`` layout:
-    {"dense_arch": [{"w": (in, out), "b": (out,)}, ...], "over_arch": [...]}."""
+    {"dense_arch": [{"w": (in, out), "b": (out,)}, ...], "over_arch": [...]};
+    with ``interaction_type="dcn"`` also "crossnet": {"V": [(r, N), ...],
+    "W": [(N, r), ...], "b": [(N,), ...]} in torchrec's layout, V and W
+    drawn from a third stream by torchrec's ``xavier_normal_``, b zeros."""
+    if interaction_type not in INTERACTION_TYPES:
+        raise ValueError(f"unknown interaction_type {interaction_type!r}")
     ss1, ss2 = _key_seed_seq(seed).spawn(2)
     if dense_in_features <= 0:
         dense_arch: List[Dict[str, np.ndarray]] = []
@@ -91,6 +116,16 @@ def init_dlrm_dense(
             dense_arch.append(_linear_init_np(rng1, in_f, out_f))
             in_f = out_f
         over_in = embedding_dim + choose(num_sparse_features + 1, 2)
+    crossnet = None
+    if interaction_type == "dcn":
+        over_in = embedding_dim * (num_sparse_features + (1 if dense_arch else 0))
+        rng3 = np.random.default_rng(_key_seed_seq(seed).spawn(3)[2])
+        std = math.sqrt(2.0 / (over_in + dcn_low_rank_dim))  # xavier normal, gain 1: both kernels' fans
+        crossnet = {"V": [], "W": [], "b": []}
+        for _ in range(dcn_num_layers):
+            crossnet["V"].append(rng3.normal(0.0, std, (dcn_low_rank_dim, over_in)).astype(np.float32))
+            crossnet["W"].append(rng3.normal(0.0, std, (over_in, dcn_low_rank_dim)).astype(np.float32))
+            crossnet["b"].append(np.zeros((over_in,), np.float32))
     if len(over_arch_layer_sizes) <= 1:
         raise ValueError("OverArch must have multiple layers.")
     rng2 = np.random.default_rng(ss2)
@@ -99,6 +134,8 @@ def init_dlrm_dense(
     for out_f in over_arch_layer_sizes:
         over_arch.append(_linear_init_np(rng2, in_f, out_f))
         in_f = out_f
+    if crossnet is not None:
+        return {"dense_arch": dense_arch, "crossnet": crossnet, "over_arch": over_arch}
     return {"dense_arch": dense_arch, "over_arch": over_arch}
 
 
@@ -106,25 +143,36 @@ def params_from_jax(params_np) -> Dict[str, torch.Tensor]:
     """State dict of ``DLRM`` from JAX ``DLRMParams`` given as numpy (a
     ``DLRMParams`` or a dict with ``dense_arch``/``over_arch`` lists of
     {"w": (in, out), "b": (out,)}). Each ``w`` is TRANSPOSED to nn.Linear's
-    (out, in); biases carry over as they are."""
+    (out, in); biases carry over as they are. A dict's "crossnet" (the DCN
+    model's, which JAX lacks) carries over as it is, under torchrec's names."""
     get = (lambda k: params_np[k]) if isinstance(params_np, dict) else (lambda k: getattr(params_np, k))
     sd = {}
     for arch in ("dense_arch", "over_arch"):
         for i, p in enumerate(get(arch)):
             sd[f"{arch}.{i}.weight"] = torch.from_numpy(np.array(p["w"], np.float32).T.copy())
             sd[f"{arch}.{i}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+    cross = params_np.get("crossnet") if isinstance(params_np, dict) else None
+    if cross is not None:
+        for key, name in _CROSS_NAMES:
+            for i, a in enumerate(cross[key]):
+                sd[f"crossnet.{name}.{i}"] = torch.from_numpy(np.array(a, np.float32))
     return sd
 
 
 def params_to_jax(model: "DLRM") -> Dict[str, List[Dict[str, np.ndarray]]]:
-    """Inverse of ``params_from_jax``: numpy weights in the JAX layout."""
-    return {
+    """Inverse of ``params_from_jax``: numpy weights in the JAX layout (and
+    the DCN model's "crossnet")."""
+    out = {
         arch: [
             {"w": lin.weight.detach().cpu().numpy().T.copy(), "b": lin.bias.detach().cpu().numpy().copy()}
             for lin in getattr(model, arch)
         ]
         for arch in ("dense_arch", "over_arch")
     }
+    if model.crossnet is not None:
+        out["crossnet"] = {key: [p.detach().cpu().numpy().copy() for p in getattr(model.crossnet, name)]
+                           for key, name in _CROSS_NAMES}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +244,63 @@ def _mlp(layers: nn.ModuleList, x: torch.Tensor, dtype: torch.dtype, final_relu:
         if final_relu or i + 1 < len(layers):
             x = torch.relu(x)
     return x
+
+
+class _Bf16Product(torch.autograd.Function):
+    """``x @ weight^T`` of bf16 operands with an f32 result, for products
+    that feed f32 sums (the cross network's). The backward's operands are
+    bf16 too: the f32 cotangent rounded once; dX and dW rounded once to bf16
+    (then to the input's and the weight's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        xb, wb = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x.dtype, weight.dtype)
+        return _product(torch.mm, xb, wb.t())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _product(torch.mm, gb, wb).to(torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = _product(torch.mm, gb.t(), xb).to(torch.bfloat16).to(ctx.dtypes[1])
+        return dx, dw
+
+
+def _cross_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ weight^T`` with an f32 result: bf16 operands through
+    ``_Bf16Product`` under bf16 compute, else the f32 product."""
+    if dtype == torch.bfloat16:
+        return _Bf16Product.apply(x, weight)
+    PRODUCTS["f32"] += 1 + (x.requires_grad + weight.requires_grad if torch.is_grad_enabled() else 0)
+    return x.float() @ weight.float().t()
+
+
+class _CrossNet(nn.Module):
+    """torchrec's ``LowRankCrossNet``: ``V_kernels`` (r, N), ``W_kernels``
+    (N, r) and ``bias`` (N,) a layer; ``x_{l+1} = x_0 * (W_l (V_l x_l) +
+    b_l) + x_l`` on the (B, N) f32 ``x_0``, in f32 but for the products'
+    operands (``_cross_product``)."""
+
+    def __init__(self, num_layers: int, in_features: int, low_rank_dim: int):
+        super().__init__()
+
+        def kernels(shape):
+            return nn.ParameterList(nn.Parameter(torch.empty(shape, device="meta")) for _ in range(num_layers))
+
+        self.V_kernels = kernels((low_rank_dim, in_features))
+        self.W_kernels = kernels((in_features, low_rank_dim))
+        self.bias = kernels((in_features,))
+
+    def forward(self, x0: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = x0
+        for v, w, b in zip(self.V_kernels, self.W_kernels, self.bias):
+            x = x0 * (_cross_product(_cross_product(x, v, dtype), w, dtype) + b) + x
+        return x
 
 
 class _PairwiseDots(torch.autograd.Function):
@@ -271,6 +376,9 @@ class DLRM(nn.Module):
         interaction_impl: str = "bmm",
         seed: int = 1024,
         device=None,
+        interaction_type: str = "dot",
+        dcn_num_layers: int = 3,
+        dcn_low_rank_dim: int = 512,
     ):
         super().__init__()
         if interaction_impl not in ("bmm", "gather"):
@@ -279,7 +387,7 @@ class DLRM(nn.Module):
         self.compute_dtype = compute_dtype
         params = init_dlrm_dense(
             seed, embedding_dim, num_sparse_features, dense_in_features,
-            dense_arch_layer_sizes, over_arch_layer_sizes,
+            dense_arch_layer_sizes, over_arch_layer_sizes, interaction_type, dcn_num_layers, dcn_low_rank_dim,
         )
 
         def linears(arch):
@@ -288,6 +396,9 @@ class DLRM(nn.Module):
             )
 
         self.dense_arch = linears("dense_arch")
+        self.crossnet = None
+        if interaction_type == "dcn":
+            self.crossnet = _CrossNet(dcn_num_layers, params["over_arch"][0]["w"].shape[0], dcn_low_rank_dim)
         self.over_arch = linears("over_arch")
         self.load_state_dict(params_from_jax(params), assign=True)
         if device is not None:
@@ -316,7 +427,11 @@ class DLRM(nn.Module):
     def forward(self, dense_features: Optional[torch.Tensor], sparse_bfd: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         dense_emb = _mlp(self.dense_arch, dense_features, dt) if len(self.dense_arch) else None
-        x = self.interaction(dense_emb, sparse_bfd)
+        if self.crossnet is not None:
+            parts = ([dense_emb[:, None, :].float()] if dense_emb is not None else []) + [sparse_bfd.float()]
+            x = self.crossnet(torch.cat(parts, dim=1).reshape(sparse_bfd.shape[0], -1), dt)
+        else:
+            x = self.interaction(dense_emb, sparse_bfd)
         x = _mlp(self.over_arch[:-1], x, dt, final_relu=True)
         # the (B, 1) head stays f32: the BCE mean over the batch wants it
         logits = _linear(self.over_arch[-1], x, dt, out_dtype=torch.float32)

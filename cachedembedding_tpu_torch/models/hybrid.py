@@ -52,6 +52,10 @@ class HybridParallelDLRM:
 
     def __init__(self, cfg: DLRMConfig, mesh: Optional[Mesh] = None, id_freq_map: Optional[np.ndarray] = None,
                  dataset: Optional[str] = None):
+        if cfg.interaction_type != "dot":
+            raise NotImplementedError(f"interaction_type {cfg.interaction_type!r}: the hybrid layouts train the "
+                                      "pairwise dots only; the DCN model trains on one card through "
+                                      "CachedDLRMTrainer")
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else make_mesh()
         self.world = self.mesh.size

@@ -37,7 +37,10 @@ layout (``run_rowwise``: ``parallel/row_cached.py``) the same way, as the
 JAX CLI's ``run_rowwise`` does: plain SGD on f32 cache rows, f32 compute,
 the window planned once and trained step by step, evaluation batch by
 batch; it names the flags it ignores too (``ROWWISE_IGNORES``).
-``--profile_dir`` writes a ``torch.profiler`` trace there;
+``--interaction_type dcn`` (with ``--dcn_num_layers`` and
+``--dcn_low_rank_dim``) trains DLRM-DCNv2 on one card, and
+``--multi_hot_sizes`` gives the synthetic stream multi-hot bags: flags the
+JAX CLI lacks. ``--profile_dir`` writes a ``torch.profiler`` trace there;
 ``--memory_fraction`` caps this process's share of device memory;
 ``--pin_memory`` and ``--use_overlap`` are accepted (host payloads are
 pinned, and staging overlaps the device's steps, always).
@@ -89,6 +92,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--embedding_dim", type=int, default=128)
     p.add_argument("--dense_arch_layer_sizes", type=str, default="512,256,128")
     p.add_argument("--over_arch_layer_sizes", type=str, default="1024,1024,512,256,1")
+    p.add_argument("--interaction_type", choices=["dot", "dcn"], default="dot",
+                   help="feature interaction: pairwise dots, or a DCN-v2 low-rank cross network (DLRM-DCNv2)")
+    p.add_argument("--dcn_num_layers", type=int, default=3)
+    p.add_argument("--dcn_low_rank_dim", type=int, default=512)
+    p.add_argument("--multi_hot_sizes", type=str, default=None,
+                   help="comma-separated ids a bag, a table each: the synthetic stream's multi-hot bags "
+                        "(no --dataset_dir)")
     # training
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--learning_rate", "--lr", type=float, default=1.0)
@@ -255,6 +265,9 @@ def build_config(args):
         use_tablewise=args.use_tablewise,
         fused_op=args.fused_op,
         compute_dtype=args.compute_dtype,
+        interaction_type=args.interaction_type,
+        dcn_num_layers=args.dcn_num_layers,
+        dcn_low_rank_dim=args.dcn_low_rank_dim,
         embedding_optimizer=args.embedding_optimizer,
         adagrad_eps=args.adagrad_eps,
         use_sparse_embed_grad=args.use_sparse_embed_grad,
@@ -264,16 +277,16 @@ def build_config(args):
 
 def get_data(args, cfg, stage: str):
     if args.dataset_dir is None:
-        from cachedembedding_tpu_torch.data.synthetic import SyntheticLongTailDataset
+        from cachedembedding_tpu_torch.data.synthetic import MultiHotLongTailDataset, SyntheticLongTailDataset
 
         n = {"train": args.limit_train_batches or 10,
              "val": args.limit_val_batches or 2,
              "test": args.limit_test_batches or 2}[stage]
-        return SyntheticLongTailDataset(
-            cfg.num_embeddings_per_feature, cfg.batch_size, n,
-            dense_in_features=cfg.dense_in_features,
-            seed=cfg.seed + {"train": 0, "val": 1, "test": 2}[stage],
-        )
+        kw = dict(dense_in_features=cfg.dense_in_features, seed=cfg.seed + {"train": 0, "val": 1, "test": 2}[stage])
+        if args.multi_hot_sizes:
+            hotness = [int(x) for x in args.multi_hot_sizes.split(",")]
+            return MultiHotLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, n, hotness, **kw)
+        return SyntheticLongTailDataset(cfg.num_embeddings_per_feature, cfg.batch_size, n, **kw)
     if "avazu" in args.dataset_dir:
         from cachedembedding_tpu_torch.data import avazu as mod
     else:
@@ -409,6 +422,11 @@ def _run(args, device, mesh):
         torch.cuda.reset_peak_memory_stats(device)
     cfg = build_config(args)
     print(f"config: {cfg}", file=sys.stderr)
+    if args.multi_hot_sizes and args.dataset_dir is not None:
+        raise ValueError("--multi_hot_sizes shapes the synthetic stream's bags: it takes no --dataset_dir")
+    if cfg.interaction_type == "dcn" and (args.use_tablewise or args.use_rowwise):
+        raise NotImplementedError("--interaction_type dcn: the table-wise and row-wise layouts train the pairwise "
+                                  "dots only; the DCN model trains on one card through the cached trainer")
     t0 = time.perf_counter()
     cached_freq = bool(args.use_freq and args.dataset_dir
                        and os.path.exists(os.path.join(args.dataset_dir, "id_freq_map.npy")))

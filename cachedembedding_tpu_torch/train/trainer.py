@@ -1,6 +1,9 @@
 """Single-device trainer: cached embedding + DLRM or DeepFM dense towers
 (counterpart of ``cachedembedding_tpu/train/trainer.py``, single-device
 slice: uniform and ragged windows, with the host or the device planner).
+DLRM's interaction is the pairwise dots or, with ``interaction_type="dcn"``
+(DLRM-DCNv2, which the JAX package lacks), a low-rank cross network; the
+DCN model trains on one card, not on a mesh or in the table-wise layout.
 
 Far-sighted prefetch: every ``prefetch_num`` batches form a window whose ids
 are planned once by the host directory. Per window, in order:
@@ -45,7 +48,8 @@ sparse branch) runs Kernel 2's Adagrad epilogue (``binned_adagrad_update``):
 each touched row's accumulator grows by the mean square of its f32 sum, and
 the row moves by ``slr * s / (sqrt(acc) + eps)``, one rounding; the (C, D)
 grad that JAX builds is never made. The accumulators tier with the cache
-(``cache/manager.py``).
+(``cache/manager.py``), on either planner (JAX's device planner refuses
+them).
 
 With stochastic rounding on (fp8 rows by default, ``CacheConfig.
 rounds_stochastically``) and rows narrower than f32, the update is the JAX
@@ -135,7 +139,7 @@ from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
 from cachedembedding_tpu_torch.jagged import Batch, concat_uniform_values
 from cachedembedding_tpu_torch.models.deepfm import DeepFM, bce_probs
-from cachedembedding_tpu_torch.models.dlrm import DLRM, bce_with_logits
+from cachedembedding_tpu_torch.models.dlrm import DLRM, INTERACTION_TYPES, bce_with_logits
 from cachedembedding_tpu_torch.ops.binned_scatter import (
     binned_adagrad_update,
     binned_scatter_add,
@@ -187,6 +191,10 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
         raise ValueError(f"cache_dtype={c.cache_dtype!r}: the cache stores {', '.join(CACHE_DTYPES)} rows")
     if cfg.interaction_impl not in ("bmm", "gather"):
         raise ValueError(f"unknown interaction_impl {cfg.interaction_impl!r}")
+    if cfg.interaction_type not in INTERACTION_TYPES:
+        raise ValueError(f"unknown interaction_type {cfg.interaction_type!r} (one of {', '.join(INTERACTION_TYPES)})")
+    if cfg.interaction_type == "dcn" and cfg.model != "dlrm":
+        raise ValueError(f"interaction_type 'dcn' is DLRM's interaction: model {cfg.model!r} has none")
     refusals = [
         # JAX's trainer ignores use_tablewise (its CLI routes the flag to run_hybrid first)
         (cfg.use_tablewise, "the table-wise layout (use_tablewise) trains through "
@@ -313,6 +321,9 @@ class CachedDLRMTrainer:
     def __init__(self, cfg: DLRMConfig, id_freq_map: Optional[np.ndarray] = None, device=None,
                  embed_override=None, mesh=None):
         _refuse_outside_slice(cfg, cached=embed_override is None)
+        if mesh is not None and cfg.interaction_type == "dcn":
+            raise NotImplementedError("interaction_type 'dcn' on a mesh: train/mesh_window.py runs the pairwise "
+                                      "dots only; the DCN model trains on one card")
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
                 raise ValueError(f"the mesh's rank runs on {mesh.device}, not {device}")
@@ -388,6 +399,9 @@ class CachedDLRMTrainer:
                 interaction_impl=cfg.interaction_impl,
                 seed=cfg.seed,
                 device=self.device,
+                interaction_type=cfg.interaction_type,
+                dcn_num_layers=cfg.dcn_num_layers,
+                dcn_low_rank_dim=cfg.dcn_low_rank_dim,
             )
         # the mesh sums its ranks' losses of the global mean: no LR scaling there
         self.data_parallel_size = 1 if mesh is not None else int(np.prod(cfg.mesh_shape))

@@ -8,6 +8,7 @@ JAX's own refusal of ``--planner device`` with row-wise Adagrad), and
 ``--world_size`` resolved as JAX resolves it."""
 
 import dataclasses
+import json
 import re
 
 import numpy as np
@@ -50,11 +51,23 @@ def small_argv(d, *extra):
             "--limit_test_batches", "5", "--world_size", "1", "--platform", "cpu", *extra]
 
 
+# the port's flags that the JAX CLI lacks (DLRM-DCNv2 and its multi-hot synthetic stream), at their defaults
+PORT_ONLY_FLAGS = {"interaction_type": "dot", "dcn_num_layers": 3, "dcn_low_rank_dim": 512, "multi_hot_sizes": None}
+PORT_ONLY_FIELDS = ("interaction_type", "dcn_num_layers", "dcn_low_rank_dim")
+
+
+def _jax_flags(args) -> dict:
+    """The port's parsed flags but its own ones, which must be at their defaults."""
+    got = vars(args)
+    assert {k: got.pop(k) for k in PORT_ONLY_FLAGS} == PORT_ONLY_FLAGS
+    return got
+
+
 def test_flags_and_defaults_match_jax():
-    assert vars(port_main.parse_args([])) == vars(jax_main.parse_args([]))
+    assert _jax_flags(port_main.parse_args([])) == vars(jax_main.parse_args([]))
     argv = ["--lr", "0.3", "--use_cache", "--use_freq", "--model", "deepfm", "--cache_dtype", "float32",
             "--transfer_dtype", "bfloat16", "--change_lr", "--validation_freq_within_epoch", "5"]
-    assert vars(port_main.parse_args(argv)) == vars(jax_main.parse_args(argv))
+    assert _jax_flags(port_main.parse_args(argv)) == vars(jax_main.parse_args(argv))
 
 
 @pytest.mark.parametrize("argv", [
@@ -66,6 +79,7 @@ def test_flags_and_defaults_match_jax():
 def test_build_config_matches_jax(argv):
     got = dataclasses.asdict(port_main.build_config(port_main.parse_args(argv)))
     want = dataclasses.asdict(jax_main.build_config(jax_main.parse_args(argv)))
+    assert {k: got.pop(k) for k in PORT_ONLY_FIELDS} == {k: PORT_ONLY_FLAGS[k] for k in PORT_ONLY_FIELDS}
     assert got == want
 
 
@@ -194,14 +208,53 @@ def test_world_size_two_on_cpu_matches_jax(tmp_path, capfd):
     assert captured.err.count("mesh: 2 devices, column-wise hybrid") == 1 and "run stats: {" in captured.err
 
 
-def test_device_planner_refusals_match_jax(tmp_path):
-    """--planner device with row-wise Adagrad: both mains raise the bag's
-    ValueError (the accumulators tier with the host planner's staging)."""
+def test_device_planner_refusals_match_jax(tmp_path, capsys):
+    """--planner device with row-wise Adagrad: JAX's main still raises its
+    bag's ValueError (its accumulators tier with the host planner's
+    staging); the port's main trains, the accumulators moving with the
+    device planner's admits and writebacks."""
     argv = small_argv(write_dataset(tmp_path / "criteo_kaggle"), *CACHED, "--planner", "device",
-                      "--embedding_optimizer", "rowwise_adagrad")
-    for main in (jax_main.main, port_main.main):
-        with pytest.raises(ValueError, match="requires the host planner"):
-            main(argv)
+                      "--embedding_optimizer", "rowwise_adagrad", "--learning_rate", "0.1")
+    with pytest.raises(ValueError, match="requires the host planner"):
+        jax_main.main(argv)
+    port_main.main(argv)
+    captured = capsys.readouterr()
+    assert set(_metrics(captured.out)) == {"val", "test"}
+    stats = json.loads(re.search(r"run stats: (\{.*\})", captured.err).group(1))
+    assert stats["accum_positive_device_rows"] > 0
+
+
+DCN_ARGV = ["--num_embeddings_per_feature", "50,200,3000", "--multi_hot_sizes", "3,1,4", "--batch_size", "32",
+            "--embedding_dim", "16", "--dense_arch_layer_sizes", "32,16", "--over_arch_layer_sizes", "16,1",
+            "--interaction_type", "dcn", "--dcn_num_layers", "2", "--dcn_low_rank_dim", "8",
+            "--compute_dtype", "bfloat16", "--use_cache", "--use_freq", "--cache_ratio", "0.1", "--planner", "device",
+            "--embedding_optimizer", "rowwise_adagrad", "--learning_rate", "0.1", "--prefetch_num", "2",
+            "--limit_train_batches", "8", "--limit_val_batches", "2", "--limit_test_batches", "2",
+            "--world_size", "1", "--platform", "cpu"]
+
+
+def test_dcn_multi_hot_run_on_the_device_planner(capsys):
+    """A tiny DLRM-DCNv2 run of the port's command line (flags the JAX CLI
+    lacks): the synthetic stream's multi-hot bags of 3, 1 and 4 ids, three
+    cross layers' worth of flags, row-wise Adagrad on the device planner
+    with a cache that evicts; it trains, evaluates and prints its stats."""
+    port_main.main(DCN_ARGV)
+    out = capsys.readouterr()
+    assert set(_metrics(out.out)) == {"val", "test"}
+    assert "interaction_type='dcn', dcn_num_layers=2, dcn_low_rank_dim=8" in out.err
+    stats = json.loads(re.search(r"run stats: (\{.*\})", out.err).group(1))
+    assert stats["accum_positive_device_rows"] > 0 and stats["accum_positive_host_rows"] > 0
+    assert stats["span_ms_per_window"]["cache.admit_accum"] >= 0.0
+
+
+@pytest.mark.parametrize("extra,err", [
+    (["--use_rowwise"], "table-wise and row-wise layouts train the pairwise dots only"),
+    (["--use_tablewise"], "table-wise and row-wise layouts train the pairwise dots only"),
+    (["--dataset_dir", "/nonexistent/criteo_kaggle"], "takes no --dataset_dir"),
+], ids=["rowwise", "tablewise", "dataset_dir"])
+def test_dcn_refusals(extra, err):
+    with pytest.raises((NotImplementedError, ValueError), match=err):
+        port_main.main(DCN_ARGV + extra)
 
 
 @pytest.mark.parametrize("world_size,cards,ranks", [

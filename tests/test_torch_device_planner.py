@@ -312,10 +312,15 @@ def test_forward_pooling_offsets_weights_and_cache_op():
 
 def test_refusals_match_jax():
     """What JAX's device planner refuses, with the same exception type:
-    resident tables, row-wise Adagrad, device_init="on"; and an unknown
-    planner."""
-    for kw in ({"table_sizes": [30, 34], "resident_tables": [0]}, {"optimizer": "rowwise_adagrad"},
-               {"device_init": "on"}, {"planner": "gpu"}):
+    resident tables, device_init="on"; and an unknown planner. JAX's also
+    refuses row-wise Adagrad, which the port's takes (its accumulators move
+    with the device planner's admits and writebacks)."""
+    with pytest.raises(ValueError, match="requires the host planner"):
+        JaxBag(64, 8, cuda_row_num=8, planner="device", optimizer="rowwise_adagrad")
+    bag = CachedEmbeddingBag(64, 8, cuda_row_num=8, device="cpu", planner="device", optimizer="rowwise_adagrad")
+    assert bag.cache_accum is not None and bag.cache_accum.shape == (8,)
+    bag.close()
+    for kw in ({"table_sizes": [30, 34], "resident_tables": [0]}, {"device_init": "on"}, {"planner": "gpu"}):
         full = {"planner": "device", **kw}
         with pytest.raises(ValueError) as je:
             JaxBag(64, 8, cuda_row_num=8, **full)
