@@ -27,6 +27,7 @@ _I64 = ctypes.c_int64
 _PROTOTYPES = [
     ("gather_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
     ("scatter_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
+    ("concat_minmax_i32", [_P, _P, _I64, _P, _P], None),
     ("sort_plan_i32", [_P, _I64, _I64, _I64, _P, _P, _P], None),
     ("bincount_i64", [_P, _P, _I64, _I64], None),
     ("fill_rows_canonical", [_P, _I64, _I64, _I64, ctypes.c_uint32, ctypes.c_float, _I64], None),
@@ -101,6 +102,23 @@ def scatter_rows(table: np.ndarray, idx: np.ndarray, values: np.ndarray) -> None
         table.ctypes.data, idx.ctypes.data, values.ctypes.data,
         idx.shape[0], table.shape[1], table.shape[0],
     )
+
+
+def concat_minmax_i32(parts, out: np.ndarray):
+    """``out[:n]`` = the 1-D C-contiguous int32 arrays ``parts`` back to
+    back (n ids in all), copied in one multithreaded pass that also takes
+    their min and max: returns (min, max), (2**31 - 1, -2**31) for no ids."""
+    for p in parts:
+        if p.dtype != np.int32 or p.ndim != 1 or not p.flags.c_contiguous:
+            raise ValueError("parts must be 1-D C-contiguous int32 arrays")
+    lens = np.array([p.shape[0] for p in parts], np.int64)
+    if out.dtype != np.int32 or out.ndim != 1 or not out.flags.c_contiguous or out.shape[0] < lens.sum():
+        raise ValueError(f"out must be a 1-D C-contiguous int32 array of at least {int(lens.sum())} ids")
+    ptrs = np.array([p.ctypes.data for p in parts], np.uintp)
+    minmax = np.empty((2,), np.int32)
+    load_lib().concat_minmax_i32(ptrs.ctypes.data, lens.ctypes.data, len(parts), out.ctypes.data,
+                                 minmax.ctypes.data)
+    return int(minmax[0]), int(minmax[1])
 
 
 def fill_rows_canonical(buf: np.ndarray, start_row: int, seed: int, bound: float, col_start: int = 0) -> None:

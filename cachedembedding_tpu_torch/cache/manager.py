@@ -136,6 +136,11 @@ class CacheStats:
     # inputs too), the device plan's readback, the writeback gathers' copies
     h2d_bytes: int = 0
     d2h_bytes: int = 0
+    # device planner: windows whose int32 host ids took the one native pass
+    # into a reused pinned buffer, and reuses that waited on that buffer's
+    # previous host->device copy
+    id_stage_windows: int = 0
+    id_stage_waits: int = 0
 
     def hit_rate(self, window: int = 0) -> float:
         """Hits over lookups of unique ids, over the last ``window`` planned
@@ -154,7 +159,8 @@ class CacheStats:
             f"hit_rate={self.hit_rate():.4f} "
             f"swap_in={self.swap_in_bytes / gib:.3f}GiB @ {in_bw:.2f}GiB/s "
             f"swap_out={self.swap_out_bytes / gib:.3f}GiB @ {out_bw:.2f}GiB/s "
-            f"synth_rows={self.synth_rows}"
+            f"synth_rows={self.synth_rows} "
+            f"id_stage_windows={self.id_stage_windows} id_stage_waits={self.id_stage_waits}"
         )
 
 
@@ -427,6 +433,10 @@ class CachedEmbeddingBag:
         self._wb_exec = ThreadPoolExecutor(max_workers=1)
         self._wb_futures: list = []  # (future, evicted row ids)
         self._pending_wb: list = []  # (evicted rows, host values, event) not yet submitted
+        # device planner, CUDA: two pinned int32 id buffers used in turns, each
+        # with the event recorded after the host->device copy that read it last
+        self._id_bufs = [(torch.empty((0,), dtype=torch.int32), None) for _ in range(2)]
+        self._id_buf_turn = 0
 
         if self.resident_total:
             self._init_resident_region()
@@ -558,14 +568,18 @@ class CachedEmbeddingBag:
         if ids_np.size:
             with self.spans(CHECK_RANGE):
                 lo, hi = int(ids_np.min()), int(ids_np.max())
-            if lo < 0 or hi >= self.num_embeddings:
-                if device_planner:
-                    raise ValueError(
-                        f"id out of range: {lo if lo < 0 else hi} not in [0, {self.num_embeddings}) \u2014 "
-                        "check table-size/hash configuration")
+            self._check_min_max(lo, hi, device_planner)
+
+    def _check_min_max(self, lo: int, hi: int, device_planner: bool) -> None:
+        """``_check_range`` on the ids' min and max, taken already."""
+        if lo < 0 or hi >= self.num_embeddings:
+            if device_planner:
                 raise ValueError(
-                    f"embedding ids out of range [0, {self.num_embeddings}): min={lo} max={hi}"
-                )
+                    f"id out of range: {lo if lo < 0 else hi} not in [0, {self.num_embeddings}) \u2014 "
+                    "check table-size/hash configuration")
+            raise ValueError(
+                f"embedding ids out of range [0, {self.num_embeddings}): min={lo} max={hi}"
+            )
 
     def _translate_ids(self, ids_np: np.ndarray):
         """Split a fused-global-id stream: resident ids become final device
@@ -815,10 +829,12 @@ class CachedEmbeddingBag:
     # -- the device planner's windows -------------------------------------------
     def begin_prepare(self, ids, out_shape=None) -> PreparedWindow:
         """Plan a window on the device without moving rows (device planner):
-        check the ids' range on the host (ValueError), enqueue ``plan_ids``
-        and the remap, then the copies of the plan's scalars and index block
-        into host memory and an event after them. Waits for no device work
-        when ``ids`` are on the host. The caller then calls
+        check the ids' range on the host (ValueError, before anything is
+        enqueued), enqueue ``plan_ids`` and the remap, then the copies of the
+        plan's scalars and index block into host memory and an event after
+        them. ``ids``: one array, or a sequence of host arrays (a window's
+        batches) taken back to back. Waits for no device work when ``ids``
+        are on the host (``_host_ids_to_device``). The caller then calls
         ``finish_prepare``, after the device work that reads the slots the
         plan evicts has been enqueued."""
         if self._dir is not None:
@@ -829,9 +845,7 @@ class CachedEmbeddingBag:
             if ids_dev.numel():
                 self._check_range(np.asarray([int(x) for x in torch.aminmax(ids_dev)]), device_planner=True)
         else:
-            ids_np = np.asarray(ids).reshape(-1)
-            self._check_range(ids_np, device_planner=True)
-            ids_dev = self.to_device(ids_np.astype(np.int32))
+            ids_dev = self._host_ids_to_device(ids)
         budget = self.unique_budget or ids_dev.shape[0]
         events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(3)) if self._on_cuda else None
         if events:
@@ -851,6 +865,56 @@ class CachedEmbeddingBag:
         return PreparedWindow(slot_ids=slot_ids.reshape(out_shape) if out_shape is not None else slot_ids,
                               plan=plan, budget=int(budget), host_scalars=host_scalars, host_indices=host_indices,
                               events=events)
+
+    def _host_ids_to_device(self, ids) -> torch.Tensor:
+        """The device planner's host ids, range-checked (ValueError, nothing
+        enqueued) and copied to the device as one int32 stream. Int32 arrays
+        take one native pass (``hostops.concat_minmax_i32``, span
+        ``cache.check_range``) into a pinned buffer, of two used in turns
+        and each reused once the copy that read it last has run; on the CPU
+        a fresh array, which is the stream itself. Other dtypes are checked
+        before their cast, so that no id wraps into range."""
+        parts = ids if isinstance(ids, (list, tuple)) and all(
+            isinstance(p, (np.ndarray, torch.Tensor)) for p in ids) else [ids]
+        parts = [np.asarray(p).reshape(-1) for p in parts]
+        if any(p.dtype != np.int32 for p in parts):
+            ids_np = np.concatenate(parts) if len(parts) > 1 else parts[0]
+            self._check_range(ids_np, device_planner=True)
+            return self.to_device(ids_np.astype(np.int32))
+        n = sum(p.shape[0] for p in parts)
+        buf, event = self._id_stage_buffer(n)
+        with self.spans(CHECK_RANGE):
+            lo, hi = hostops.concat_minmax_i32([np.ascontiguousarray(p) for p in parts], buf.numpy())
+        if n:
+            self._check_min_max(lo, hi, device_planner=True)
+        self.stats.id_stage_windows += 1
+        self.stats.h2d_bytes += buf.nbytes
+        if event is None:
+            return buf
+        ids_dev = buf.to(self.device, non_blocking=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return ids_dev
+
+    def _id_stage_buffer(self, n: int):
+        """(n,) int32 host memory for a window's ids and the event to record
+        after its copy: on CUDA the next of the two pinned buffers, grown to
+        n where it is smaller, once the copy that read it last has run
+        (``stats.id_stage_waits`` counts the times that had to be waited
+        for); on the CPU a fresh array and no event."""
+        if not self._on_cuda:
+            return torch.empty((n,), dtype=torch.int32), None
+        turn = self._id_buf_turn
+        self._id_buf_turn ^= 1
+        buf, event = self._id_bufs[turn]
+        if event is None:
+            event = torch.cuda.Event()
+        elif not event.query():
+            self.stats.id_stage_waits += 1
+            event.synchronize()
+        if buf.numel() < n:
+            buf = torch.empty((n,), dtype=torch.int32, pin_memory=True)
+        self._id_bufs[turn] = (buf, event)
+        return buf[:n], event
 
     def finish_prepare(self, pw: PreparedWindow) -> None:
         """Move a planned window's rows: wait for its readback (the event

@@ -661,7 +661,6 @@ class CachedDLRMTrainer:
         F, B = f0.num_features, f0.batch_size
         with self.spans(STAGE):
             vals = [b.sparse_features.values.numpy() for b in batches]
-            ids = np.concatenate(vals)
             dense = torch.stack([b.dense_features for b in batches]).float()
             labels = torch.stack([b.labels for b in batches]).float()
             if self.mesh is None:
@@ -669,7 +668,7 @@ class CachedDLRMTrainer:
             else:  # this rank's batch rows
                 dense, labels = put_addressable(self.mesh, dense, 1), put_addressable(self.mesh, labels, 1)
         with self.spans(PLAN_HOST):
-            pw = self.embed.begin_prepare(ids, None if ragged else (P, vals[0].shape[0]))
+            pw = self.embed.begin_prepare(vals, None if ragged else (P, vals[0].shape[0]))
         if not ragged:
             return _Window(staging=pw, slot_ids=pw.slot_ids, dense=dense, labels=labels, plan=None, plan_s=0.0)
         counts = [v.shape[0] for v in vals]

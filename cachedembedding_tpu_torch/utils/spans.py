@@ -25,14 +25,16 @@ import torch
 
 # every span the port records; the profiler's records carry the same names
 FETCH = "trainer.fetch"                    # the window's batches pulled from the data
-STAGE = "trainer.stage"                    # ids concatenated, dense features and labels stacked and copied
+STAGE = "trainer.stage"                    # the batches' ids gathered (host planner: concatenated), dense
+# features and labels stacked and copied
 ENCODE = "trainer.encode_ids"              # host planner: the id block of the window wire
 PACK = "trainer.pack"                      # host planner: dense, labels and admit blocks
 SORT_PLANS = "trainer.sort_plans"          # host planner: the update plans
 SHIP = "trainer.ship"                      # host planner: the buffer assembled and copied
 DISPATCH = "trainer.dispatch"              # a window's steps enqueued
 PLAN_HOST = "cache.plan_host"              # the cache's plan, host part
-CHECK_RANGE = "cache.check_range"          # child of PLAN_HOST: the ids' range check
+CHECK_RANGE = "cache.check_range"          # child of PLAN_HOST: the ids' range check (device planner: the
+# one pass that copies the window's ids into the staging buffer)
 READBACK_WAIT = "cache.readback_wait"      # device planner: the host blocked on the plan's readback
 ADMIT = "cache.admit"                      # admits and writebacks gathered and enqueued
 ADMIT_ACCUM = "cache.admit_accum"          # child of ADMIT (device planner, row-wise Adagrad): the admits'

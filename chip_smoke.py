@@ -2811,7 +2811,8 @@ def phase_device_planner(device) -> tuple:
 
         def begin_and_keep(ids, out_shape=None):
             pw = begin_prepare(ids, out_shape)
-            windows.append((np.asarray(ids), pw, tuple(pinned_copy(t) for t in emb.state)))
+            flat = np.concatenate(ids) if isinstance(ids, list) else np.asarray(ids)  # a window's batches
+            windows.append((flat, pw, tuple(pinned_copy(t) for t in emb.state)))
             return pw
 
         def step_plan_and_keep(win, p):
