@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cachedembedding_tpu_torch.models.dlrm import _key_seed_seq, _linear, _linear_init_np, _mlp
+from cachedembedding_tpu_torch.models.dlrm import _key_seed_seq, _linear, _linear_init_np, _mlp, bce_with_logits
 
 Layer = Dict[str, np.ndarray]
 
@@ -138,3 +138,12 @@ def bce_probs(probs: torch.Tensor, labels: torch.Tensor, eps: float = 1e-7) -> t
     p = torch.clamp(probs, eps, 1.0 - eps)
     y = labels.to(p.dtype)
     return -torch.mean(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
+
+
+def model_loss(model: str, out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """DLRM trains on logits, DeepFM on its Sigmoid outputs."""
+    return bce_with_logits(out, labels) if model == "dlrm" else bce_probs(out, labels)
+
+
+def model_probs(model: str, out: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(out) if model == "dlrm" else out

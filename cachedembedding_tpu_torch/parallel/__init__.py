@@ -6,9 +6,10 @@ processes joined by ``torch.distributed`` (NCCL on the card, gloo on the
 CPU), on one host or several (a process a host spawns a rank a card; the
 ranks meet over TCP).
 
-``make_mesh``, ``hybrid_train_step`` and ``dryrun_hybrid_train_step`` are
-exported as the JAX package exports them, on first use: ``parallel/hybrid.py``
-imports ``train/mesh_window.py``, which imports ``parallel/mesh.py``."""
+The layouts import ``ops/`` and ``models/`` and nothing of ``train/``,
+which imports them. ``make_mesh``, ``hybrid_train_step`` and
+``dryrun_hybrid_train_step`` are exported as the JAX package exports them,
+on first use: importing the package loads none of its modules."""
 
 _EXPORTS = {"make_mesh": "mesh", "hybrid_train_step": "hybrid", "dryrun_hybrid_train_step": "hybrid"}
 

@@ -13,7 +13,7 @@ the mesh's device group (or its host group for tensors in host memory):
   * ``exchange_ragged``: ragged ids padded to a per-rank budget, lengths then
     values, one ``all_gather`` each;
   * ``exchange_to_owners``: each rank sends each peer only the ids that peer
-    owns, counts then values, one ``all_to_all_single`` each;
+    owns, counts then values, one ``collectives.all_to_all_rows`` each;
   * ``bucket_by_owner``, ``permute_bags``, ``rank_major_to_feature_major_perm``
     and ``compact_ragged_global``: the static-shape local reshuffles around
     them, with no collective.
@@ -28,29 +28,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from cachedembedding_tpu_torch.parallel.collectives import all_to_all_rows
 from cachedembedding_tpu_torch.parallel.mesh import Mesh
-
-
-def _group(mesh: Mesh, t: torch.Tensor):
-    return mesh.host_group if t.device.type == "cpu" else mesh.group
-
-
-def _all_gather_cat(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t, group=_group(mesh, t))
-    return torch.cat(parts, dim=dim)
-
-
-def _all_to_all_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Row block j of ``t`` (its dim 0 split in ``mesh.size`` blocks) to rank
-    j; returns the blocks received, in rank order along dim 0."""
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=_group(mesh, t))
-    return out
+from cachedembedding_tpu_torch.parallel.multiproc import replicate_fn
 
 
 def gather_global_uniform(values_local: torch.Tensor, num_features: int, pooling: int,
@@ -60,7 +41,7 @@ def gather_global_uniform(values_local: torch.Tensor, num_features: int, pooling
     1's, ... (an ``all_gather`` along the batch axis)."""
     b_local = values_local.shape[0] // (num_features * pooling)
     fbp = values_local.reshape(num_features, b_local, pooling)
-    return _all_gather_cat(fbp, mesh, dim=1).reshape(-1)
+    return replicate_fn(mesh, axis=1)(fbp).reshape(-1)
 
 
 def exchange_ragged(values_local: torch.Tensor, lengths_local: torch.Tensor, max_values_per_rank: int,
@@ -71,8 +52,8 @@ def exchange_ragged(values_local: torch.Tensor, lengths_local: torch.Tensor, max
     (values_global (w*V,), lengths_global (w*num_bags,)), in rank order."""
     if values_local.shape[0] != max_values_per_rank:
         raise ValueError(f"values_local holds {values_local.shape[0]} ids, the budget is {max_values_per_rank}")
-    lengths_global = _all_gather_cat(lengths_local, mesh, dim=0)
-    values_global = _all_gather_cat(values_local, mesh, dim=0)
+    lengths_global = replicate_fn(mesh, axis=0)(lengths_local)
+    values_global = replicate_fn(mesh, axis=0)(values_local)
     return values_global, lengths_global
 
 
@@ -86,8 +67,8 @@ def exchange_to_owners(values_by_dest: torch.Tensor, counts_by_dest: torch.Tenso
     w = mesh.size
     if values_by_dest.shape[0] != w or counts_by_dest.shape != (w,):
         raise ValueError(f"values_by_dest (w, V) and counts_by_dest (w,) need w = {w}")
-    recv_counts = _all_to_all_rows(counts_by_dest, mesh)
-    received = _all_to_all_rows(values_by_dest, mesh)
+    recv_counts = all_to_all_rows(counts_by_dest, mesh)
+    received = all_to_all_rows(values_by_dest, mesh)
     return received, recv_counts
 
 

@@ -5,7 +5,8 @@ One logical bag whose embedding dim is split evenly across the mesh's ranks:
 rank r stores columns ``[r * D/w, (r + 1) * D/w)`` of every row, on its device
 (``cache_weight``, (C, D/w)) and in its host table. Every rank consumes the
 global batch's ids and produces (B_global, F, D/w); the reshard to
-(B_local, F, D) is in the train step (``train/mesh_window.py``).
+(B_local, F, D) is in the train step (``train/mesh_window.py``, by
+``parallel/collectives.reshard_pooled``).
 
 The cache's directory is replicated: each rank plans the same windows from
 the same ids, with no cross-rank coordination. Each rank then fetches or

@@ -8,11 +8,12 @@ this rank's process:
   * Kernel 1 gathers the global batch's rows of the shard and pools them,
     (B, F, D/w);
   * the fused reshard to (B/w, F, D), ``fused_op`` "all_to_all" or
-    "gather_scatter" (``train/mesh_window.reshard_pooled``, whose backward
+    "gather_scatter" (``parallel/collectives.reshard_pooled``, whose backward
     sends each rank's columns of the grad back);
   * the DLRM dense forward on this rank's batch rows, the loss times
     ``B_local / B`` (summed over the ranks, the global mean), the backward,
-    the dense grads summed over the ranks and the dense SGD;
+    the dense grads summed over the ranks and the dense SGD
+    (``ops/dense_sgd.py``);
   * Kernel 2 updates the shard, ``cw - slr * g`` with each row's grads summed
     in f32, from an update plan of the slot ids made where they lie. The
     sparse grad needs no collective: each rank saw the global batch for its
@@ -28,10 +29,11 @@ import torch.distributed as dist
 
 from cachedembedding_tpu_torch.models.dlrm import DLRM, bce_with_logits
 from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, sort_plan
+from cachedembedding_tpu_torch.ops.dense_sgd import dense_sgd_
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+from cachedembedding_tpu_torch.parallel.collectives import FUSED_OPS, all_reduce_grads, reshard_pooled
 from cachedembedding_tpu_torch.parallel.mesh import Mesh, make_mesh
-from cachedembedding_tpu_torch.train.mesh_window import FUSED_OPS, all_reduce_grads, reshard_pooled
 
 
 def hybrid_train_step(mesh: Mesh, *, num_features: int, global_batch: int, pooling: int = 1,
@@ -56,10 +58,7 @@ def hybrid_train_step(mesh: Mesh, *, num_features: int, global_batch: int, pooli
         all_reduce_grads(params, mesh)
         plan = sort_plan(slot_values.view(F, -1).t().reshape(-1), cache_weight.shape[0])
         binned_sgd_update(cache_weight, rows.grad.reshape(-1, cache_weight.shape[1]), *plan, float(sparse_lr))
-        with torch.no_grad():
-            for prm in params:
-                prm.sub_(prm.grad * float(dense_lr))
-                prm.grad = None
+        dense_sgd_(params, float(dense_lr))
         loss = loss.detach()
         dist.all_reduce(loss, group=mesh.group)
         return loss

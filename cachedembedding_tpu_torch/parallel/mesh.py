@@ -41,6 +41,10 @@ class Mesh:
     size: int
     device: torch.device
 
+    def group_for(self, t: torch.Tensor):
+        """The group that carries a collective on ``t``."""
+        return self.host_group if t.device.type == "cpu" else self.group
+
 
 def launched() -> bool:
     """Whether this process runs under a launcher that set its rank and the

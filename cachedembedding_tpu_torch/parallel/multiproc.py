@@ -46,8 +46,7 @@ def replicate_fn(mesh: Mesh, axis: int = 1):
     def replicate(t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(mesh.size)]
-        group = mesh.host_group if t.device.type == "cpu" else mesh.group
-        dist.all_gather(parts, t, group=group)
+        dist.all_gather(parts, t, group=mesh.group_for(t))
         return torch.cat(parts, dim=axis)
 
     return replicate

@@ -41,7 +41,7 @@ step on this rank, with this rank's (L_local,) slots ``enc`` in the layout
   1. ``_bucket_with_positions`` buckets ``enc`` by owner into (w, V), V =
      ``per_pair_budget`` or L_local, empty lanes 0, and gives each id its
      flat bucket position;
-  2. an all-to-all of the buckets (``mesh_window._all_to_all``);
+  2. an all-to-all of the buckets (``parallel/collectives.all_to_all_rows``);
   3. the owner gathers ``clamp(received - rank * capacity, 0, capacity - 1)``
      from its cache with Kernel 1 (empty lanes read slot 0);
   4. an all-to-all of the rows back (an ``autograd.Function`` whose backward
@@ -51,7 +51,8 @@ step on this rank, with this rank's (L_local,) slots ``enc`` in the layout
   6. the pooling and the model (``models/``) on (B_local, F, D), the loss
      times ``B_local / B``;
   7. the backward; the dense grads summed over the ranks
-     (``mesh_window.all_reduce_grads``) and the dense SGD ``p - dlr * g``;
+     (``parallel/collectives.all_reduce_grads``) and the dense SGD
+     (``ops/dense_sgd.py``);
   8. Kernel 2 (``ops/binned_scatter.binned_sgd_update``) updates the f32
      cache rows by the grads of the gathered lanes, f32 sums and one
      rounding, from a plan of the w * V local slots made where they lie
@@ -71,13 +72,15 @@ import torch.distributed as dist
 
 from cachedembedding_tpu_torch.cache.manager import CachedEmbeddingBag, CacheStats
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
+from cachedembedding_tpu_torch.models.deepfm import model_loss, model_probs
 from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, sort_plan
+from cachedembedding_tpu_torch.ops.dense_sgd import dense_sgd_
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+from cachedembedding_tpu_torch.parallel.collectives import all_reduce_grads, all_to_all_rows
 from cachedembedding_tpu_torch.parallel.mesh import Mesh
 from cachedembedding_tpu_torch.parallel.multiproc import global_max, replicate_fn
 from cachedembedding_tpu_torch.parallel.row import row_shard_bounds
-from cachedembedding_tpu_torch.train.mesh_window import _all_to_all, all_reduce_grads
 
 
 class RowShardedCachedEmbeddingBag:
@@ -236,11 +239,11 @@ class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         ctx.mesh = mesh
-        return _all_to_all(x, mesh)
+        return all_to_all_rows(x, mesh)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return _all_to_all(g, ctx.mesh), None
+        return all_to_all_rows(g, ctx.mesh), None
 
 
 def _rows_of(cw, enc, mesh: Mesh, capacity: int, V: int, with_grad: bool):
@@ -249,7 +252,7 @@ def _rows_of(cw, enc, mesh: Mesh, capacity: int, V: int, with_grad: bool):
     f32 rows in ``enc``'s order)."""
     w = mesh.size
     buckets, _, pos = _bucket_with_positions(enc, torch.div(enc, capacity, rounding_mode="floor"), w, V)
-    received = _all_to_all(buckets, mesh)
+    received = all_to_all_rows(buckets, mesh)
     local_slots = (received - mesh.rank * capacity).clamp_(0, capacity - 1).reshape(-1)
     owned = gather_rows(cw, local_slots, 1).reshape(w * V, cw.shape[1])  # Kernel 1
     if with_grad:
@@ -275,19 +278,14 @@ def _check_dtype(net, compute_dtype) -> None:
 def _train_one(net, cw, enc, dense, labels, slr, dlr, *, mesh, capacity, V, F, B, mode, model) -> torch.Tensor:
     """One training step on this rank, in place on ``net`` and ``cw``.
     Returns this rank's loss term (its batch rows' mean times B_local / B)."""
-    from cachedembedding_tpu_torch.train.trainer import _model_loss
-
     b_local = labels.shape[0]
     owned, local_slots, rows = _rows_of(cw, enc, mesh, capacity, V, with_grad=True)
-    loss = _model_loss(model, net(dense, _embedded(rows, F, b_local, mode)), labels) * (b_local / B)
+    loss = model_loss(model, net(dense, _embedded(rows, F, b_local, mode)), labels) * (b_local / B)
     loss.backward()
     params = list(net.parameters())
     all_reduce_grads(params, mesh)
     binned_sgd_update(cw, owned.grad, *sort_plan(local_slots, cw.shape[0]), float(slr))  # Kernel 2
-    with torch.no_grad():
-        for prm in params:
-            prm.sub_(prm.grad * float(dlr))
-            prm.grad = None
+    dense_sgd_(params, float(dlr))
     return loss.detach()
 
 
@@ -320,15 +318,13 @@ def build_rowwise_cached_step(mesh: Mesh, *, num_features: int, global_batch: in
             return loss
 
         return step
-    from cachedembedding_tpu_torch.train.trainer import _model_probs
-
     gather = replicate_fn(mesh, axis=0)
 
     @torch.no_grad()
     def score(net, cache_weight, enc, dense) -> torch.Tensor:
         _check_dtype(net, compute_dtype)
         _, _, rows = _rows_of(cache_weight, enc, mesh, capacity, V, with_grad=False)
-        probs = _model_probs(model, net(dense, _embedded(rows, num_features, dense.shape[0], mode)))
+        probs = model_probs(model, net(dense, _embedded(rows, num_features, dense.shape[0], mode)))
         return gather(probs.reshape(1, -1))
 
     return score

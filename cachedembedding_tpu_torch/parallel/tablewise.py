@@ -44,10 +44,11 @@ global batch's rows of this rank's features, (B, F_max, D); ``reshard``
 (an ``autograd.Function``) trades batch rows for features with one
 ``all_to_all_single``, (B/w, F, D); the DLRM dense forward, the loss times
 ``B_local / B``, the backward, the dense grads summed over the ranks
-(``mesh_window.all_reduce_grads``), the dense SGD, and Kernel 2's update of
-the f32 cache rows (f32 sums, one rounding) from an update plan of the
-step's slot ids made where they lie (``ops/binned_scatter.sort_plan``). The
-losses are summed over the ranks, so each is the global batch's mean.
+(``parallel/collectives.all_reduce_grads``), the dense SGD
+(``ops/dense_sgd.py``), and Kernel 2's update of the f32 cache rows (f32
+sums, one rounding) from an update plan of the step's slot ids made where
+they lie (``ops/binned_scatter.sort_plan``). The losses are summed over the
+ranks, so each is the global batch's mean.
 """
 
 from __future__ import annotations
@@ -66,11 +67,12 @@ from cachedembedding_tpu_torch.cache.manager import CacheStats, default_table_in
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.models.dlrm import bce_with_logits
 from cachedembedding_tpu_torch.ops.binned_scatter import binned_sgd_update, sort_plan
+from cachedembedding_tpu_torch.ops.dense_sgd import dense_sgd_
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
+from cachedembedding_tpu_torch.parallel.collectives import all_reduce_grads, all_to_all_rows
 from cachedembedding_tpu_torch.parallel.mesh import Mesh
 from cachedembedding_tpu_torch.parallel.multiproc import replicate_fn
-from cachedembedding_tpu_torch.train.mesh_window import _all_to_all, all_reduce_grads
 
 
 @dataclasses.dataclass
@@ -419,7 +421,7 @@ class _Reshard(torch.autograd.Function):
         B, f_max, D = pooled.shape
         b = B // w
         ctx.mesh, ctx.perm, ctx.f_max = mesh, perm, f_max
-        got = _all_to_all(pooled, mesh).view(w, b, f_max, D)
+        got = all_to_all_rows(pooled, mesh).view(w, b, f_max, D)
         return got.permute(1, 0, 2, 3).reshape(b, w * f_max, D).index_select(1, perm)
 
     @staticmethod
@@ -430,7 +432,7 @@ class _Reshard(torch.autograd.Function):
         full = g.new_zeros((b, w * f_max, D))
         full.index_copy_(1, perm, g)
         send = full.view(b, w, f_max, D).permute(1, 0, 2, 3)
-        return _all_to_all(send, mesh).view(w * b, f_max, D), None, None
+        return all_to_all_rows(send, mesh).view(w * b, f_max, D), None, None
 
 
 def reshard(pooled: torch.Tensor, mesh: Mesh, perm: torch.Tensor) -> torch.Tensor:
@@ -459,10 +461,7 @@ def _train_one(model, cw, ids, dense, labels, slr, dlr, *, mesh, perm, f_max, B,
     # the update plan of the step's ids in the order of the gathered rows, (B, F_max)
     plan = sort_plan(ids.view(f_max, -1).t().reshape(-1), cw.shape[0])
     binned_sgd_update(cw, rows.grad.reshape(-1, cw.shape[1]), *plan, float(slr))  # Kernel 2
-    with torch.no_grad():
-        for prm in params:
-            prm.sub_(prm.grad * float(dlr))
-            prm.grad = None
+    dense_sgd_(params, float(dlr))
     return loss.detach()
 
 

@@ -15,12 +15,14 @@ labels:
     counterpart, is the trainer's own ``_land_admits``);
   * each step gathers the global batch's rows of the shard (Kernel 1),
     pools them (f32 sums or means for pooling above 1) to (B, F, D/w) and
-    reshards that to (B/w, F, D) with an all-to-all (``reshard_pooled``, an
-    ``autograd.Function`` whose backward is the reverse all-to-all);
+    reshards that to (B/w, F, D) with an all-to-all
+    (``parallel/collectives.reshard_pooled``, whose backward is the reverse
+    all-to-all);
   * the rank's loss is its batch rows' mean times ``b_local / B``, so the
     sum over ranks is the global mean; the dense grads are summed over the
-    ranks (the DDP all-reduce) and so are the losses, so the dense LR needs
-    no scaling by the world size;
+    ranks (``parallel/collectives.all_reduce_grads``, the DDP all-reduce)
+    and so are the losses, so the dense SGD (``ops/dense_sgd.py``) needs no
+    scaling of its LR by the world size;
   * the embedding update runs on the shard by the JAX mesh's branch rule:
     the sparse branch (Kernel 5's ordered scatter; Kernel 2 on f32 rows),
     or the dense one, where SGD is Kernel 2 (f32 sums, one rounding), and
@@ -43,75 +45,14 @@ from typing import List
 
 import torch
 import torch.distributed as dist
-from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from cachedembedding_tpu_torch.models.deepfm import model_loss, model_probs
 from cachedembedding_tpu_torch.ops.binned_scatter import binned_scatter_add
+from cachedembedding_tpu_torch.ops.dense_sgd import dense_sgd_
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_uniform
 from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sgd_round_
-from cachedembedding_tpu_torch.parallel.mesh import Mesh
+from cachedembedding_tpu_torch.parallel.collectives import all_reduce_grads, reshard_pooled
 from cachedembedding_tpu_torch.parallel.multiproc import replicate_fn
-
-FUSED_OPS = ("all_to_all", "gather_scatter")
-
-
-def _all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Split ``x`` along dim 0 into ``mesh.size`` chunks, send chunk j to rank
-    j, and return the received chunks concatenated along dim 0 in rank
-    order."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=mesh.group)
-    return out
-
-
-class _Reshard(torch.autograd.Function):
-    """(B, F, D/w) column shards -> (B/w, F, D) batch rows, and back for the
-    grad. ``all_to_all_single`` splits and concatenates along dim 0, where
-    JAX's ``all_to_all(split_axis=0, concat_axis=2)`` concatenates the
-    received chunks along the columns: the received (w, B/w, F, D/w) block
-    is permuted to (B/w, F, w, D/w) and its last two axes flattened."""
-
-    @staticmethod
-    def forward(ctx, pooled: torch.Tensor, mesh: Mesh, fused_op: str) -> torch.Tensor:
-        ctx.mesh = mesh
-        w = mesh.size
-        B, F, dpr = pooled.shape
-        b = B // w
-        if fused_op == "gather_scatter":
-            # every rank's columns of the whole batch, then this rank's rows
-            return replicate_fn(mesh, axis=2)(pooled)[mesh.rank * b : (mesh.rank + 1) * b].contiguous()
-        got = _all_to_all(pooled, mesh).view(w, b, F, dpr)
-        return got.permute(1, 2, 0, 3).reshape(b, F, w * dpr)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        # both fused ops: the grad of this rank's batch rows, column block j
-        # to rank j, which places it at this rank's rows (the gather's other
-        # entries have zero grads)
-        mesh = ctx.mesh
-        w = mesh.size
-        b, F, D = g.shape
-        send = g.reshape(b, F, w, D // w).permute(2, 0, 1, 3)
-        return _all_to_all(send, mesh).view(w * b, F, D // w), None, None
-
-
-def reshard_pooled(pooled: torch.Tensor, mesh: Mesh, fused_op: str = "all_to_all") -> torch.Tensor:
-    """(B_global, F, D/w) -> (B_local, F, D): the fused collective
-    (``fused_op`` "all_to_all", or "gather_scatter": an all-gather of the
-    columns and this rank's batch rows, which computes the same)."""
-    if fused_op not in FUSED_OPS:
-        raise ValueError(f"unknown fused_op {fused_op!r}")
-    return _Reshard.apply(pooled, mesh, fused_op)
-
-
-def all_reduce_grads(params: List[torch.Tensor], mesh: Mesh) -> None:
-    """Sum the dense grads over the ranks in place (the DDP all-reduce), as
-    one flat buffer."""
-    grads = [p.grad for p in params]
-    flat = _flatten_dense_tensors(grads)
-    dist.all_reduce(flat, group=mesh.group)
-    for g, v in zip(grads, _unflatten_dense_tensors(flat, grads)):
-        g.copy_(v)
 
 
 def _update(tr, cw: torch.Tensor, g_rows: torch.Tensor, plan, slr: float, seed: int, branch: str) -> None:
@@ -144,7 +85,7 @@ def train_window(tr, win, progresses: List[float]) -> torch.Tensor:
     """Land the window's admits and enqueue every step of it on this rank.
     Returns the (P,) global per-step losses (summed over the ranks; a
     device tensor, not yet read back)."""
-    from cachedembedding_tpu_torch.train.trainer import _M32, _SEED_MUL, _model_loss
+    from cachedembedding_tpu_torch.train.trainer import _M32, _SEED_MUL
 
     mesh, cfg = tr.mesh, tr.cfg
     tr._land_admits(win)
@@ -165,15 +106,12 @@ def train_window(tr, win, progresses: List[float]) -> torch.Tensor:
         rows.requires_grad_(True)
         emb = reshard_pooled(pool_uniform(rows, B, cfg.reduction_mode), mesh, cfg.fused_op)
         # the local mean over the global batch: summed over the ranks, the global mean
-        loss = _model_loss(cfg.model, tr.model(win.dense[p], emb), win.labels[p]) * (b_local / B)
+        loss = model_loss(cfg.model, tr.model(win.dense[p], emb), win.labels[p]) * (b_local / B)
         loss.backward()
         all_reduce_grads(params, mesh)
         seed = (tr._step_idx * _SEED_MUL + p) & _M32
         _update(tr, cw, rows.grad.reshape(-1, cw.shape[1]), tr._step_plan(win, p), slr, seed, branch)
-        with torch.no_grad():
-            for prm in params:
-                prm.sub_(prm.grad * dlr)
-                prm.grad = None
+        dense_sgd_(params, dlr)
         losses.append(loss.detach())
     out = torch.stack(losses)
     dist.all_reduce(out, group=mesh.group)
@@ -185,13 +123,11 @@ def eval_window(tr, win) -> List[torch.Tensor]:
     """Score a window's steps (its admits landed): each step's (B,)
     probabilities of the global batch, in its order (each rank scores its
     batch rows, then the ranks' scores are gathered in rank order)."""
-    from cachedembedding_tpu_torch.train.trainer import _model_probs
-
     mesh, cfg = tr.mesh, tr.cfg
     B = win.labels.shape[1] * mesh.size
     gather = replicate_fn(mesh, axis=0)
     out = []
     for p in range(win.slot_ids.shape[0]):
         emb = reshard_pooled(pool_uniform(tr._gathered_rows(win, p), B, cfg.reduction_mode), mesh, cfg.fused_op)
-        out.append(gather(_model_probs(cfg.model, tr.model(win.dense[p], emb)).reshape(-1)))
+        out.append(gather(model_probs(cfg.model, tr.model(win.dense[p], emb)).reshape(-1)))
     return out

@@ -138,8 +138,9 @@ from cachedembedding_tpu_torch.cache.manager import (
 from cachedembedding_tpu_torch.cache.state import EvictionStrategy
 from cachedembedding_tpu_torch.config import DLRMConfig
 from cachedembedding_tpu_torch.jagged import Batch, concat_uniform_values
-from cachedembedding_tpu_torch.models.deepfm import DeepFM, bce_probs
-from cachedembedding_tpu_torch.models.dlrm import DLRM, INTERACTION_TYPES, bce_with_logits
+# called by these names: perfbench/faults.py replaces ``_model_loss``
+from cachedembedding_tpu_torch.models.deepfm import DeepFM, model_loss as _model_loss, model_probs as _model_probs
+from cachedembedding_tpu_torch.models.dlrm import DLRM, INTERACTION_TYPES
 from cachedembedding_tpu_torch.ops.binned_scatter import (
     binned_adagrad_update,
     binned_scatter_add,
@@ -147,10 +148,12 @@ from cachedembedding_tpu_torch.ops.binned_scatter import (
     sort_plan,
     sort_plan_np,
 )
+from cachedembedding_tpu_torch.ops.dense_sgd import dense_sgd_
 from cachedembedding_tpu_torch.ops.embedding_bag import pool_ragged, pool_uniform
 from cachedembedding_tpu_torch.ops.gather_rows import gather_rows
 from cachedembedding_tpu_torch.ops.ordered_scatter import ordered_grad_update_, ordered_scatter_add_
 from cachedembedding_tpu_torch.ops.rounding import astype_storage, stochastic_sgd_round_
+from cachedembedding_tpu_torch.parallel.collectives import FUSED_OPS
 from cachedembedding_tpu_torch.parallel.multiproc import put_addressable, shard_bounds
 from cachedembedding_tpu_torch.train import mesh_window, wire
 from cachedembedding_tpu_torch.utils.metrics import StreamingMetrics
@@ -200,7 +203,7 @@ def _refuse_outside_slice(cfg: DLRMConfig, cached: bool = True) -> None:
         (cfg.use_tablewise, "the table-wise layout (use_tablewise) trains through "
                             "models/hybrid.HybridParallelDLRM, not CachedDLRMTrainer"),
     ]
-    if cfg.fused_op not in mesh_window.FUSED_OPS:
+    if cfg.fused_op not in FUSED_OPS:
         raise ValueError(f"unknown fused_op {cfg.fused_op!r}")
     if cfg.compute_dtype not in _FLOAT_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} is not supported")
@@ -300,15 +303,6 @@ class _Window(NamedTuple):
             return perm[p], grouped[p], bins[p]
         a, b = self.bounds[p], self.bounds[p + 1]
         return perm[a:b], grouped[a:b], bins[p]
-
-
-def _model_loss(model: str, out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """DLRM trains on logits, DeepFM on its Sigmoid outputs."""
-    return bce_with_logits(out, labels) if model == "dlrm" else bce_probs(out, labels)
-
-
-def _model_probs(model: str, out: torch.Tensor) -> torch.Tensor:
-    return torch.sigmoid(out) if model == "dlrm" else out
 
 
 class CachedDLRMTrainer:
@@ -850,10 +844,8 @@ class CachedDLRMTrainer:
                     self._sr_update(cw, g_rows, perm, grouped, bins, slr, seed, branch)
                 else:
                     self._update(cw, g_rows, perm, grouped, bins, slr, branch)
-            with self.spans(DENSE_UPDATE), torch.no_grad():
-                for prm in params:
-                    prm.sub_(prm.grad * dlr)
-                    prm.grad = None
+            with self.spans(DENSE_UPDATE):
+                dense_sgd_(params, dlr)
             losses.append(loss.detach())
         return torch.stack(losses)
 

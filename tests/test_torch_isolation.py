@@ -5,8 +5,10 @@ exchanges, the table-wise layout, the hybrid step and model, and the
 row-wise and row-sharded cached layouts and the headline bench included)
 loads neither jax nor any module of the JAX package; its entry points
 refuse to run silently on the CPU; and its kernel wrappers take their plain
-versions only for CPU tensors."""
+versions only for CPU tensors. Its layers point one way: no module of
+``parallel/`` imports ``train/``."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -57,6 +59,22 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_imports_nothing_of_train():
+    train = "cachedembedding_tpu_torch.train"
+    bad = []
+    for path in sorted((REPO / "cachedembedding_tpu_torch" / "parallel").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            if any(n == train or n.startswith(train + ".") for n in names):
+                bad.append(f"{path.name}:{node.lineno}")
+    assert not bad, bad
 
 
 def test_default_device_needs_a_gpu():
