@@ -15,6 +15,7 @@ import functools
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from cachedembedding_tpu_torch import _build
 
@@ -25,7 +26,7 @@ _I64 = ctypes.c_int64
 
 # (name, argtypes, restype) of every C entry the port calls
 _PROTOTYPES = [
-    ("gather_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
+    ("gather_rows", [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int32], None),
     ("scatter_rows_f32", [_P, _P, _P, _I64, _I64, _I64], None),
     ("concat_minmax_i32", [_P, _P, _I64, _P, _P], None),
     ("sort_plan_i32", [_P, _I64, _I64, _I64, _P, _P, _P], None),
@@ -35,7 +36,8 @@ _PROTOTYPES = [
     ("overlay_free", [_P], None),
     ("overlay_used", [_P], _I64),
     ("overlay_keys", [_P, _P], None),
-    ("overlay_gather_f32", [_P, _P, _P, _P, _I64], None),
+    ("overlay_gather_rows", [_P, _P, _I64, _P, _P, _I64, _P, ctypes.c_int32], None),
+    ("overlay_gather_or_fill", [_P, _P, _I64, ctypes.c_float, _P], None),
     ("overlay_contains", [_P, _P, _P, _I64], None),
     ("overlay_scatter_f32", [_P, _P, _P, _I64], None),
     ("dir_create", [_I64, _I64, ctypes.c_int], _P),
@@ -75,19 +77,29 @@ def _f32_c(a: np.ndarray, name: str) -> None:
         raise ValueError(f"{name} must be a C-contiguous 2-D float32 array")
 
 
-def gather_rows(table: np.ndarray, idx: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
-    """out[i] = table[idx[i]] for a 2-D float32 C-contiguous ``table``."""
+def rows_out(out, n: int, dim: int):
+    """Validate the destination of a row gather: a C-contiguous (n, dim)
+    float32 array, or a C-contiguous (n, dim) float32 or bfloat16 CPU
+    tensor (a new float32 array where ``out`` is None). Returns (out, its
+    address, 1 where it takes bf16 rows)."""
+    if out is None:
+        out = np.empty((n, dim), np.float32)
+    t = torch.from_numpy(out) if isinstance(out, np.ndarray) else out
+    if (not isinstance(t, torch.Tensor) or t.device.type != "cpu" or t.dtype not in (torch.float32, torch.bfloat16)
+            or tuple(t.shape) != (n, dim) or not t.is_contiguous()):
+        raise ValueError(f"out must be a C-contiguous ({n}, {dim}) float32 array or float32/bfloat16 CPU tensor")
+    return out, t.data_ptr(), int(t.dtype == torch.bfloat16)
+
+
+def gather_rows(table: np.ndarray, idx: np.ndarray, out=None):
+    """out[i] = table[idx[i]] for a 2-D float32 C-contiguous ``table``, by
+    several workers; ``out`` as ``rows_out`` takes it, bf16 rows rounded to
+    nearest even as ``Tensor.to(torch.bfloat16)`` rounds them."""
     _f32_c(table, "table")
     idx = np.ascontiguousarray(idx, dtype=np.int64)
-    if out is None:
-        out = np.empty((idx.shape[0], table.shape[1]), dtype=np.float32)
-    _f32_c(out, "out")
-    if out.shape != (idx.shape[0], table.shape[1]):
-        raise ValueError(f"out has shape {out.shape}, expected {(idx.shape[0], table.shape[1])}")
-    load_lib().gather_rows_f32(
-        table.ctypes.data, idx.ctypes.data, out.ctypes.data,
-        idx.shape[0], table.shape[1], table.shape[0],
-    )
+    out, ptr, bf16 = rows_out(out, idx.shape[0], table.shape[1])
+    load_lib().gather_rows(table.ctypes.data, idx.ctypes.data, ptr, idx.shape[0], table.shape[1], table.shape[0],
+                           bf16)
     return out
 
 

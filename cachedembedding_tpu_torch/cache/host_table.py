@@ -74,7 +74,9 @@ class DenseHostTable:
     def dim(self) -> int:
         return self.array.shape[1]
 
-    def gather(self, idx: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    def gather(self, idx: np.ndarray, out=None):
+        """Rows ``idx`` into ``out`` (``hostops.rows_out``: f32, or a bf16
+        tensor rounded to nearest even), a new f32 array by default."""
         return hostops.gather_rows(self.array, idx, out)
 
     def scatter(self, idx: np.ndarray, vals: np.ndarray) -> None:
@@ -103,8 +105,8 @@ class DenseAccumStore:
         self.arr = np.full((int(num_rows),), initial, np.float32)
         self.initial = float(initial)
 
-    def gather(self, idx: np.ndarray) -> np.ndarray:
-        return self.arr[np.asarray(idx, np.int64)]
+    def gather(self, idx: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+        return np.take(self.arr, np.asarray(idx, np.int64), out=out)
 
     def scatter(self, idx: np.ndarray, vals: np.ndarray) -> None:
         self.arr[np.asarray(idx, np.int64)] = np.asarray(vals, np.float32).reshape(-1)
@@ -123,19 +125,16 @@ class OverlayAccumStore:
         self._h = self._lib.overlay_create(1, 0, 0, capacity_hint)
         self.initial = float(initial)
 
-    def written_mask(self, idx: np.ndarray) -> np.ndarray:
+    def gather(self, idx: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The accumulators of rows ``idx`` (``initial`` where never written),
+        one native call of one probe a row, into ``out`` (a C-contiguous
+        (n,) float32 array) or a new array."""
         idx = np.ascontiguousarray(idx, np.int64)
-        out = np.empty((idx.shape[0],), np.uint8)
-        self._lib.overlay_contains(self._h, idx.ctypes.data, out.ctypes.data, idx.shape[0])
-        return out.astype(np.bool_)
-
-    def gather(self, idx: np.ndarray) -> np.ndarray:
-        idx = np.ascontiguousarray(idx, np.int64)
-        out = np.empty((idx.shape[0], 1), np.float32)
-        bounds = np.zeros((idx.shape[0],), np.float32)  # unwritten rows: overwritten below
-        self._lib.overlay_gather_f32(self._h, idx.ctypes.data, bounds.ctypes.data, out.ctypes.data, idx.shape[0])
-        out = out.reshape(-1)
-        out[~self.written_mask(idx)] = self.initial
+        if out is None:
+            out = np.empty((idx.shape[0],), np.float32)
+        if out.shape != idx.shape or out.dtype != np.float32 or not out.flags.c_contiguous:
+            raise ValueError(f"out must be a C-contiguous ({idx.shape[0]},) float32 array")
+        self._lib.overlay_gather_or_fill(self._h, idx.ctypes.data, idx.shape[0], self.initial, out.ctypes.data)
         return out
 
     def scatter(self, idx: np.ndarray, vals: np.ndarray) -> None:
@@ -201,16 +200,15 @@ class VirtualHostTable:
     def row_bounds(self, idx: np.ndarray) -> np.ndarray:
         return row_bounds_of(self.table_offsets, self._bounds, idx)
 
-    def gather(self, idx: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    def gather(self, idx: np.ndarray, out=None):
+        """Rows ``idx`` (written rows from the overlay, the others made by the
+        canonical generator with their table's bound) in one multithreaded
+        native pass into ``out`` (``hostops.rows_out``: f32, or a bf16
+        tensor rounded to nearest even), a new f32 array by default."""
         idx = np.ascontiguousarray(idx, np.int64)
-        if out is None:
-            out = np.empty((idx.shape[0], self._dim), np.float32)
-        if out.shape != (idx.shape[0], self._dim) or out.dtype != np.float32 or not out.flags.c_contiguous:
-            raise ValueError("out must be a C-contiguous (n, dim) float32 array")
-        bounds = np.ascontiguousarray(self.row_bounds(idx), np.float32)
-        self._lib.overlay_gather_f32(
-            self._h, idx.ctypes.data, bounds.ctypes.data, out.ctypes.data, idx.shape[0]
-        )
+        out, ptr, bf16 = hostops.rows_out(out, idx.shape[0], self._dim)
+        self._lib.overlay_gather_rows(self._h, idx.ctypes.data, idx.shape[0], self.table_offsets.ctypes.data,
+                                      self._bounds.ctypes.data, len(self._bounds), ptr, bf16)
         return out
 
     def scatter(self, idx: np.ndarray, vals: np.ndarray) -> None:

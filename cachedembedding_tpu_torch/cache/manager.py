@@ -86,7 +86,7 @@ from cachedembedding_tpu_torch.cache.state import (
 from cachedembedding_tpu_torch.jagged import RaggedFeatures
 from cachedembedding_tpu_torch.ops.embedding_bag import embedding_bag
 from cachedembedding_tpu_torch.ops.synth_rows import scatter_synth_admits
-from cachedembedding_tpu_torch.utils.spans import ADMIT_ACCUM, CHECK_RANGE, Spans
+from cachedembedding_tpu_torch.utils.spans import ADMIT_ACCUM, ADMIT_ROWS, CHECK_RANGE, Spans
 
 CACHE_DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
@@ -141,6 +141,11 @@ class CacheStats:
     # previous host->device copy
     id_stage_windows: int = 0
     id_stage_waits: int = 0
+    # device planner: chunks of admits whose rows (and accumulators) took the
+    # native gather into a reused pinned buffer, and reuses of those buffers
+    # that waited on their previous host->device copy
+    admit_stage_chunks: int = 0
+    admit_stage_waits: int = 0
 
     def hit_rate(self, window: int = 0) -> float:
         """Hits over lookups of unique ids, over the last ``window`` planned
@@ -160,8 +165,37 @@ class CacheStats:
             f"swap_in={self.swap_in_bytes / gib:.3f}GiB @ {in_bw:.2f}GiB/s "
             f"swap_out={self.swap_out_bytes / gib:.3f}GiB @ {out_bw:.2f}GiB/s "
             f"synth_rows={self.synth_rows} "
-            f"id_stage_windows={self.id_stage_windows} id_stage_waits={self.id_stage_waits}"
+            f"id_stage_windows={self.id_stage_windows} id_stage_waits={self.id_stage_waits} "
+            f"admit_stage_chunks={self.admit_stage_chunks} admit_stage_waits={self.admit_stage_waits}"
         )
+
+
+class StagingTurns:
+    """Host memory for one kind of host->device payload: on CUDA two pinned
+    buffers used in turns, each reused once the copy that read it last has
+    run (the caller records ``event`` after that copy); on the CPU a fresh
+    tensor each time, which is the payload itself."""
+
+    def __init__(self, dtype: torch.dtype, on_cuda: bool):
+        self.dtype, self.on_cuda = dtype, on_cuda
+        self.bufs = [(torch.empty((0,), dtype=dtype), torch.cuda.Event() if on_cuda else None) for _ in range(2)]
+        self.turn = 0
+
+    def take(self, n: int, grow_to: int = 0):
+        """(n,) host memory, the event to record after its copy, and whether
+        it had to wait for the copy that read it last; a buffer smaller
+        than n is replaced by one of max(n, grow_to)."""
+        if not self.on_cuda:
+            return torch.empty((n,), dtype=self.dtype), None, False
+        buf, event = self.bufs[self.turn]
+        waited = not event.query()
+        if waited:
+            event.synchronize()
+        if buf.numel() < n:
+            buf = torch.empty((max(n, grow_to),), dtype=self.dtype, pin_memory=True)
+        self.bufs[self.turn] = (buf, event)
+        self.turn ^= 1
+        return buf[:n], event, waited
 
 
 class WindowStaging(NamedTuple):
@@ -433,10 +467,11 @@ class CachedEmbeddingBag:
         self._wb_exec = ThreadPoolExecutor(max_workers=1)
         self._wb_futures: list = []  # (future, evicted row ids)
         self._pending_wb: list = []  # (evicted rows, host values, event) not yet submitted
-        # device planner, CUDA: two pinned int32 id buffers used in turns, each
-        # with the event recorded after the host->device copy that read it last
-        self._id_bufs = [(torch.empty((0,), dtype=torch.int32), None) for _ in range(2)]
-        self._id_buf_turn = 0
+        # device planner: a window's ids, admitted rows and their accumulators
+        # in host memory reused from window to window (pinned on CUDA)
+        self._id_stage = StagingTurns(torch.int32, self._on_cuda)
+        self._row_stage = StagingTurns(self._row_dtype, self._on_cuda)
+        self._accum_stage = StagingTurns(torch.float32, self._on_cuda)
 
         if self.resident_total:
             self._init_resident_region()
@@ -525,12 +560,8 @@ class CachedEmbeddingBag:
             )
             self.stats.synth_rows += n_fresh
         if n_fresh < k:
-            rows = self.host_table.gather(top[written])
-            slots_dev = self.to_device(slots[written].astype(np.int64))
-            scatter_admits(self.cache_weight, slots_dev, self.to_device(torch.from_numpy(rows).to(self._row_dtype)))
             # trained warm rows resume with their accumulators (a restored checkpoint)
-            self._land_accum(slots_dev, top[written])
-            self.stats.swap_in_bytes += rows.nbytes
+            self._land_host_rows(self.to_device(slots[written].astype(np.int64)), top[written])
         self.stats.swap_in_time += time.perf_counter() - t0
 
     # -- mixed-kernel resident region -----------------------------------------
@@ -551,11 +582,17 @@ class CachedEmbeddingBag:
                 self._seed, col_start=self.col_start,
             )
         if written.any():
-            vals = self.host_table.gather(rows[written])
-            addrs_dev = self.to_device(addrs[written])
-            scatter_admits(self.cache_weight, addrs_dev, self.to_device(torch.from_numpy(vals).to(self._row_dtype)))
-            self._land_accum(addrs_dev, rows[written])
-            self.stats.swap_in_bytes += vals.nbytes
+            self._land_host_rows(self.to_device(addrs[written]), rows[written])
+
+    def _land_host_rows(self, addrs_dev: torch.Tensor, rows: np.ndarray) -> None:
+        """Host-table ``rows`` into device ``addrs_dev``, gathered straight into
+        the rows' transfer dtype (bf16 rounded as torch rounds), with their
+        accumulators under Adagrad."""
+        vals = torch.empty((rows.shape[0], self.dim_stored), dtype=self._row_dtype)
+        self.host_table.gather(rows, out=vals)
+        scatter_admits(self.cache_weight, addrs_dev, self.to_device(vals))
+        self._land_accum(addrs_dev, rows)
+        self.stats.swap_in_bytes += rows.shape[0] * self.dim_stored * 4
 
     def _land_accum(self, addrs_dev: torch.Tensor, rows: np.ndarray) -> None:
         """Adagrad: the host accumulators of ``rows`` into device ``addrs_dev``."""
@@ -870,10 +907,8 @@ class CachedEmbeddingBag:
         """The device planner's host ids, range-checked (ValueError, nothing
         enqueued) and copied to the device as one int32 stream. Int32 arrays
         take one native pass (``hostops.concat_minmax_i32``, span
-        ``cache.check_range``) into a pinned buffer, of two used in turns
-        and each reused once the copy that read it last has run; on the CPU
-        a fresh array, which is the stream itself. Other dtypes are checked
-        before their cast, so that no id wraps into range."""
+        ``cache.check_range``) into a ``StagingTurns`` buffer. Other dtypes
+        are checked before their cast, so that no id wraps into range."""
         parts = ids if isinstance(ids, (list, tuple)) and all(
             isinstance(p, (np.ndarray, torch.Tensor)) for p in ids) else [ids]
         parts = [np.asarray(p).reshape(-1) for p in parts]
@@ -882,39 +917,14 @@ class CachedEmbeddingBag:
             self._check_range(ids_np, device_planner=True)
             return self.to_device(ids_np.astype(np.int32))
         n = sum(p.shape[0] for p in parts)
-        buf, event = self._id_stage_buffer(n)
+        buf, event, waited = self._id_stage.take(n)
+        self.stats.id_stage_waits += waited
         with self.spans(CHECK_RANGE):
             lo, hi = hostops.concat_minmax_i32([np.ascontiguousarray(p) for p in parts], buf.numpy())
         if n:
             self._check_min_max(lo, hi, device_planner=True)
         self.stats.id_stage_windows += 1
-        self.stats.h2d_bytes += buf.nbytes
-        if event is None:
-            return buf
-        ids_dev = buf.to(self.device, non_blocking=True)
-        event.record(torch.cuda.current_stream(self.device))
-        return ids_dev
-
-    def _id_stage_buffer(self, n: int):
-        """(n,) int32 host memory for a window's ids and the event to record
-        after its copy: on CUDA the next of the two pinned buffers, grown to
-        n where it is smaller, once the copy that read it last has run
-        (``stats.id_stage_waits`` counts the times that had to be waited
-        for); on the CPU a fresh array and no event."""
-        if not self._on_cuda:
-            return torch.empty((n,), dtype=torch.int32), None
-        turn = self._id_buf_turn
-        self._id_buf_turn ^= 1
-        buf, event = self._id_bufs[turn]
-        if event is None:
-            event = torch.cuda.Event()
-        elif not event.query():
-            self.stats.id_stage_waits += 1
-            event.synchronize()
-        if buf.numel() < n:
-            buf = torch.empty((n,), dtype=torch.int32, pin_memory=True)
-        self._id_bufs[turn] = (buf, event)
-        return buf[:n], event
+        return self._staged_to_device(buf, event)
 
     def finish_prepare(self, pw: PreparedWindow) -> None:
         """Move a planned window's rows: wait for its readback (the event
@@ -924,7 +934,10 @@ class CachedEmbeddingBag:
         rows (copied to pinned memory for the drain thread) and the scatters
         of the admitted rows fetched from the host table, with, under
         row-wise Adagrad, their accumulators from the host store (span
-        ``cache.admit_accum``)."""
+        ``cache.admit_accum``). A chunk's rows take one multithreaded native
+        gather (span ``cache.admit_rows``) straight into the window's
+        ``StagingTurns`` buffer in the rows' transfer dtype, which the
+        host->device copy reads; its accumulators one call into another."""
         if pw.events:
             pw.events[2].synchronize()
         scal = pw.host_scalars.numpy()
@@ -951,6 +964,17 @@ class CachedEmbeddingBag:
         self._ensure_clean(admit_rows, block=False)
         wb_dtype = torch.bfloat16 if self.transfer_mode == "bfloat16" else None
         chunk = self.buffer_size if self.buffer_size > 0 else n_miss
+        D = self.dim_stored
+        # the window's rows and accumulators land in reused host memory, chunk
+        # after chunk; a buffer grows by whole chunks
+        cap = -(-n_miss // chunk) * chunk
+        rows_buf, rows_event, waited = self._row_stage.take(n_miss * D, grow_to=cap * D)
+        rows_buf = rows_buf.view(n_miss, D)
+        self.stats.admit_stage_waits += waited
+        acc_buf = acc_event = None
+        if self.cache_accum is not None:
+            acc_buf, acc_event, waited = self._accum_stage.take(n_miss, grow_to=cap)
+            self.stats.admit_stage_waits += waited
         n_wb = 0
         for s in range(0, n_miss, chunk):
             e = min(s + chunk, n_miss)
@@ -959,19 +983,31 @@ class CachedEmbeddingBag:
                 self._enqueue_gather(evict_rows[s:e][mask], admit_slots[s:e][mask], wb_dtype)
                 n_wb += int(mask.sum())
             t0 = time.perf_counter()
-            with self._host_lock:
-                vals = self.host_table.gather(admit_rows[s:e])
+            with self.spans(ADMIT_ROWS):
+                with self._host_lock:
+                    self.host_table.gather(admit_rows[s:e], out=rows_buf[s:e])
             slots = pw.plan.indices[1, s:e].long()
-            scatter_admits(self.cache_weight, slots, self.to_device(torch.from_numpy(vals).to(self._row_dtype)))
-            if self.cache_accum is not None:  # after this chunk's writeback gathers read the slots' old values
+            scatter_admits(self.cache_weight, slots, self._staged_to_device(rows_buf[s:e], rows_event))
+            if acc_buf is not None:  # after this chunk's writeback gathers read the slots' old values
                 with self.spans(ADMIT_ACCUM):
                     with self._host_lock:
-                        acc = self.host_accum.gather(admit_rows[s:e])
-                    self.cache_accum.index_copy_(0, slots, self.to_device(acc))
+                        self.host_accum.gather(admit_rows[s:e], out=acc_buf[s:e].numpy())
+                    self.cache_accum.index_copy_(0, slots, self._staged_to_device(acc_buf[s:e], acc_event))
+            self.stats.admit_stage_chunks += 1
             self.stats.swap_in_bytes += (e - s) * self.embedding_dim * 4
             self.stats.swap_in_time += time.perf_counter() - t0
         self.stats.num_write_back_history.append(n_wb)
         self._submit_writebacks()
+
+    def _staged_to_device(self, host: torch.Tensor, event) -> torch.Tensor:
+        """Asynchronous copy of a slice of a ``StagingTurns`` buffer to the
+        device, ``event`` recorded after it (on the CPU the slice itself)."""
+        self.stats.h2d_bytes += host.nbytes
+        if event is None:
+            return host
+        dev = host.to(self.device, non_blocking=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return dev
 
     # -- bare-module API --------------------------------------------------------
     def prepare_ids(self, ids) -> torch.Tensor:

@@ -37,13 +37,15 @@ CHECK_RANGE = "cache.check_range"          # child of PLAN_HOST: the ids' range 
 # one pass that copies the window's ids into the staging buffer)
 READBACK_WAIT = "cache.readback_wait"      # device planner: the host blocked on the plan's readback
 ADMIT = "cache.admit"                      # admits and writebacks gathered and enqueued
+ADMIT_ROWS = "cache.admit_rows"            # child of ADMIT (device planner): the admits' rows gathered from the
+# host table into the staging buffer, the wait for the host table's lock included
 ADMIT_ACCUM = "cache.admit_accum"          # child of ADMIT (device planner, row-wise Adagrad): the admits'
 # accumulators gathered from the host store and enqueued
 FORWARD_BACKWARD = "step.forward_backward"  # children of DISPATCH, a step each
 EMBEDDING_UPDATE = "step.embedding_update"
 DENSE_UPDATE = "step.dense_update"
 NAMES = (FETCH, STAGE, ENCODE, PACK, SORT_PLANS, SHIP, DISPATCH, PLAN_HOST, CHECK_RANGE, READBACK_WAIT, ADMIT,
-         ADMIT_ACCUM, FORWARD_BACKWARD, EMBEDDING_UPDATE, DENSE_UPDATE)
+         ADMIT_ROWS, ADMIT_ACCUM, FORWARD_BACKWARD, EMBEDDING_UPDATE, DENSE_UPDATE)
 # the parts of a window's host time (``TrainReport.window_host_s``): no two overlap
 HOST_PARTS = (FETCH, STAGE, PLAN_HOST, ENCODE, PACK, SORT_PLANS, SHIP, READBACK_WAIT, ADMIT)
 

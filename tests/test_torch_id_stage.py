@@ -8,14 +8,19 @@ On the CPU: the pass against ``np.concatenate(...).astype(np.int32)`` and
 numpy's min and max; the range check on the pass's min and max, made before
 anything is planned; ids of other dtypes checked before their cast; the
 trainer on windows of three sizes against the concatenated path it
-replaced. The ``chip`` test holds the two pinned buffers' reuse on the card:
-run it there with ``python3 -m pytest tests/test_torch_id_stage.py -m chip
---noconftest`` (this file imports no JAX)."""
+replaced. The ``chip`` tests hold the two pinned buffers' reuse on the card,
+and the admits' staging pass (``tests/test_torch_admit_stage.py``) against
+the torch path it replaced: run them there with ``python3 -m pytest
+tests/test_torch_id_stage.py -m chip --noconftest`` (this file imports no
+JAX)."""
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from admit_stage_ref import parent_finish_prepare
 from cachedembedding_tpu_torch._native import hostops
 from cachedembedding_tpu_torch.cache import manager
 from cachedembedding_tpu_torch.cache.manager import CachedEmbeddingBag
@@ -233,7 +238,7 @@ def test_pinned_buffers_are_reused_and_waited_for_on_the_card(card):
         torch.cuda.synchronize(card)
         assert ids_dev.device == card and ids_dev.dtype == torch.int32
         np.testing.assert_array_equal(ids_dev.cpu().numpy(), np.concatenate(parts))
-        ptrs.append(bag._id_bufs[(len(ptrs)) % 2][0].data_ptr())
+        ptrs.append(bag._id_stage.bufs[(len(ptrs)) % 2][0].data_ptr())
     assert ptrs[2:] == ptrs[:2] and ptrs[0] != ptrs[1]
     assert bag.stats.id_stage_windows == 4 and bag.stats.id_stage_waits == 0
     a, b, c = (_parts((1914,), seed=s) for s in (10, 11, 12))
@@ -248,5 +253,45 @@ def test_pinned_buffers_are_reused_and_waited_for_on_the_card(card):
     # a window larger than the buffers grows the one it takes
     big = _parts((5000, 3000), seed=13)
     np.testing.assert_array_equal(bag._host_ids_to_device(big).cpu().numpy(), np.concatenate(big))
-    assert bag._id_bufs[0][0].numel() == 8000 or bag._id_bufs[1][0].numel() == 8000
+    assert bag._id_stage.bufs[0][0].numel() == 8000 or bag._id_stage.bufs[1][0].numel() == 8000
     bag.close()
+
+
+@pytest.mark.chip
+def test_admits_reach_the_card_bit_equal_to_the_torch_path(card):
+    """The device planner's admits on the card (``tests/test_torch_admit_stage.py``
+    holds them on the CPU): two bags of 128-wide bf16 rows over a virtual
+    table, bf16 transfers, row-wise Adagrad, a cache that evicts and admits
+    rows again, in chunks of 1,000; one bag on the staging pass, the other
+    on the parent's admit loop (host f32 gather, torch's cast, a pinned
+    copy). Each window's rows and accumulators are moved alike on both; the
+    cache rows and accumulators stay bit-equal after every window, and the
+    host table and store after ``flush``; every chunk takes the pass and no
+    buffer reuse waits."""
+    bags = [CachedEmbeddingBag(N, 128, device=card, cache_ratio=0.03, warmup_ratio=0.0, buffer_size=1000,
+                               planner="device", optimizer="rowwise_adagrad", weight_init="virtual",
+                               dtype=torch.bfloat16, transfer_dtype="bfloat16") for _ in range(2)]
+    bags[1].finish_prepare = types.MethodType(parent_finish_prepare, bags[1])
+    rng = np.random.default_rng(21)
+    touched = []
+    for w in range(12):
+        ids = (N * rng.random(3000) ** 3).astype(np.int32)
+        touched.append(ids)
+        for bag in bags:
+            slots = bag.prepare_ids(ids).long()
+            bag.cache_weight.index_add_(0, slots, torch.full((slots.numel(), 128), 0.0625, dtype=torch.bfloat16,
+                                                             device=card))
+            bag.cache_accum.index_add_(0, slots, torch.full((slots.numel(),), 0.5, device=card))
+        assert torch.equal(bags[0].cache_weight, bags[1].cache_weight), w
+        assert torch.equal(bags[0].cache_accum, bags[1].cache_accum), w
+    st = bags[0].stats
+    assert sum(st.num_write_back_history) > 0
+    assert st.admit_stage_chunks == sum(-(-m // 1000) for m in st.num_miss_history) > 12
+    assert st.admit_stage_waits == 0
+    rows = np.unique(np.concatenate(touched)).astype(np.int64)
+    for bag in bags:
+        bag.flush()
+    np.testing.assert_array_equal(bags[0].host_table.gather(rows), bags[1].host_table.gather(rows))
+    np.testing.assert_array_equal(bags[0].host_accum.gather(rows), bags[1].host_accum.gather(rows))
+    for bag in bags:
+        bag.close()

@@ -29,7 +29,7 @@ STEPS = ("step.forward_backward", "step.embedding_update", "step.dense_update")
 # each planner's spans in every training window
 NAMES = {
     "device": {"trainer.fetch", "trainer.stage", "cache.plan_host", "cache.check_range", "cache.readback_wait",
-               "cache.admit", "trainer.dispatch", *STEPS},
+               "cache.admit", "cache.admit_rows", "trainer.dispatch", *STEPS},
     "host": {"trainer.fetch", "trainer.stage", "cache.plan_host", "cache.check_range", "trainer.encode_ids",
              "trainer.pack", "trainer.sort_plans", "trainer.ship", "cache.admit", "trainer.dispatch", *STEPS},
 }
@@ -77,6 +77,7 @@ def test_host_parts_fit_in_the_host_window(planner, runs):
         assert 0.0 < parts <= host_s + 1e-4
         # children within their parents
         assert entry["cache.check_range"] <= entry["cache.plan_host"]
+        assert entry.get("cache.admit_rows", 0.0) <= entry["cache.admit"]
         assert sum(entry[k] for k in STEPS) <= entry["trainer.dispatch"]
 
 
@@ -123,6 +124,7 @@ def test_spans_are_function_records_under_the_profiler(planner):
         assert len(by[name]) == 2 * P
         assert all(_ancestors(e)[0] == "trainer.dispatch" for e in by[name])
     assert all("cache.plan_host" in _ancestors(e) for e in by["cache.check_range"])
+    assert all(_ancestors(e)[0] == "cache.admit" for e in by.get("cache.admit_rows", []))
     # the window's parts are top-level spans: none inside another span
     for name in ("trainer.fetch", "cache.plan_host", "cache.admit", "trainer.dispatch"):
         assert all(not set(_ancestors(e)) & set(spans.NAMES) for e in by[name])
