@@ -12,7 +12,10 @@ that the window's first two training windows start from is read back;
 then one continuous ``train`` call is timed, up to its eviction
 writebacks' drain and a device synchronize, with one read-back of the
 state inside it, when the trainer pulls the batch after those two
-windows. With ``--trace 1`` the trainer then trains ten more windows, the
+windows. ``setup_s`` is the time from process start to that call less the
+seconds spent in ``Stream.batches``: the harness's own batch making, whose
+count follows the program's rate, is no set-up of the program's. With
+``--trace 1`` the trainer then trains ten more windows, the
 last eight under ``torch.profiler``, whose trace feeds the per-layer
 metrics that read the device; those that read the program's spans and
 counters read the timed window's. After the window the program is freed
@@ -368,9 +371,17 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     say(f"trainer built: {cfg.total_num_embeddings:,} rows x {cfg.embedding_dim}, "
         f"{c.config['embedding']}, rows stored in {c.config['cache']['cache_dtype']}")
     warm = max(3, int(c.config["warmup_iters"] if warmup_iters is None else warmup_iters))
-    t = time.perf_counter()
-    warm_batches = c.stream.batches(0, warm)
-    gen_s = time.perf_counter() - t
+    gen_s = 0.0  # seconds in Stream.batches, left out of setup_s
+
+    def make_batches(start: int, n: int, **kw):
+        nonlocal gen_s
+        _sync(device)  # the program's queued work stays the program's
+        t = time.perf_counter()
+        out = c.stream.batches(start, n, **kw)
+        gen_s += time.perf_counter() - t
+        return out
+
+    warm_batches = make_batches(0, warm)
     prefix = run_prefix(c, warm_batches)
     first3 = warm_batches[:3]
     say(f"steps 1-3 read back; losses {prefix['losses']}")
@@ -394,12 +405,10 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     steps = n_win * pn
     say(f"warm-up {warm} iterations, the last {last} at {it_s:.2f} it/s after their first window: "
         f"the window gets {n_win} windows of {pn}")
-    t = time.perf_counter()
-    batches = c.stream.batches(warm, steps)
-    tail, uniq = c.stream.batches(warm + steps, TRACE_WINDOWS * pn, unique=True) if traced else (None, None)
-    gen_s += time.perf_counter() - t
+    batches = make_batches(warm, steps)
+    tail, uniq = make_batches(warm + steps, TRACE_WINDOWS * pn, unique=True) if traced else (None, None)
     say(f"batch making: {gen_s:.2f} s for {warm + len(batches) + len(tail or [])} batches "
-        f"(set-up, outside the window)")
+        f"(outside the window and out of set-up)")
     del warm_batches
     # the check's stretch: the state before the timed call, and (in the
     # call) when the trainer pulls the first batch after the stretch
@@ -421,7 +430,8 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     feed = Feed(batches, pn, at_window)
     gc.collect()
     gc.freeze()  # the harness's own heap (the window's batches) out of the collector's way
-    setup_s = time.perf_counter() - T_START
+    to_window = time.perf_counter() - T_START
+    setup_s = to_window - gen_s
     t0 = time.perf_counter()
     rep = c.trainer.train(feed, num_iters=steps)
     drain = getattr(c.trainer.embed, "_drain_writebacks", None)
@@ -479,7 +489,8 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
             metrics[m["name"]] = {"value": e2e[m["name"]][0], "unit": m["unit"]}
     say(f"window intervals: {len(intervals)}, median {statistics.median(intervals) * 1e3:.1f} ms, "
         f"p95 {stats.percentile(intervals, 95) * 1e3:.1f} ms; {stats.rate(steps * B, wall):.0f} examples/s; "
-        f"peak {peak / GIB:.4f} GiB; set-up {setup_s:.2f} s")
+        f"peak {peak / GIB:.4f} GiB; set-up {setup_s:.3f} s ({to_window:.3f} s to the first timed step, less "
+        f"{gen_s:.3f} s of batch making)")
     run = Run(cfg=cfg, cached=c.config["embedding"] == "cached", batch_size=B,
               steps=steps, windows=n_win, seconds=wall, examples_per_s=stats.rate(steps * B, wall), report=rep,
               stats=window_stats, row_bytes=c.trainer.embed.cache_weight.element_size(),

@@ -18,8 +18,13 @@ MS = {
     "readback_wait_ms_per_window": ("cache.readback_wait",),
     "admit_host_ms_per_window": ("cache.admit",),
     "dispatch_host_ms_per_window": ("trainer.dispatch",),
+    "admit_rows_host_ms_per_window": ("cache.admit_rows",),
 }
-NEW = [*MS, "link_mb_per_window", "idle_outside_dispatch_share"]
+# the metrics added together with the program's spans, in their order in BENCHMARK.json
+SPAN_METRICS = ["stage_host_ms_per_window", "plan_host_ms_per_window", "readback_wait_ms_per_window",
+                "admit_host_ms_per_window", "dispatch_host_ms_per_window", "link_mb_per_window",
+                "idle_outside_dispatch_share"]
+CACHED_CELLS = [CELL, "dcnv2-mlperf-s050"]
 
 
 def _run(window_spans=None, stats=None, tr=None, cached=True, windows=4):
@@ -78,12 +83,17 @@ def test_idle_outside_dispatch_reader():
 
 
 def test_the_new_metrics_are_appended_entries():
+    """The span metrics stand together, in their order, wherever later
+    entries put them; each moves the rate, and each that lists its cells
+    lists both cells of the cached trainer, where its span or counter is
+    read."""
     bench = spec.load_benchmark()
     names = [m["name"] for m in bench["per_layer"]]
-    assert names[-len(NEW):] == NEW
-    for m in bench["per_layer"][-len(NEW):]:
+    at = names.index(SPAN_METRICS[0])
+    assert names[at:at + len(SPAN_METRICS)] == SPAN_METRICS
+    for m in bench["per_layer"][at:at + len(SPAN_METRICS)]:
         assert m["moves"] == "examples_per_s"
-        assert m.get("workloads", [CELL]) == [CELL]
+        assert m.get("workloads", CACHED_CELLS) == CACHED_CELLS
 
 
 def test_span_readers_read_a_tiny_cell():
